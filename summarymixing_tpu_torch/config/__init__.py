@@ -1,0 +1,22 @@
+"""Recipe schema and loader of the port."""
+
+from summarymixing_tpu_torch.config.loader import build_model, load_recipe
+from summarymixing_tpu_torch.config.schema import (
+    DecodingConfig,
+    FeaturesConfig,
+    ModelConfig,
+    RecipeConfig,
+    TrainingConfig,
+    TransducerConfig,
+)
+
+__all__ = [
+    "DecodingConfig",
+    "FeaturesConfig",
+    "ModelConfig",
+    "RecipeConfig",
+    "TrainingConfig",
+    "TransducerConfig",
+    "load_recipe",
+    "build_model",
+]

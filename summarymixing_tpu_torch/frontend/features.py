@@ -1,0 +1,132 @@
+"""Speech features — the port of `Fbank`, `NormStats` and
+`InputNormalization` (the `update=False` path) from
+`summarymixing_tpu/frontend/features.py`.
+
+Fbank: centered framing with zero padding, ONE float32 matmul of the frames
+against the hamming-windowed DFT basis, power spectrum, HTK-mel filterbank,
+10·log10 with an 80 dB cap below each utterance's peak. The basis and the
+filterbank are built in numpy float64 and rounded to float32 exactly as
+the JAX package builds them. The JAX Fbank's other options (f_min, f_max,
+top_db, power) keep their defaults here, the values the recipes use.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+TOP_DB = 80.0   # dynamic range kept below each utterance's peak
+
+
+def _dft_basis(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
+    k = np.arange(n_fft // 2 + 1)[:, None]
+    n = np.arange(n_fft)[None, :]
+    ang = -2.0 * np.pi * k * n / n_fft
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+def _windowed_basis(n_fft: int, win_length: int) -> np.ndarray:
+    """`[win_length, 2·(n_fft//2+1)]`: hamming window times [cos | sin]."""
+    cos_b, sin_b = _dft_basis(n_fft)
+    w = (0.54 - 0.46 * np.cos(2.0 * np.pi * np.arange(win_length) / win_length)
+         ).astype(np.float32)
+    basis = (np.concatenate([cos_b[:, :win_length], sin_b[:, :win_length]], axis=0)
+             * w[None, :])
+    return np.ascontiguousarray(basis.T.astype(np.float32))
+
+
+def _hz_to_mel(hz):
+    return 2595.0 * np.log10(1.0 + np.asarray(hz) / 700.0)
+
+
+def _mel_to_hz(mel):
+    return 700.0 * (10.0 ** (np.asarray(mel) / 2595.0) - 1.0)
+
+
+def mel_filterbank(n_mels: int = 80, n_fft: int = 512, sample_rate: int = 16000) -> np.ndarray:
+    """Triangular HTK-mel filterbank matrix `[n_fft//2+1, n_mels]` over
+    0 Hz to the Nyquist frequency."""
+    mel_pts = np.linspace(_hz_to_mel(0.0), _hz_to_mel(sample_rate / 2), n_mels + 2)
+    hz_pts = _mel_to_hz(mel_pts)
+    bins = np.linspace(0, sample_rate / 2, n_fft // 2 + 1)
+    fb = np.zeros((n_fft // 2 + 1, n_mels), np.float32)
+    for m in range(n_mels):
+        left, center, right = hz_pts[m], hz_pts[m + 1], hz_pts[m + 2]
+        up = (bins - left) / max(center - left, 1e-10)
+        down = (right - bins) / max(right - center, 1e-10)
+        fb[:, m] = np.maximum(0.0, np.minimum(up, down))
+    return fb
+
+
+class Fbank(nn.Module):
+    """Log-mel filterbank features: wav `[B, N]` -> `[B, 1 + N//hop, n_mels]`.
+    The basis and filterbank are buffers on the device the module is built
+    on (or moved to)."""
+
+    def __init__(self, sample_rate: int = 16000, n_fft: int = 512,
+                 win_length_ms: float = 32.0, hop_length_ms: float = 10.0, n_mels: int = 80):
+        super().__init__()
+        self.sample_rate, self.n_fft, self.n_mels = sample_rate, n_fft, n_mels
+        self.win_length = int(round(sample_rate * win_length_ms / 1000.0))
+        self.hop_length = int(round(sample_rate * hop_length_ms / 1000.0))
+        if self.win_length > n_fft:
+            raise ValueError("win_length > n_fft")
+        self.register_buffer("basis", torch.as_tensor(_windowed_basis(n_fft, self.win_length)),
+                             persistent=False)
+        self.register_buffer("mel_fb", torch.as_tensor(
+            mel_filterbank(n_mels, n_fft, sample_rate)), persistent=False)
+
+    def frame_lengths(self, sample_lengths: torch.Tensor) -> torch.Tensor:
+        return 1 + sample_lengths // self.hop_length
+
+    def stft_magnitude(self, wav: torch.Tensor) -> torch.Tensor:
+        """wav `[B, N]` -> power spectrum `[B, 1 + N//hop, n_fft//2 + 1]`."""
+        n = wav.shape[1]
+        t_out = 1 + n // self.hop_length
+        half = self.win_length // 2
+        right = max(0, (t_out - 1) * self.hop_length + self.win_length - n - half)
+        frames = F.pad(wav.to(torch.float32), (half, right)).unfold(
+            1, self.win_length, self.hop_length)[:, :t_out]
+        y = torch.matmul(frames, self.basis)
+        f = self.n_fft // 2 + 1
+        return y[..., :f] ** 2 + y[..., f:] ** 2
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        mel = torch.matmul(self.stft_magnitude(wav), self.mel_fb)
+        db = 10.0 * torch.log10(mel.clamp_min(1e-10))
+        cap = db.amax(dim=(1, 2), keepdim=True) - TOP_DB
+        return torch.maximum(db, cap)
+
+
+class NormStats:
+    """Running global mean/variance as a dict of tensors (count, mean, m2)."""
+
+    @staticmethod
+    def init(dim: int, device=None) -> dict:
+        return {"count": torch.zeros((), dtype=torch.float32, device=device),
+                "mean": torch.zeros(dim, dtype=torch.float32, device=device),
+                "m2": torch.zeros(dim, dtype=torch.float32, device=device)}
+
+    @staticmethod
+    def mean_std(stats: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        mean = stats["mean"]
+        var = stats["m2"] / (stats["count"] - 1.0).clamp_min(1.0)
+        std = torch.sqrt(var.clamp_min(1e-10))
+        # fresh stats (count 0): neutral normalization
+        seen = stats["count"] > 0
+        return (torch.where(seen, mean, torch.zeros_like(mean)),
+                torch.where(seen, std, torch.ones_like(std)))
+
+
+class InputNormalization:
+    """Global mean/variance normalization with frozen statistics: the JAX
+    module's `update=False` path, which needs no pad mask. Updating the
+    statistics is training work, still to port."""
+
+    def __call__(self, x: torch.Tensor, stats: dict) -> Tuple[torch.Tensor, dict]:
+        mean, std = NormStats.mean_std(stats)
+        return (x - mean) / std, stats

@@ -1,0 +1,65 @@
+"""Branchformer encoder with a SummaryMixing token-mixing branch — the port
+of `summarymixing_tpu/models/branchformer.py` (unrolled `layer_{i}` layout).
+
+Each layer runs LayerNorm -> SummaryMixing beside LayerNorm -> cgMLP,
+merges the two with `SummaryNet(summary_hid_dim + (d_model,))` over
+`cat([x1, x2])`, and adds the residual. The stack ends in a LayerNorm with
+eps 1e-6; the layers' norms use 1e-5.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from summarymixing_tpu_torch.models.mixers import apply_mixer, make_mixer
+from summarymixing_tpu_torch.ops.convolution import ConvolutionBranch
+from summarymixing_tpu_torch.ops.linear import SummaryNet
+
+
+class BranchformerEncoderLayer(nn.Module):
+    def __init__(self, d_model: int, nhead: int, kernel_size: int = 31,
+                 attention_type: str = "SummaryMixing", csgu_linear_units: int = 3072,
+                 gate_activation: Optional[str] = None, use_linear_after_conv: bool = False,
+                 local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
+                 summary_hid_dim: Sequence[int] = (1024,), summary_out_dim: int = 1024,
+                 mode: str = "SummaryMixing", activation: str = "gelu_exact"):
+        super().__init__()
+        self.attention_type = attention_type
+        self.mixer = make_mixer(
+            attention_type, d_model, nhead, local_proj_hid_dim=local_proj_hid_dim,
+            local_proj_out_dim=local_proj_out_dim, summary_hid_dim=summary_hid_dim,
+            summary_out_dim=summary_out_dim, mode=mode, activation=activation)
+        self.merge_proj = SummaryNet(summary_out_dim + d_model,
+                                     tuple(summary_hid_dim) + (d_model,), activation=activation)
+        self.norm_mhsa = nn.LayerNorm(d_model, eps=1e-5)
+        self.convolution_branch = ConvolutionBranch(
+            d_model, csgu_linear_units, kernel_size, activation, gate_activation,
+            use_linear_after_conv)
+        self.norm_conv = nn.LayerNorm(d_model, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x1 = apply_mixer(self.mixer, self.attention_type, self.norm_mhsa(x),
+                         attn_mask=src_mask, pad_mask=pad_mask)
+        x2 = self.convolution_branch(self.norm_conv(x), pad_mask=pad_mask)
+        return x + self.merge_proj(torch.cat([x1, x2], dim=-1))
+
+
+class BranchformerEncoder(nn.Module):
+    """Stack of `BranchformerEncoderLayer`s (`layer_0` ...) + final `norm`."""
+
+    def __init__(self, num_layers: int, d_model: int, nhead: int, **layer_kwargs):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", BranchformerEncoderLayer(d_model, nhead, **layer_kwargs))
+        self.norm = nn.LayerNorm(d_model, eps=1e-6)
+
+    def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer_{i}")(x, src_mask, pad_mask)
+        return self.norm(x)

@@ -1,0 +1,35 @@
+"""Token-mixer selection — the SummaryMixing route of `make_mixer` /
+`apply_mixer` from `summarymixing_tpu/models/mixers.py`. The attention
+mixers (regularMHA, RelPosMHAXL, hypermixing) are still to port."""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from summarymixing_tpu_torch.ops.masks import combine_padding
+from summarymixing_tpu_torch.ops.summary_mixing import SummaryMixing
+
+
+def make_mixer(attention_type: str, d_model: int, nhead: int, *,
+               local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
+               summary_hid_dim: Sequence[int] = (1024,), summary_out_dim: int = 1024,
+               mode: str = "SummaryMixing", activation: str = "gelu_exact") -> SummaryMixing:
+    if attention_type != "SummaryMixing":
+        raise NotImplementedError(
+            f"mixer {attention_type!r} is not ported; see ROADMAP.md, 'Modules still to port'")
+    return SummaryMixing(
+        enc_dim=d_model, nhead=nhead, local_proj_hid_dim=tuple(local_proj_hid_dim),
+        local_proj_out_dim=local_proj_out_dim, summary_hid_dim=tuple(summary_hid_dim),
+        summary_out_dim=summary_out_dim, activation=activation, mode=mode)
+
+
+def apply_mixer(mixer: SummaryMixing, attention_type: str, x: torch.Tensor, *,
+                attn_mask: Optional[torch.Tensor] = None,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run the mixer; attn_mask doubles as the SummaryMixing sum_mask, with
+    padded columns embedded so summaries count only valid frames."""
+    if attention_type != "SummaryMixing":
+        raise NotImplementedError(f"mixer {attention_type!r} is not ported")
+    return mixer(x, sum_mask=combine_padding(attn_mask, pad_mask), pad_mask=pad_mask)

@@ -1,0 +1,164 @@
+"""The whole Branchformer cgMLP branch: plain PyTorch version, weight
+flattener and the CUDA kernel's wrapper.
+
+    h         = gelu_tanh(x·W_pre + b_pre)                    (D -> 2C)
+    res, gate = h[..., :C], h[..., C:]
+    gate      = LayerNorm(gate) · mask                         (fp32 stats)
+    gate      = depthwise_conv(gate, K taps, zero outside [0, T)) + conv_b
+    out       = (res · gate)·W_post + b_post                   (C -> D)
+
+Source note (csrc/csgu.cu):
+
+- Replaces the TPU kernel `summarymixing_tpu/ops/pallas_csgu.py`,
+  `_kernel` through `fused_convolution_branch`.
+- Bound on the H100: operations. At the flagship shapes (B=8, T=751,
+  D=512, 2C=3072, K=31) the two products are ≈ 28.3 GFLOP and the conv
+  taps ≈ 0.6 GFLOP, against ≈ 17 MB that a fused kernel must move.
+- Design: the Pallas kernel keeps a `[tile + 30, 3072]` fp32 block in
+  VMEM, about 1.1 MB for a 64-frame tile, far beyond the 227 KB of shared
+  memory a Hopper block has. This first version runs in three launches:
+  (1) a hand-written bf16 WMMA GEMM `x·W_preᵀ + b_pre` with tanh-GELU in
+  its epilogue, to a bf16 `[B, T, 2C]` scratch; (2) a block per
+  (utterance, 32-frame tile) takes LayerNorm statistics of each gate row
+  in fp32, zeroes rows that are padding or outside `[0, T)` (so they reach
+  the conv as zero, not as the LayerNorm bias), runs the K-tap depthwise
+  conv with its halo in registers, adds the bias and multiplies by `res`,
+  to a bf16 `[B, T, C]` scratch; (3) the same GEMM for `·W_postᵀ + b_post`.
+  The 2C-wide intermediate goes through device memory; keeping it on chip
+  is later work. The bf16 scratches round where the TPU kernel keeps fp32.
+
+Matrices use `torch.nn.Linear`'s layout, `[out, in]`; the conv weight is
+`[K, C]` with tap 0 reading frame t - (K-1)/2.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from summarymixing_tpu_torch.ops import _build
+from summarymixing_tpu_torch.ops.linear import gelu_tanh
+
+KERNEL_SIZES = (15, 31)   # conv widths instantiated in csrc/csgu.cu
+WIDTH_MULTIPLE = 128      # GEMM tiles are 128 columns wide
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a · wᵀ with fp32 accumulation and an fp32 result (w is `[out, in]`)."""
+    return torch.matmul(a.to(torch.float32), w.to(torch.float32).t())
+
+
+def convolution_branch_reference(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                                 weights: Tuple, eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version of the kernel. x `[B, T, D]`; pad_mask `[B, T]`
+    float, 1 = valid, or None; weights `(W_pre, b_pre, ln_scale, ln_bias,
+    conv_w, conv_b, W_post, b_post)`."""
+    w_pre, b_pre, ln_w, ln_b, conv_w, conv_b, w_post, b_post = weights
+    f32 = torch.float32
+    h = gelu_tanh(_mm(x, w_pre) + b_pre.to(f32))
+    c = h.shape[-1] // 2
+    res, gate = h[..., :c], h[..., c:]
+    gate = F.layer_norm(gate, (c,), ln_w.to(f32), ln_b.to(f32), eps)
+    if pad_mask is not None:
+        gate = gate * pad_mask[..., None].to(f32)
+    k = conv_w.shape[0]
+    left = (k - 1) // 2
+    gate = F.pad(gate.transpose(1, 2), (left, k - 1 - left))
+    gate = F.conv1d(gate, conv_w.to(f32).t()[:, None, :], conv_b.to(f32), groups=c)
+    o = res * gate.transpose(1, 2)
+    return (_mm(o.to(x.dtype), w_post) + b_post.to(f32)).to(x.dtype)
+
+
+def branch_weights(branch) -> Tuple:
+    """Flatten a port `ConvolutionBranch` into the kernel's weight tuple:
+    bf16-capable matrices as they are, the vectors and the conv in fp32."""
+    csgu = branch.csgu
+    f32 = torch.float32
+    return (branch.pre_channel_proj.weight, branch.pre_channel_proj.bias.to(f32),
+            csgu.norm.weight.to(f32), csgu.norm.bias.to(f32),
+            csgu.conv_kernel.to(f32), csgu.conv_bias.to(f32),
+            branch.post_channel_proj.weight, branch.post_channel_proj.bias.to(f32))
+
+
+def _check(x, pad_mask, weights):
+    if (x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous()
+            or x.data_ptr() % 16):
+        raise ValueError(f"x must be a contiguous, 16-byte aligned bf16 [B, T, D] tensor, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    b, t, d = x.shape
+    w_pre, b_pre, ln_w, ln_b, conv_w, conv_b, w_post, b_post = weights
+    c2 = w_pre.shape[0]
+    c = c2 // 2
+    k = conv_w.shape[0]
+    if k not in KERNEL_SIZES:
+        raise NotImplementedError(f"the cgMLP kernel is built for conv widths "
+                                  f"{KERNEL_SIZES}, not {k}")
+    for name, w, shape in (("W_pre", w_pre, (c2, d)), ("W_post", w_post, (d, c))):
+        if (w.dtype != torch.bfloat16 or tuple(w.shape) != shape or not w.is_contiguous()
+                or w.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned bf16 {shape} "
+                             f"matrix, got {w.dtype} {tuple(w.shape)}")
+    for name, v, shape in (("b_pre", b_pre, (c2,)), ("ln_scale", ln_w, (c,)),
+                           ("ln_bias", ln_b, (c,)), ("conv_w", conv_w, (k, c)),
+                           ("conv_b", conv_b, (c,)), ("b_post", b_post, (d,))):
+        if v.dtype != torch.float32 or tuple(v.shape) != shape or not v.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor, got "
+                             f"{v.dtype} {tuple(v.shape)}")
+    if pad_mask is not None and (pad_mask.dtype != torch.float32
+                                 or tuple(pad_mask.shape) != (b, t)
+                                 or not pad_mask.is_contiguous()
+                                 or pad_mask.device != x.device):
+        raise ValueError(f"pad_mask must be a contiguous float32 [B, T] tensor on x's "
+                         f"device, got {pad_mask.dtype} {tuple(pad_mask.shape)} on "
+                         f"{pad_mask.device}")
+    if any(v.device != x.device for v in weights):
+        raise ValueError("weights and x must be on one device")
+    for name, width in (("D", d), ("C", c)):
+        if width % WIDTH_MULTIPLE:
+            raise ValueError(f"{name} width {width} is not a multiple of {WIDTH_MULTIPLE}")
+    return b, t, d, c2, k
+
+
+def _declare(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.csgu_forward
+    # x, mask, B, T, D, 2C, K, W_pre, b_pre, ln_w, ln_b, eps, conv_w, conv_b,
+    # W_post, b_post, h scratch, gate scratch, out, stream
+    fn.argtypes = [p, p] + [i] * 5 + [p] * 4 + [ctypes.c_float] + [p] * 8
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_convolution_branch(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                             weights: Tuple, eps: float = 1e-5) -> torch.Tensor:
+    """The fused cgMLP branch. On a CPU tensor this is the plain version; on
+    a CUDA tensor it launches the kernel or raises.
+    `fused_convolution_branch.launches` counts kernel launches."""
+    if x.device.type == "cpu":
+        return convolution_branch_reference(x, pad_mask, weights, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    b, t, d, c2, k = _check(x, pad_mask, weights)
+    if pad_mask is None:
+        pad_mask = torch.ones(b, t, dtype=torch.float32, device=x.device)
+    w_pre, b_pre, ln_w, ln_b, conv_w, conv_b, w_post, b_post = weights
+    h = torch.empty(b, t, c2, dtype=x.dtype, device=x.device)
+    g = torch.empty(b, t, c2 // 2, dtype=x.dtype, device=x.device)
+    out = torch.empty(b, t, d, dtype=x.dtype, device=x.device)
+    fn = _declare(_build.load_library("csgu"))
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), pad_mask.data_ptr(), b, t, d, c2, k,
+                 w_pre.data_ptr(), b_pre.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), eps,
+                 conv_w.data_ptr(), conv_b.data_ptr(), w_post.data_ptr(), b_post.data_ptr(),
+                 h.data_ptr(), g.data_ptr(), out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"cgMLP kernel launch failed with CUDA error {err}")
+    fused_convolution_branch.launches += 1
+    return out
+
+
+fused_convolution_branch.launches = 0

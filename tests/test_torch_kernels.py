@@ -1,0 +1,253 @@
+"""The port's two kernel modules against the JAX package on the CPU.
+
+Each kernel's plain PyTorch version is held against the Pallas kernel in
+interpret mode and against its jnp twin, and the port's modules against
+the flax modules, float32, tolerance 2e-5 (as tests/test_pallas_*.py).
+On the CPU the wrappers take the plain version. The kernels themselves
+run only on a card (tests/test_torch_card.py); the checks their wrappers
+make before a launch are plain Python and are tested here.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from summarymixing_tpu.ops import pallas_csgu as jcsgu
+from summarymixing_tpu.ops import pallas_summary as jps
+from summarymixing_tpu.ops.convolution import ConvolutionBranch as JConvolutionBranch
+from summarymixing_tpu.ops.summary_mixing import SummaryMixing as JSummaryMixing
+from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+from summarymixing_tpu_torch.ops.convolution import ConvolutionBranch
+from summarymixing_tpu_torch.ops.summary_mixing import SummaryMixing
+from summarymixing_tpu_torch.utils.convert import load_jax_params
+
+TOL = 2e-5
+GELU = {"gelu": functools.partial(jax.nn.gelu, approximate=True),
+        "gelu_exact": functools.partial(jax.nn.gelu, approximate=False)}
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _close(got, want, tol=TOL):
+    if isinstance(want, torch.Tensor):
+        want = want.detach().numpy()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=tol, rtol=tol)
+
+
+def _pad(lengths, t):
+    return (np.arange(t)[None, :] < np.asarray(lengths)[:, None]).astype(np.float32)
+
+
+def _cell_weights(rng, d=32, h=24, o=16, out=32):
+    """JAX layout ([in, out] matrices), as tests/test_pallas_summary.py."""
+    def w(*shape):
+        return (rng.standard_normal(shape) * 0.2).astype(np.float32)
+    return (w(d, h), w(h), w(h, o), w(o), w(d, h), w(h), w(h, o), w(o),
+            w(o, out), w(o, out), w(out))
+
+
+def _to_port_layout(weights):
+    return tuple(_t(a.T if a.ndim == 2 else a) for a in weights)
+
+
+@pytest.mark.parametrize("lengths", [[10, 6], [10, 1]])
+def test_summary_reference_matches_pallas_interpret_and_jnp(rng, lengths):
+    b, t, d = 2, 10, 32
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    pad = _pad(lengths, t)[..., None]
+    weights = _cell_weights(rng)
+    jw = tuple(jnp.asarray(a) for a in weights)
+    want = jps._jnp_reference(jnp.asarray(x), jnp.asarray(pad), jw)
+    orig = jps.pl.pallas_call
+    jps.pl.pallas_call = functools.partial(orig, interpret=True)
+    try:
+        with jax.disable_jit():
+            kernel = jps._pallas_forward(jnp.asarray(x), jnp.asarray(pad), jw)
+    finally:
+        jps.pl.pallas_call = orig
+    # the Pallas kernel hard-codes erf-GELU (through a rational erf)
+    got = fused_summary.summary_mixing_reference(_t(x), _t(pad), _to_port_layout(weights),
+                                                 "gelu_exact")
+    _close(got, want)
+    _close(got, kernel)
+
+
+@pytest.mark.parametrize("activation", ["gelu", "gelu_exact"])
+def test_summary_mixing_module_matches_flax(rng, activation):
+    b, t, d = 3, 9, 32
+    cell = JSummaryMixing(enc_dim=d, nhead=1, local_proj_hid_dim=(24,), local_proj_out_dim=16,
+                          summary_hid_dim=(24,), summary_out_dim=16, mode="SummaryMixing",
+                          activation=GELU[activation])
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    pad = _pad([9, 5, 2], t)
+    x[1, 5:] = 7.7   # poison the padding
+    params = cell.init(jax.random.PRNGKey(0), jnp.asarray(x), pad_mask=jnp.asarray(pad))
+    want = cell.apply(params, jnp.asarray(x), pad_mask=jnp.asarray(pad))
+    port = load_jax_params(
+        SummaryMixing(d, 1, (24,), 16, (24,), 16, activation=activation), params)
+    _close(port(_t(x), pad_mask=_t(pad)), want)
+    # the kernel's plain version computes the same cell from the flattened weights
+    got = fused_summary.fused_summary_mixing(
+        _t(x), _t(pad)[..., None], fused_summary.params_to_weights(port), activation)
+    _close(got, want)
+    jw = jps.params_to_weights(params["params"], dtype=jnp.float32)
+    for mine, theirs in zip(fused_summary.params_to_weights(port), jw):
+        _close(mine.T if mine.dim() == 2 else mine, theirs, 0)
+
+
+def test_summary_mixing_multihead_and_sum_mask_match_flax(rng):
+    b, t, d = 2, 8, 32
+    cell = JSummaryMixing(enc_dim=d, nhead=4, local_proj_hid_dim=(16,), local_proj_out_dim=16,
+                          summary_hid_dim=(24, 16), summary_out_dim=16, mode="SummaryMixing")
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    pad = _pad([8, 5], t)
+    causal = np.tril(np.ones((t, t), np.float32))
+    params = cell.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    port = load_jax_params(SummaryMixing(d, 4, (16,), 16, (24, 16), 16), params)
+    for sm in (None, causal):
+        want = cell.apply(params, jnp.asarray(x), sum_mask=None if sm is None else jnp.asarray(sm),
+                          pad_mask=jnp.asarray(pad))
+        got = port(_t(x), sum_mask=None if sm is None else _t(sm), pad_mask=_t(pad))
+        _close(got, want)
+    with pytest.raises(NotImplementedError):
+        SummaryMixing(d, mode="SummaryMixing-lite")
+
+
+def _branch_params(rng, d, units, k):
+    branch = JConvolutionBranch(input_size=d, linear_units=units, kernel_size=k,
+                                activation=GELU["gelu"], dropout_rate=0.0)
+    x = jnp.zeros((1, 4, d), jnp.float32)
+    params = branch.init(jax.random.PRNGKey(0), x)["params"]
+    # non-trivial LayerNorm and conv parameters, so a padded frame that
+    # reached the conv as the LayerNorm bias would show
+    csgu = dict(params["csgu"])
+    csgu["norm"] = {"scale": jnp.asarray(1 + 0.3 * rng.standard_normal(units // 2), jnp.float32),
+                    "bias": jnp.asarray(0.5 * rng.standard_normal(units // 2), jnp.float32)}
+    csgu["conv_kernel"] = jnp.asarray(0.3 * rng.standard_normal((k, units // 2)), jnp.float32)
+    params = dict(params, csgu=csgu)
+    return branch, params
+
+
+@pytest.mark.parametrize("t,lengths", [(16, [16, 9]), (20, [13, 1])])
+def test_convolution_branch_matches_pallas_interpret_and_flax(rng, t, lengths):
+    d, units, k = 16, 32, 5
+    branch, params = _branch_params(rng, d, units, k)
+    x = rng.standard_normal((2, t, d)).astype(np.float32)
+    mask = _pad(lengths, t)
+    for row, n in enumerate(lengths):
+        x[row, n:] = 7.7   # poison the padding
+    want = branch.apply({"params": params}, jnp.asarray(x), pad_mask=jnp.asarray(mask))
+    kernel = jcsgu.fused_convolution_branch(jnp.asarray(x), jnp.asarray(mask), params,
+                                            kernel_size=k, tile=8, interpret=True)
+    port = load_jax_params(ConvolutionBranch(d, units, k, activation="gelu"), params)
+    plain = fused_csgu.convolution_branch_reference(_t(x), _t(mask),
+                                                    fused_csgu.branch_weights(port))
+    module = port(_t(x), pad_mask=_t(mask))
+    _close(plain, kernel)
+    _close(module, want)
+    _close(plain, want)
+    # padding invariance: more padding leaves the valid frames alone
+    x2 = np.concatenate([x, np.full((2, 8, d), -3.3, np.float32)], axis=1)
+    mask2 = np.concatenate([mask, np.zeros((2, 8), np.float32)], axis=1)
+    plain2 = fused_csgu.fused_convolution_branch(_t(x2), _t(mask2),
+                                                 fused_csgu.branch_weights(port))
+    for row, n in enumerate(lengths):
+        _close(plain2[row, :n], plain[row, :n])
+
+
+@pytest.mark.parametrize("linear_after_conv,gate", [(True, None), (False, "gelu")])
+def test_convolution_branch_options_match_flax(rng, linear_after_conv, gate):
+    """Options of the CPU path that the kernel does not take (on a CUDA
+    tensor the module raises for them)."""
+    d, units, k, t = 16, 32, 5, 12
+    jbranch = JConvolutionBranch(
+        input_size=d, linear_units=units, kernel_size=k, activation=GELU["gelu"],
+        gate_activation=GELU[gate] if gate else (lambda v: v),
+        use_linear_after_conv=linear_after_conv, dropout_rate=0.0)
+    x = rng.standard_normal((2, t, d)).astype(np.float32)
+    mask = _pad([12, 7], t)
+    params = jbranch.init(jax.random.PRNGKey(0), jnp.asarray(x), pad_mask=jnp.asarray(mask))
+    want = jbranch.apply(params, jnp.asarray(x), pad_mask=jnp.asarray(mask))
+    port = load_jax_params(
+        ConvolutionBranch(d, units, k, activation="gelu", gate_activation=gate,
+                          use_linear_after_conv=linear_after_conv), params)
+    _close(port(_t(x), pad_mask=_t(mask)), want)
+
+
+def test_wrappers_take_plain_version_on_cpu_only(rng):
+    x = _t(rng.standard_normal((2, 6, 32)))
+    pad = torch.ones(2, 6, 1)
+    weights = _to_port_layout(_cell_weights(rng))
+    before = fused_summary.fused_summary_mixing.launches
+    _close(fused_summary.fused_summary_mixing(x, pad, weights, "gelu"),
+           fused_summary.summary_mixing_reference(x, pad, weights, "gelu").numpy())
+    assert fused_summary.fused_summary_mixing.launches == before
+    with pytest.raises(ValueError):
+        fused_summary.fused_summary_mixing(x.to("meta"), pad.to("meta"), weights, "gelu")
+    with pytest.raises(ValueError):
+        fused_csgu.fused_convolution_branch(x.to("meta"), None, weights)
+
+
+
+def _cell_inputs(d=128):
+    bf = torch.bfloat16
+    sq, vec = torch.zeros(d, d, dtype=bf), torch.zeros(d, dtype=bf)
+    merge = torch.zeros(d, 2 * d, dtype=bf)
+    weights = (sq, vec, sq, vec, sq, vec, sq, vec, merge[:, :d], merge[:, d:], vec)
+    return torch.zeros(2, 5, d, dtype=bf), torch.ones(2, 5, 1), weights, "gelu"
+
+
+def _branch_inputs(c2=512, k=31):
+    d, bf = 128, torch.bfloat16
+    weights = (torch.zeros(c2, d, dtype=bf), torch.zeros(c2), torch.ones(c2 // 2),
+               torch.zeros(c2 // 2), torch.zeros(k, c2 // 2), torch.zeros(c2 // 2),
+               torch.zeros(d, c2 // 2, dtype=bf), torch.zeros(d))
+    return torch.zeros(2, 5, d, dtype=bf), torch.ones(2, 5), weights
+
+
+def _replace(seq, i, value):
+    return tuple(value if j == i else v for j, v in enumerate(seq))
+
+
+def _bad_call(case):
+    """(check, good arguments, bad arguments, the error the bad ones raise)."""
+    if case.startswith("cell"):
+        x, pad, w, act = good = _cell_inputs()
+        misaligned = torch.zeros(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape)
+        bad = {"cell_x_float32": (x.float(), pad, w, act),
+               "cell_x_misaligned": (misaligned, pad, w, act),
+               "cell_pad_2d": (x, pad[..., 0], w, act),
+               "cell_pad_bf16": (x, pad.bfloat16(), w, act),
+               "cell_w1_transposed": (x, pad, _replace(w, 0, w[0].t()), act),
+               "cell_width_96": _cell_inputs(96),
+               "cell_activation_relu": (x, pad, w, "relu")}[case]
+        error = NotImplementedError if case == "cell_activation_relu" else ValueError
+        return fused_summary._check, good, bad, error
+    x, mask, w = good = _branch_inputs()
+    bad = {"branch_conv_width_5": _branch_inputs(k=5),
+           "branch_units_192": _branch_inputs(c2=192),
+           "branch_b_pre_bf16": (x, mask, _replace(w, 1, w[1].bfloat16())),
+           "branch_mask_3d": (x, mask[..., None], w),
+           "branch_w_post_transposed": (x, mask, _replace(w, 6, w[6].t()))}[case]
+    error = NotImplementedError if case == "branch_conv_width_5" else ValueError
+    return fused_csgu._check, good, bad, error
+
+
+@pytest.mark.parametrize("case", [
+    "cell_x_float32", "cell_x_misaligned", "cell_pad_2d", "cell_pad_bf16",
+    "cell_w1_transposed", "cell_width_96", "cell_activation_relu",
+    "branch_conv_width_5", "branch_units_192", "branch_b_pre_bf16", "branch_mask_3d",
+    "branch_w_post_transposed"])
+def test_wrappers_refuse_what_the_kernels_do_not_take(case):
+    """The checks each wrapper makes before a launch, run on CPU tensors
+    (the wrappers reach them only for CUDA tensors)."""
+    check, good, bad, error = _bad_call(case)
+    check(*good)
+    with pytest.raises(error):
+        check(*bad)
