@@ -9,11 +9,17 @@ Phases (any failure exits non-zero):
    name and power limit from nvidia-smi, and turn TF32 off for matmuls and
    convolutions so the plain versions compute in full float32.
 2. Build: compile every kernel source with nvcc (all at once) into the
-   ignored `build/kernels/`; print build seconds and the ptxas report.
+   ignored `build/kernels/`; print build seconds and the ptxas report, and
+   fail if any kernel spills registers.
 3. Kernels against their plain versions at the flagship shapes (B=8, T=751,
    ragged lengths): the SummaryMixing cell with erf and tanh GELU, the cgMLP
-   branch with tanh GELU. Prints errors against stated tolerances, kernel and
-   plain times (CUDA events) and the bound for the same work.
+   branch with tanh GELU. Prints errors against stated tolerances and the
+   bound for the same work. Kernel times come from a CUDA graph of 20 calls
+   replayed between CUDA events, so the wrappers' host work cannot set them
+   (the eager per-call time is printed beside); each pass's device time by
+   kernel name comes from torch.profiler, beside its own bound; cuBLAS
+   (`torch.nn.functional.linear`) is timed at the cgMLP's two product shapes
+   as a yardstick the port never calls.
 4. Main path: the flagship Branchformer-SummaryMixing (18 layers, d512,
    vocab 5000, bf16, seeded random weights and NormStats) serves 4 requests
    of 8 synthetic 5-30 s utterances through `batch_waveforms` and
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -84,6 +91,70 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Per-call device time of `fn`: a CUDA graph of `calls` calls, captured
+    once and replayed `replays` times between CUDA events."""
+    import torch
+
+    fn()   # anything built or declared on first use happens outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def pass_us(fn, calls: int = 20) -> dict:
+    """Device microseconds per call of each kernel `fn` launches, by kernel
+    name, from torch.profiler over `calls` eager calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            out[e.key] = out.get(e.key, 0.0) + us / calls
+    return out
+
+
+def report_passes(kernel: str, measured: dict, passes: list) -> list:
+    """Match each (label, key regex, bound ms, bound by, library ms) pass to
+    the profiler's kernel names; print and return the rows."""
+    rows = []
+    for label, key, bound_ms, by, lib_ms in passes:
+        hits = [us for name, us in measured.items() if re.search(key, name)]
+        if len(hits) != 1:
+            fail(f"{kernel}: pass {label} ({key!r}) matched {len(hits)} profiled kernels: "
+                 f"{sorted(measured)}")
+        ms = hits[0] / 1e3
+        rows.append(dict(name=label, ms=ms, bound_ms=bound_ms, bound_by=by,
+                         share_of_bound=bound_ms / ms, library_ms=lib_ms))
+        lib = f", cuBLAS {lib_ms:.4f} ms" if lib_ms is not None else ""
+        print(f"  pass {kernel}.{label}: {ms:.4f} ms device, bound {bound_ms:.4f} ms ({by}), "
+              f"{100 * bound_ms / ms:.1f}% of bound{lib}")
+    total = sum(r["ms"] for r in rows)
+    print(f"  passes {kernel}: {total:.4f} ms summed device time per call")
+    return rows
+
+
 def rel_err(got, want) -> tuple:
     import torch
 
@@ -126,6 +197,9 @@ def phase_build():
         for line in r["ptxas"].splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", r["ptxas"])]
+        if any(spills):
+            fail(f"csrc/{name}.cu: a kernel spills registers (ptxas report above)")
 
 
 def phase_kernels():
@@ -164,7 +238,9 @@ def phase_kernels():
         if not ok:
             fail(f"summary_mixing[{act}] disagrees with its plain version")
         rows[act] = abs_err
-    ms = cuda_ms(lambda: fused_summary.fused_summary_mixing(x, pad, cell, "gelu"))
+    cell_call = lambda: fused_summary.fused_summary_mixing(x, pad, cell, "gelu")  # noqa: E731
+    ms = graph_ms(cell_call)
+    eager_ms = cuda_ms(cell_call)
     plain_ms = cuda_ms(lambda: fused_summary.summary_mixing_reference(x, pad, cell, "gelu"))
     m, valid = b * t, int(mask.sum())
     cell_bytes = (x.numel() * 2 + pad.numel() * 4 + m * d * 2
@@ -173,9 +249,23 @@ def phase_kernels():
     # row is masked out of the mean, so its output is the per-utterance bias.
     cell_flops = 2 * valid * d * d * 5 + 2 * b * d * d
     cell_bound, cell_by = bound(cell_bytes, cell_flops)
-    print(f"kernel summary_mixing: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {cell_bound:.4f} ms "
+    print(f"kernel summary_mixing: {ms:.4f} ms (graph), eager {eager_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {cell_bound:.4f} ms "
           f"({cell_by}: {cell_flops / 1e9:.2f} GFLOP over {valid} valid of {m} frames, "
           f"{cell_bytes / 1e6:.2f} MB)")
+    # Per-pass bounds from the shapes. The branch pass needs the five products
+    # over the valid frames, x's valid rows, the weights and the fp32
+    # pre-activation of the valid rows; the pool a 512 x 512 product per
+    # utterance; the finish pass reads pre and writes the output.
+    n_tiles = -(-t // 64)
+    mats = sum(v.numel() * 2 for v in cell[:8]) + d * d * 2
+    cell_passes = report_passes("summary_mixing", pass_us(cell_call), [
+        ("branch_pass", "branch_pass", *bound(valid * d * 2 + mats + valid * d * 4,
+                                               2 * valid * d * d * 5), None),
+        ("pool_pass", "pool_pass", *bound(b * n_tiles * d * 4 + d * d * 2 + m * 4 + b * d * 4,
+                                           2 * b * d * d), None),
+        ("finish_pass", "finish_pass", *bound(valid * d * 4 + m * 4 + b * d * 4 + m * d * 2, 0),
+         None)])
 
     branch = (w(c2, d), w(c2, scale=0.1, dtype=torch.float32),
               1.0 + w(c2 // 2, scale=0.1, dtype=torch.float32),
@@ -192,7 +282,9 @@ def phase_kernels():
           f"tol {CSGU_TOL:.3e} {'ok' if ok else 'FAILED'}")
     if not ok:
         fail("csgu disagrees with its plain version")
-    csgu_ms = cuda_ms(lambda: fused_csgu.fused_convolution_branch(x, mask, branch))
+    csgu_call = lambda: fused_csgu.fused_convolution_branch(x, mask, branch)  # noqa: E731
+    csgu_ms = graph_ms(csgu_call)
+    csgu_eager = cuda_ms(csgu_call)
     csgu_plain = cuda_ms(lambda: fused_csgu.convolution_branch_reference(x, mask, branch))
     csgu_bytes = (x.numel() * 2 + mask.numel() * 4 + m * d * 2
                   + sum(v.numel() * v.element_size() for v in branch))
@@ -201,21 +293,42 @@ def phase_kernels():
     csgu_flops = 2 * m * d * c2 + 2 * m * (c2 // 2) * d
     conv_flops = 2 * m * (c2 // 2) * k
     csgu_bound, csgu_by = bound(csgu_bytes, csgu_flops, conv_flops)
-    print(f"kernel csgu: {csgu_ms:.4f} ms, plain {csgu_plain:.4f} ms, bound {csgu_bound:.4f} ms "
+    print(f"kernel csgu: {csgu_ms:.4f} ms (graph), eager {csgu_eager:.4f} ms, "
+          f"plain {csgu_plain:.4f} ms, bound {csgu_bound:.4f} ms "
           f"({csgu_by}: {csgu_flops / 1e9:.2f} GFLOP bf16 + {conv_flops / 1e9:.2f} GFLOP fp32 "
           f"conv, {csgu_bytes / 1e6:.2f} MB)")
+    # cuBLAS at the two product shapes, a yardstick the port never calls
+    c = c2 // 2
+    x2 = x.reshape(m, d)
+    g2 = torch.randn(m, c, generator=g, device=dev).to(bf)
+    b_pre16, b_post16 = branch[1].to(bf), branch[7].to(bf)
+    lib_pre = graph_ms(lambda: torch.nn.functional.linear(x2, branch[0], b_pre16))
+    lib_post = graph_ms(lambda: torch.nn.functional.linear(g2, branch[6], b_post16))
+    # Per-pass bounds from the shapes: each product's operands and result once;
+    # the statistics read the valid rows' gate half; the gate pass reads the
+    # valid rows' gate half, every row's res half and writes g, and its conv
+    # taps run in fp32.
+    csgu_passes = report_passes("csgu", pass_us(csgu_call), [
+        # gemm_tma<stages, activation id>
+        ("gemm_pre (512->3072, tanh-GELU)", r"gemm_tma<\d+, 2>",
+         *bound(m * d * 2 + c2 * d * 2 + c2 * 4 + m * c2 * 2, 2 * m * d * c2), lib_pre),
+        ("ln_stats", "ln_stats", *bound(valid * c * 2 + m * 4 + valid * 8, 0), None),
+        ("gate_pass", "gate_pass", *bound(valid * c * 2 + m * c * 2 + m * 4 + valid * 8
+                                          + (k + 4) * c * 4 + m * c * 2, 0, conv_flops), None),
+        ("gemm_post (1536->512)", r"gemm_tma<\d+, 0>",
+         *bound(m * c * 2 + d * c * 2 + d * 4 + m * d * 2, 2 * m * c * d), lib_post)])
     return {
         "summary_mixing": dict(
             name="summary_mixing", route="cuda",
             source="summarymixing_tpu_torch/csrc/summary_mixing.cu",
             replaces="summarymixing_tpu/ops/pallas_summary.py:109",
-            max_abs_err=max(rows.values()), ms=ms, plain_ms=plain_ms, bound_ms=cell_bound,
-            bound_by=cell_by, library_ms=None),
+            max_abs_err=max(rows.values()), ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+            bound_ms=cell_bound, bound_by=cell_by, library_ms=None, passes=cell_passes),
         "csgu": dict(
             name="csgu", route="cuda", source="summarymixing_tpu_torch/csrc/csgu.cu",
             replaces="summarymixing_tpu/ops/pallas_csgu.py:126",
-            max_abs_err=abs_err, ms=csgu_ms, plain_ms=csgu_plain, bound_ms=csgu_bound,
-            bound_by=csgu_by, library_ms=None),
+            max_abs_err=abs_err, ms=csgu_ms, eager_ms=csgu_eager, plain_ms=csgu_plain,
+            bound_ms=csgu_bound, bound_by=csgu_by, library_ms=None, passes=csgu_passes),
     }
 
 

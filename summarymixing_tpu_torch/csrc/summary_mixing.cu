@@ -3,73 +3,222 @@
 //
 // Replaces the TPU kernel summarymixing_tpu/ops/pallas_summary.py
 // (_kernel via _pallas_forward / fused_summary_mixing). Bound on the H100:
-// operations (five bf16 products of [T x 512] by [512 x 512] per utterance).
+// operations (five bf16 products of [valid frames x 512] by [512 x 512]).
 // The TPU kernel holds an utterance in VMEM and carries the time sum through
 // its sequential grid; Hopper blocks run in parallel, so the cell runs in
 // three launches:
-//   (a) summary_pass: block per (utterance, 64-frame tile). h = act(x S1^T +
-//       c1) stays in shared memory as bf16; act(h S2^T + c2) * pad is summed
-//       over the tile's rows in fp32 and written as one partial row. No
-//       atomics: the result does not depend on block order.
-//   (b) pool_pass: block per utterance. pooled = sum of partials /
-//       max(sum pad, 1), rounded to bf16; bias = pooled M2^T + mb in fp32.
-//   (c) local_pass: block per tile. h = act(x W1^T + b1), local = act(h W2^T +
-//       b2) * pad (both bf16 in shared memory), out = act(local M1^T + bias).
-// Products are bf16 WMMA tiles with fp32 accumulation (common.cuh). The
-// ragged T edge is masked here: rows at or beyond T load as zero, carry
-// pad 0 and are never stored.
+//   (a) branch_pass: grid (64-frame tile, utterance, branch), 192 blocks at
+//       B=8, T=751, the local branch's blocks first: the scheduler starts
+//       them first, and they run three products to the summary's two.
+//       Each block chains its products on the wgmma + TMA core
+//       (gemm_sm90.cuh): the x tile arrives by TMA into a swizzled buffer,
+//       each epilogue writes the next product's A operand into shared memory
+//       in the same layout, and the weights stream through a 3-stage ring.
+//       Summary blocks: h = act(x S1^T + c1), then act(h S2^T + c2) * pad
+//       summed over the tile's rows in fp32, in a fixed order (no atomics),
+//       to one partial row. Local blocks: h = act(x W1^T + b1), local =
+//       act(h W2^T + b2) * pad (bf16, in the buffer x held), then the fp32
+//       pre-activation local M1^T to device memory. A tile with no valid
+//       frame computes no product: its partial row is zero and its output
+//       rows are act(bias), which (c) gives them.
+//   (b) pool_pass: block per (utterance, 32 output columns). pooled = sum
+//       of the partials in tile order / max(sum pad, 1), rounded to bf16;
+//       bias = pooled M2^T + mb in fp32.
+//   (c) finish_pass: out = act(pre + bias), with pre taken as 0 on a padded
+//       frame (its local row is zero, so local M1^T is exactly 0 there).
+// The ragged T edge: TMA fills frames past T with zeros, they carry pad 0
+// and are never stored.
 //
-// C interface: sm_forward(...) returns cudaGetLastError() after the launches.
+// C interface: sm_forward(...) returns 0, a CUDA error after the launches,
+// or cudaErrorInvalidValue for an unknown activation or a tensor map that
+// cannot be encoded.
 
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace smt {
 
-// shared memory carve-up shared by passes (a) and (c)
-struct PanelSmem {
-  int ldx, ldh;
-  size_t bytes;
-  __host__ __device__ PanelSmem(int xw, int hw) : ldx(xw + 8), ldh(hw + 8) {
-    bytes = (size_t)PM * ldx * 2 + (size_t)PM * ldh * 2 + (size_t)PN * kLdb * 2 +
-            (size_t)PM * kLdc * 4 + (size_t)PM * 4;
-  }
+constexpr int kTile = 64;                     // frames per block: one wgmma M
+constexpr int kChunk = 256;                   // output columns per ring stage, 128 per warpgroup
+constexpr int kStages = 3;
+constexpr int kMaxWidth = 512;                // widest operand a resident buffer holds
+constexpr uint32_t kBufBytes = kTile * kMaxWidth * 2;       // 64 KB, 8 swizzled k-blocks
+constexpr uint32_t kKBlockBytes = kTile * kLineBytes;       // 8 KB
+constexpr uint32_t kStageBytes = kChunk * kLineBytes;       // 32 KB
+constexpr size_t kBranchSmem = 2 * kBufBytes + kStages * kStageBytes + 512 + 1024;
+
+// Offset in a resident [64 x 512] operand of row r, column c0 + 8j + cq,
+// for a column start c0 that is a multiple of 128 (j known at compile time).
+__device__ __forceinline__ uint32_t chunk_offset(int r, int c0, int j, int cq) {
+  return (uint32_t)(((c0 >> 6) + (j >> 3)) * kKBlockBytes + r * kLineBytes +
+                    (((j & 7) ^ (r & 7)) << 4) + cq * 2);
+}
+
+struct Product {
+  const CUtensorMap* map;
+  int n, k;  // output columns, depth
 };
 
 template <int ACT>
-__global__ void __launch_bounds__(kThreads) summary_pass(
-    const bf16* __restrict__ x, const float* __restrict__ pad, int T, int D, int HS, int OS,
-    const bf16* __restrict__ s1, const bf16* __restrict__ c1, const bf16* __restrict__ s2,
-    const bf16* __restrict__ c2, float* __restrict__ partial) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const PanelSmem L(D, HS);
-  bf16* Xs = reinterpret_cast<bf16*>(smem);
-  bf16* Hs = Xs + PM * L.ldx;
-  bf16* Bs = Hs + PM * L.ldh;
-  float* Cs = reinterpret_cast<float*>(Bs + PN * kLdb);
-  float* pads = Cs + PM * kLdc;
-  const int b = blockIdx.y, tile = blockIdx.x, t0 = tile * PM;
+__global__ void __launch_bounds__(kCoreThreads, 1) branch_pass(
+    const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w1,
+    const __grid_constant__ CUtensorMap map_w2, const __grid_constant__ CUtensorMap map_s1,
+    const __grid_constant__ CUtensorMap map_s2, const __grid_constant__ CUtensorMap map_m1,
+    const float* __restrict__ pad, int T, int D, int HL, int OL, int HS, int OS, int N,
+    const bf16* __restrict__ b1, const bf16* __restrict__ b2, const bf16* __restrict__ c1,
+    const bf16* __restrict__ c2, float* __restrict__ partial, float* __restrict__ pre) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* xbuf = smem;                   // x, then the local branch output (or fp32 scratch)
+  uint8_t* hbuf = smem + kBufBytes;       // the hidden layer
+  uint8_t* ring = smem + 2 * kBufBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* xbar = empty + kStages;
+  float* pads = reinterpret_cast<float*>(xbar + 1);
+  const int tile = blockIdx.x, b = blockIdx.y, t0 = tile * kTile;
+  const bool summary = blockIdx.z == 1;  // local blocks first: they run three products
+  const int n_tiles = gridDim.x;
 
-  load_rows(Xs, L.ldx, x + (size_t)b * T * D, D, t0, T);
-  if (threadIdx.x < PM)
-    pads[threadIdx.x] = (t0 + threadIdx.x < T) ? pad[(size_t)b * T + t0 + threadIdx.x] : 0.0f;
+  float p = 0.0f;
+  if (threadIdx.x < kTile && t0 + (int)threadIdx.x < T) p = pad[(size_t)b * T + t0 + threadIdx.x];
+  if (threadIdx.x < kTile) pads[threadIdx.x] = p;
+  if (!__syncthreads_or(p != 0.0f)) {  // no valid frame: no product
+    if (summary)
+      for (int o = threadIdx.x; o < OS; o += kCoreThreads)
+        partial[((size_t)b * n_tiles + tile) * OS + o] = 0.0f;
+    return;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init(xbar, 1);
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  panel_gemm(Xs, L.ldx, s1, D, D, HS, Bs, Cs, [&](const float* C, int n0) {
-    for (int e = threadIdx.x; e < PM * PN; e += kThreads) {
-      const int r = e / PN, c = e % PN;
-      Hs[r * L.ldh + n0 + c] = __float2bfloat16(activate<ACT>(C[r * kLdc + c] + bf(c1[n0 + c])));
+  const Product prods[3] = {
+      summary ? Product{&map_s1, HS, D} : Product{&map_w1, HL, D},
+      summary ? Product{&map_s2, OS, HS} : Product{&map_w2, OL, HL},
+      Product{&map_m1, N, OL}};
+  const int n_prods = summary ? 2 : 3;
+  const int warp = threadIdx.x / 32;
+
+  if (warp == kConsumerWarps) {  // producer: x once, then every weight tile in order
+    if ((threadIdx.x & 31) == 0) {
+      mbar_expect_tx(xbar, (uint32_t)D * kTile * 2);
+      for (int kb = 0; kb < D / kBK; ++kb)
+        tma_load_3d(xbuf + kb * kKBlockBytes, &map_x, xbar, kb * kBK, t0, b);
+      RingPos pos;
+      for (int i = 0; i < n_prods; ++i)
+        for (int n0 = 0; n0 < prods[i].n; n0 += kChunk)
+          for (int kb = 0; kb < prods[i].k / kBK; ++kb) {
+            mbar_wait(&empty[pos.stage], pos.phase ^ 1u);
+            mbar_expect_tx(&full[pos.stage], kStageBytes);
+            tma_load_2d(ring + pos.stage * kStageBytes, prods[i].map, &full[pos.stage], kb * kBK,
+                        n0);
+            pos.next(kStages);
+          }
     }
-  });
-  panel_gemm(Hs, L.ldh, s2, HS, HS, OS, Bs, Cs, [&](const float* C, int n0) {
-    if (threadIdx.x < PN) {
-      const int c = threadIdx.x;
-      const float bias = bf(c2[n0 + c]);
-      float s = 0.0f;
-      for (int r = 0; r < PM; ++r) s += activate<ACT>(C[r * kLdc + c] + bias) * pads[r];
-      partial[((size_t)b * gridDim.x + tile) * OS + n0 + c] = s;
+    return;
+  }
+
+  // consumers: warpgroup wg computes columns [128 wg, 128 wg + 128) of each chunk
+  const int wg = warp / 4;
+  const uint32_t ring_u32 = smem_u32(ring);
+  const int r0 = acc_row(), cq = acc_col();
+  RingPos pos;
+  mbar_wait(xbar, 0);
+
+  // Run product i with A resident at `a`, calling epi(acc, first column of
+  // this warpgroup's 128) per chunk; then publish what the epilogues wrote
+  // before the next product reads it.
+  auto run = [&](int i, const uint8_t* a, auto epi) {
+    const uint32_t a_u32 = smem_u32(a);
+    for (int n0 = 0; n0 < prods[i].n; n0 += kChunk) {
+      float acc[1][64];
+#pragma unroll
+      for (int j = 0; j < 64; ++j) acc[0][j] = 0.0f;
+      consume<1>(
+          acc, prods[i].k / kBK, full, empty, kStages, pos,
+          [&](int kb, int) { return a_u32 + kb * kKBlockBytes; },
+          [&](int st) { return ring_u32 + st * kStageBytes + wg * 128 * kLineBytes; });
+      epi(acc[0], n0 + wg * 128);
     }
-  });
+    fence_async_smem();
+    consumers_sync();
+  };
+  // act(acc + bias) [* pad], rounded to bf16, into a swizzled A buffer
+  auto to_buffer = [&](uint8_t* dst, const bf16* bias, bool masked) {
+    return [=](float(&acc)[64], int c0) {
+      const float m0 = masked ? pads[r0] : 1.0f, m1 = masked ? pads[r0 + 8] : 1.0f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 bb =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + c0 + 8 * j + cq));
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float m = hh ? m1 : m0;
+          *reinterpret_cast<__nv_bfloat162*>(dst + chunk_offset(r0 + 8 * hh, c0, j, cq)) =
+              __floats2bfloat162_rn(activate<ACT>(acc[4 * j + 2 * hh] + bb.x) * m,
+                                    activate<ACT>(acc[4 * j + 2 * hh + 1] + bb.y) * m);
+        }
+      }
+    };
+  };
+
+  run(0, xbuf, to_buffer(hbuf, summary ? c1 : b1, false));
+  if (summary) {
+    // act(h S2^T + c2) * pad, summed over the tile's 64 rows: per thread over
+    // its 2 rows, across the 8 lanes of a column, then over the 4 warps in
+    // order through fp32 scratch in the x buffer (free once product 0 is done).
+    float* scratch = reinterpret_cast<float*>(xbuf) + wg * 4 * 128;
+    const int wq = warp % 4, lane = threadIdx.x & 31;
+    run(1, hbuf, [&](float(&acc)[64], int c0) {
+      const float p0 = pads[r0], p1 = pads[r0 + 8];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 bb =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(c2 + c0 + 8 * j + cq));
+        float s0 = activate<ACT>(acc[4 * j] + bb.x) * p0 + activate<ACT>(acc[4 * j + 2] + bb.x) * p1;
+        float s1 =
+            activate<ACT>(acc[4 * j + 1] + bb.y) * p0 + activate<ACT>(acc[4 * j + 3] + bb.y) * p1;
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        }
+        if (lane < 4) {
+          scratch[wq * 128 + 8 * j + cq] = s0;
+          scratch[wq * 128 + 8 * j + cq + 1] = s1;
+        }
+      }
+      warpgroup_sync(wg);
+      const int t = threadIdx.x % 128;
+      const float s = ((scratch[t] + scratch[128 + t]) + scratch[256 + t]) + scratch[384 + t];
+      partial[((size_t)b * n_tiles + tile) * OS + c0 + t] = s;
+      warpgroup_sync(wg);
+    });
+  } else {
+    run(1, hbuf, to_buffer(xbuf, b2, true));
+    run(2, xbuf, [&](float(&acc)[64], int c0) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = c0 + 8 * j + cq;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int t = t0 + r0 + 8 * hh;
+          if (t < T)
+            *reinterpret_cast<float2*>(pre + ((size_t)b * T + t) * N + col) =
+                make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+        }
+      }
+    });
+  }
 }
+
+constexpr int kPoolCols = 32;
 
 __global__ void __launch_bounds__(kThreads) pool_pass(
     const float* __restrict__ partial, const float* __restrict__ pad, int T, int n_tiles, int OS,
@@ -77,7 +226,8 @@ __global__ void __launch_bounds__(kThreads) pool_pass(
     float* __restrict__ bias) {
   extern __shared__ __align__(16) float pooled[];  // [OS]
   __shared__ float red[kThreads / 32];
-  const int b = blockIdx.x, lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int b = blockIdx.y, n_first = blockIdx.x * kPoolCols;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 
   float cnt = 0.0f;
   for (int t = threadIdx.x; t < T; t += kThreads) cnt += pad[(size_t)b * T + t];
@@ -95,7 +245,7 @@ __global__ void __launch_bounds__(kThreads) pool_pass(
   }
   __syncthreads();
   // one warp per output column: lanes walk row n of M2 (contiguous)
-  for (int n = warp; n < N; n += kThreads / 32) {
+  for (int n = n_first + warp; n < n_first + kPoolCols; n += kThreads / 32) {
     float acc = 0.0f;
     for (int o = lane; o < OS; o += 32) acc += pooled[o] * bf(m2[(size_t)n * ldm2 + o]);
     acc = warp_sum(acc);
@@ -104,47 +254,21 @@ __global__ void __launch_bounds__(kThreads) pool_pass(
 }
 
 template <int ACT>
-__global__ void __launch_bounds__(kThreads) local_pass(
-    const bf16* __restrict__ x, const float* __restrict__ pad, int T, int D, int HL, int OL, int N,
-    const bf16* __restrict__ w1, const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-    const bf16* __restrict__ b2, const bf16* __restrict__ m1, int ldm1,
-    const float* __restrict__ bias, bf16* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const PanelSmem L(D > OL ? D : OL, HL);
-  bf16* Xs = reinterpret_cast<bf16*>(smem);  // x, then the local branch output
-  bf16* Hs = Xs + PM * L.ldx;
-  bf16* Bs = Hs + PM * L.ldh;
-  float* Cs = reinterpret_cast<float*>(Bs + PN * kLdb);
-  float* pads = Cs + PM * kLdc;
-  const int b = blockIdx.y, t0 = blockIdx.x * PM;
-
-  load_rows(Xs, L.ldx, x + (size_t)b * T * D, D, t0, T);
-  if (threadIdx.x < PM)
-    pads[threadIdx.x] = (t0 + threadIdx.x < T) ? pad[(size_t)b * T + t0 + threadIdx.x] : 0.0f;
-  __syncthreads();
-
-  panel_gemm(Xs, L.ldx, w1, D, D, HL, Bs, Cs, [&](const float* C, int n0) {
-    for (int e = threadIdx.x; e < PM * PN; e += kThreads) {
-      const int r = e / PN, c = e % PN;
-      Hs[r * L.ldh + n0 + c] = __float2bfloat16(activate<ACT>(C[r * kLdc + c] + bf(b1[n0 + c])));
-    }
-  });
-  panel_gemm(Hs, L.ldh, w2, HL, HL, OL, Bs, Cs, [&](const float* C, int n0) {
-    for (int e = threadIdx.x; e < PM * PN; e += kThreads) {
-      const int r = e / PN, c = e % PN;
-      Xs[r * L.ldx + n0 + c] =
-          __float2bfloat16(activate<ACT>(C[r * kLdc + c] + bf(b2[n0 + c])) * pads[r]);
-    }
-  });
-  const float* brow = bias + (size_t)b * N;
-  panel_gemm(Xs, L.ldx, m1, ldm1, OL, N, Bs, Cs, [&](const float* C, int n0) {
-    for (int e = threadIdx.x; e < PM * PN; e += kThreads) {
-      const int r = e / PN, c = e % PN;
-      if (t0 + r < T)
-        out[((size_t)b * T + t0 + r) * N + n0 + c] =
-            __float2bfloat16(activate<ACT>(C[r * kLdc + c] + brow[n0 + c]));
-    }
-  });
+__global__ void __launch_bounds__(kThreads) finish_pass(const float* __restrict__ pre,
+                                                        const float* __restrict__ pad,
+                                                        const float* __restrict__ bias, int T,
+                                                        int N, size_t total,
+                                                        bf16* __restrict__ out) {
+  const size_t e = ((size_t)blockIdx.x * kThreads + threadIdx.x) * 4;
+  if (e >= total) return;
+  const size_t row = e / N;
+  const int n = (int)(e % N), b = (int)(row / T);
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (pad[row] != 0.0f) v = *reinterpret_cast<const float4*>(pre + e);
+  const float4 bb = *reinterpret_cast<const float4*>(bias + (size_t)b * N + n);
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + e);
+  o[0] = __floats2bfloat162_rn(activate<ACT>(v.x + bb.x), activate<ACT>(v.y + bb.y));
+  o[1] = __floats2bfloat162_rn(activate<ACT>(v.z + bb.z), activate<ACT>(v.w + bb.w));
 }
 
 template <int ACT>
@@ -152,24 +276,34 @@ static cudaError_t launch(const bf16* x, const float* pad, int B, int T, int D, 
                           int HS, int OS, int N, const bf16* w1, const bf16* b1, const bf16* w2,
                           const bf16* b2, const bf16* s1, const bf16* c1, const bf16* s2,
                           const bf16* c2, const bf16* m1, int ldm1, const bf16* m2, int ldm2,
-                          const bf16* mb, float* partial, float* bias, bf16* out,
+                          const bf16* mb, float* partial, float* bias, float* pre, bf16* out,
                           cudaStream_t stream) {
-  const int n_tiles = (T + PM - 1) / PM;
-  const size_t smem_a = PanelSmem(D, HS).bytes;
-  const size_t smem_c = PanelSmem(D > OL ? D : OL, HL).bytes;
-  cudaError_t err = cudaFuncSetAttribute(summary_pass<ACT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(local_pass<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_c);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(n_tiles, B);
-  summary_pass<ACT><<<grid, kThreads, smem_a, stream>>>(x, pad, T, D, HS, OS, s1, c1, s2, c2,
-                                                        partial);
-  pool_pass<<<B, kThreads, OS * sizeof(float), stream>>>(partial, pad, T, n_tiles, OS, N, m2,
-                                                        ldm2, mb, bias);
-  local_pass<ACT><<<grid, kThreads, smem_c, stream>>>(x, pad, T, D, HL, OL, N, w1, b1, w2, b2,
-                                                      m1, ldm1, bias, out);
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        branch_pass<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBranchSmem);
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
+  CUtensorMap mx, mw1, mw2, ms1, ms2, mm1;
+  const uint64_t xdims[3] = {(uint64_t)D, (uint64_t)T, (uint64_t)B};
+  const uint64_t xstrides[2] = {(uint64_t)D * 2, (uint64_t)T * D * 2};
+  const uint32_t xbox[3] = {(uint32_t)kBK, (uint32_t)kTile, 1};
+  if (!smt_host::bf16_map(&mx, x, 3, xdims, xstrides, xbox) ||
+      !smt_host::matrix_map(&mw1, w1, HL, D, D, kChunk) ||
+      !smt_host::matrix_map(&mw2, w2, OL, HL, HL, kChunk) ||
+      !smt_host::matrix_map(&ms1, s1, HS, D, D, kChunk) ||
+      !smt_host::matrix_map(&ms2, s2, OS, HS, HS, kChunk) ||
+      !smt_host::matrix_map(&mm1, m1, N, OL, ldm1, kChunk))
+    return cudaErrorInvalidValue;
+  const int n_tiles = (T + kTile - 1) / kTile;
+  branch_pass<ACT><<<dim3(n_tiles, B, 2), kCoreThreads, kBranchSmem, stream>>>(
+      mx, mw1, mw2, ms1, ms2, mm1, pad, T, D, HL, OL, HS, OS, N, b1, b2, c1, c2, partial, pre);
+  pool_pass<<<dim3(N / kPoolCols, B), kThreads, OS * sizeof(float), stream>>>(
+      partial, pad, T, n_tiles, OS, N, m2, ldm2, mb, bias);
+  const size_t total = (size_t)B * T * N;
+  finish_pass<ACT><<<(unsigned)((total / 4 + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      pre, pad, bias, T, N, total, out);
   return cudaGetLastError();
 }
 
@@ -179,8 +313,8 @@ extern "C" int sm_forward(const void* x, const void* pad, int B, int T, int D, i
                           int HS, int OS, int N, const void* w1, const void* b1, const void* w2,
                           const void* b2, const void* s1, const void* c1, const void* s2,
                           const void* c2, const void* m1, const void* m2, int ldm1,
-                          const void* mb, int ldm2, void* partial, void* bias, void* out, int act,
-                          void* stream) {
+                          const void* mb, int ldm2, void* partial, void* bias, void* pre,
+                          void* out, int act, void* stream) {
   using smt::bf16;
   auto fn = act == smt::ACT_GELU_ERF ? smt::launch<smt::ACT_GELU_ERF>
           : act == smt::ACT_GELU_TANH ? smt::launch<smt::ACT_GELU_TANH>
@@ -190,5 +324,5 @@ extern "C" int sm_forward(const void* x, const void* pad, int B, int T, int D, i
                  (const bf16*)w1, (const bf16*)b1, (const bf16*)w2, (const bf16*)b2,
                  (const bf16*)s1, (const bf16*)c1, (const bf16*)s2, (const bf16*)c2,
                  (const bf16*)m1, ldm1, (const bf16*)m2, ldm2, (const bf16*)mb,
-                 (float*)partial, (float*)bias, (bf16*)out, (cudaStream_t)stream);
+                 (float*)partial, (float*)bias, (float*)pre, (bf16*)out, (cudaStream_t)stream);
 }

@@ -78,6 +78,16 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
     return report
 
 
+def cached_weights(module, flatten):
+    """`flatten(module)`, the kernel's weight tuple, made again only when a
+    parameter of `module` is another tensor or was updated in place."""
+    key = tuple((p.data_ptr(), p._version) for p in module.parameters())
+    hit = module.__dict__.get("_kernel_weights")
+    if hit is None or hit[0] != key:
+        hit = module.__dict__["_kernel_weights"] = (key, flatten(module))
+    return hit[1]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded kernel library `name`, built first if needed."""
     lib = _LIBS.get(name)

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from summarymixing_tpu_torch.ops import fused_csgu
+from summarymixing_tpu_torch.ops import _build, fused_csgu
 from summarymixing_tpu_torch.ops.linear import get_activation
 
 _TODO = "see ROADMAP.md, 'Modules still to port'"
@@ -94,7 +94,8 @@ class ConvolutionBranch(nn.Module):
             if pad_mask is not None:
                 pad_mask = pad_mask.to(torch.float32).contiguous()
             return fused_csgu.fused_convolution_branch(
-                x.contiguous(), pad_mask, fused_csgu.branch_weights(self), eps=self.csgu.norm.eps)
+                x.contiguous(), pad_mask, _build.cached_weights(self, fused_csgu.branch_weights),
+                eps=self.csgu.norm.eps)
         x = get_activation(self.activation)(self.pre_channel_proj(x))
         x = self.csgu(x, pad_mask=pad_mask)
         return self.post_channel_proj(x)

@@ -7,25 +7,31 @@ flattener and the CUDA kernel's wrapper.
     gate      = depthwise_conv(gate, K taps, zero outside [0, T)) + conv_b
     out       = (res · gate)·W_post + b_post                   (C -> D)
 
-Source note (csrc/csgu.cu):
+Source note (csrc/csgu.cu, on the product core of csrc/gemm_sm90.cuh):
 
 - Replaces the TPU kernel `summarymixing_tpu/ops/pallas_csgu.py`,
   `_kernel` through `fused_convolution_branch`.
 - Bound on the H100: operations. At the flagship shapes (B=8, T=751,
   D=512, 2C=3072, K=31) the two products are ≈ 28.3 GFLOP and the conv
-  taps ≈ 0.6 GFLOP, against ≈ 17 MB that a fused kernel must move.
+  taps ≈ 0.6 GFLOP, against ≈ 17 MB that a fused kernel must move. The
+  gate pass between the products is bound by bytes (≈ 55 MB through the
+  bf16 scratches).
 - Design: the Pallas kernel keeps a `[tile + 30, 3072]` fp32 block in
   VMEM, about 1.1 MB for a 64-frame tile, far beyond the 227 KB of shared
-  memory a Hopper block has. This first version runs in three launches:
-  (1) a hand-written bf16 WMMA GEMM `x·W_preᵀ + b_pre` with tanh-GELU in
-  its epilogue, to a bf16 `[B, T, 2C]` scratch; (2) a block per
-  (utterance, 32-frame tile) takes LayerNorm statistics of each gate row
-  in fp32, zeroes rows that are padding or outside `[0, T)` (so they reach
-  the conv as zero, not as the LayerNorm bias), runs the K-tap depthwise
-  conv with its halo in registers, adds the bias and multiplies by `res`,
-  to a bf16 `[B, T, C]` scratch; (3) the same GEMM for `·W_postᵀ + b_post`.
-  The 2C-wide intermediate goes through device memory; keeping it on chip
-  is later work. The bf16 scratches round where the TPU kernel keeps fp32.
+  memory a Hopper block has. So the branch runs in four launches: (1)
+  `x·W_preᵀ + b_pre` with tanh-GELU in its epilogue, to a bf16 `[B, T, 2C]`
+  scratch, on `wgmma` fed by TMA through an mbarrier ring, a persistent
+  block per SM whose two warpgroups take 128×128 tiles in turn so one's
+  epilogue overlaps the other's products, and whose results leave by TMA
+  store; (2) LayerNorm statistics of each gate row in fp32, once per row;
+  (3) a block per (128-frame tile, 64-channel tile, utterance) stages the
+  normalised gate window in shared memory, zeroing rows that are padding
+  or outside `[0, T)` (so they reach the conv as zero, not as the
+  LayerNorm bias), runs the K-tap depthwise conv with the taps in
+  registers, adds the bias and multiplies by `res`, to a bf16 `[B, T, C]`
+  scratch, every device access a 16-byte vector; (4) the same product
+  kernel for `·W_postᵀ + b_post`. The bf16 scratches round where the TPU
+  kernel keeps fp32.
 
 Matrices use `torch.nn.Linear`'s layout, `[out, in]`; the conv weight is
 `[K, C]` with tap 0 reading frame t - (K-1)/2.
@@ -34,6 +40,7 @@ Matrices use `torch.nn.Linear`'s layout, `[out, in]`; the conv weight is
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -43,7 +50,7 @@ from summarymixing_tpu_torch.ops import _build
 from summarymixing_tpu_torch.ops.linear import gelu_tanh
 
 KERNEL_SIZES = (15, 31)   # conv widths instantiated in csrc/csgu.cu
-WIDTH_MULTIPLE = 128      # GEMM tiles are 128 columns wide
+WIDTH_MULTIPLE = 128      # product tiles are 128 columns wide, TMA boxes 64 deep
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -122,12 +129,14 @@ def _check(x, pad_mask, weights):
     return b, t, d, c2, k
 
 
-def _declare(lib):
+@functools.cache
+def _kernel():
+    """The C entry point of csrc/csgu.cu, built and declared on first use."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.csgu_forward
+    fn = _build.load_library("csgu").csgu_forward
     # x, mask, B, T, D, 2C, K, W_pre, b_pre, ln_w, ln_b, eps, conv_w, conv_b,
-    # W_post, b_post, h scratch, gate scratch, out, stream
-    fn.argtypes = [p, p] + [i] * 5 + [p] * 4 + [ctypes.c_float] + [p] * 8
+    # W_post, b_post, h scratch, LayerNorm stats scratch, gate scratch, out, stream
+    fn.argtypes = [p, p] + [i] * 5 + [p] * 4 + [ctypes.c_float] + [p] * 9
     fn.restype = ctypes.c_int
     return fn
 
@@ -146,14 +155,15 @@ def fused_convolution_branch(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
         pad_mask = torch.ones(b, t, dtype=torch.float32, device=x.device)
     w_pre, b_pre, ln_w, ln_b, conv_w, conv_b, w_post, b_post = weights
     h = torch.empty(b, t, c2, dtype=x.dtype, device=x.device)
+    stats = torch.empty(b * t, 2, dtype=torch.float32, device=x.device)
     g = torch.empty(b, t, c2 // 2, dtype=x.dtype, device=x.device)
     out = torch.empty(b, t, d, dtype=x.dtype, device=x.device)
-    fn = _declare(_build.load_library("csgu"))
+    fn = _kernel()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), pad_mask.data_ptr(), b, t, d, c2, k,
                  w_pre.data_ptr(), b_pre.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), eps,
                  conv_w.data_ptr(), conv_b.data_ptr(), w_post.data_ptr(), b_post.data_ptr(),
-                 h.data_ptr(), g.data_ptr(), out.data_ptr(),
+                 h.data_ptr(), stats.data_ptr(), g.data_ptr(), out.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"cgMLP kernel launch failed with CUDA error {err}")

@@ -13,20 +13,24 @@ Source note (csrc/summary_mixing.cu):
   `_kernel` through `_pallas_forward` / `fused_summary_mixing`. The plain
   version here is the counterpart of its `_jnp_reference`.
 - Bound on the H100: operations. At the flagship shapes (B=8, T=751,
-  all widths 512) the five products are 5·2·6008·512² ≈ 15.7 GFLOP against
-  ≈ 15 MB of device traffic, far above the card's 295 FLOP/byte ridge.
+  all widths 512) the five products over the 4129 valid frames are
+  ≈ 10.8 GFLOP against ≈ 15 MB of device traffic, far above the card's
+  295 FLOP/byte ridge.
 - Design: on the TPU one grid step held a whole utterance in VMEM; on
   Hopper blocks run in parallel and cannot carry the time sum, so the
-  kernel runs in three launches. (a) a block per (utterance, 64-frame
-  tile) computes the summary branch with the hidden layer kept in shared
-  memory and writes fp32 column sums per tile, with no atomics, so runs
-  repeat bit for bit; (b) a block per utterance reduces those partials,
-  divides by max(Σ pad, 1) and folds pooled·M2 + mb into an fp32 row bias;
-  (c) a block per tile computes the local branch and the merge on chip
-  and writes only the output. Every product is a bf16 WMMA tile with fp32
-  accumulation computed in the kernel's body; intermediates are rounded
-  to bf16 where the TPU kernel rounds them. The ragged T edge is masked in
-  the kernel. The activation (erf or tanh GELU) is a template parameter.
+  kernel runs in three launches. (a) one launch over (64-frame tile,
+  utterance, branch), 192 blocks at the flagship shape: each block
+  chains its products on the `wgmma` + TMA core of csrc/gemm_sm90.cuh,
+  keeping the activation tile in one swizzled shared-memory buffer that
+  each epilogue rewrites. Summary blocks write fp32 column sums per tile,
+  with no atomics, so runs repeat bit for bit; local blocks write the
+  fp32 pre-activation `local·M1`. A tile with no valid frame computes
+  no product. (b) a block per (utterance, 32 columns) reduces the
+  partials in tile order, divides by max(Σ pad, 1) and folds
+  pooled·M2 + mb into an fp32 row bias; (c) an elementwise pass applies
+  `act(local·M1 + bias)`. Intermediates are rounded to bf16 where the
+  TPU kernel rounds them. The ragged T edge is masked in the kernel. The
+  activation (erf or tanh GELU) is a template parameter.
 
 Weights use `torch.nn.Linear`'s layout, `[out, in]`; M1 and M2 are the
 column blocks of the merge layer's weight and may be strided views of it.
@@ -35,6 +39,7 @@ column blocks of the merge layer's weight and may be strided views of it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -44,9 +49,9 @@ from summarymixing_tpu_torch.ops.linear import get_activation
 
 # activation name -> template id in csrc/summary_mixing.cu
 KERNEL_ACTIVATIONS = {"gelu_exact": 1, "gelu": 2}
-TILE = 64            # frames per block (BM in the source)
-WIDTH_MULTIPLE = 128  # every width is walked in 128-column chunks
-_SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
+TILE = 64             # frames per block (kTile in the source)
+WIDTH_MULTIPLE = 256  # products are walked in 256-column chunks (kChunk)
+MAX_WIDTH = 512       # D and each branch's widths: a resident operand is [64, 512] bf16
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -85,13 +90,6 @@ def params_to_weights(cell) -> Tuple:
             mg.weight[:, :local_out], mg.weight[:, local_out:], mg.bias)
 
 
-def _smem_bytes(d: int, hid: int, out: int) -> int:
-    # Xs [64][max(D, OL)+8] + Hs [64][H+8] bf16, W tile [128][40] bf16,
-    # fp32 chunk [64][132], pad [64]
-    return (TILE * (max(d, out) + 8) * 2 + TILE * (hid + 8) * 2
-            + 128 * 40 * 2 + TILE * 132 * 4 + TILE * 4)
-
-
 def _check(x, pad, weights, activation):
     if activation not in KERNEL_ACTIVATIONS:
         raise NotImplementedError(
@@ -113,6 +111,7 @@ def _check(x, pad, weights, activation):
     for name, (w, shape) in want.items():
         if (w.dtype != torch.bfloat16 or tuple(w.shape) != shape or w.stride(1) != 1
                 or w.stride(0) % 8 or w.data_ptr() % 16 or w.device != x.device):
+            # TMA reads each matrix by tensor map: 16-byte aligned base and row stride
             raise ValueError(f"{name} must be bf16 {shape} with unit column stride, a row "
                              f"stride that is a multiple of 8 and 16-byte alignment; got "
                              f"{w.dtype} {tuple(w.shape)} strides {w.stride()}")
@@ -125,19 +124,22 @@ def _check(x, pad, weights, activation):
                         ("summary hidden", hs), ("summary out", os_), ("out", n)):
         if width % WIDTH_MULTIPLE:
             raise ValueError(f"{name} width {width} is not a multiple of {WIDTH_MULTIPLE}")
-    smem = max(_smem_bytes(d, hs, 0), _smem_bytes(d, hl, ol))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"widths need {smem} bytes of shared memory per block, "
-                         f"more than {_SMEM_LIMIT}")
+    for name, width in (("D", d), ("local hidden", hl), ("local out", ol),
+                        ("summary hidden", hs)):
+        if width > MAX_WIDTH:
+            raise ValueError(f"{name} width {width} is wider than the {MAX_WIDTH} columns "
+                             "a block keeps in shared memory")
     return b, t, d, hl, ol, hs, os_, n
 
 
-def _declare(lib):
+@functools.cache
+def _kernel():
+    """The C entry point of csrc/summary_mixing.cu, built and declared on first use."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.sm_forward
+    fn = _build.load_library("summary_mixing").sm_forward
     # x, pad, B, T, D, HL, OL, HS, OS, N, W1 b1 W2 b2 S1 c1 S2 c2 M1 M2,
-    # ldM1, mb, ldM2, partial, bias, out, activation, stream
-    fn.argtypes = [p, p] + [i] * 8 + [p] * 10 + [i, p, i] + [p] * 3 + [i, p]
+    # ldM1, mb, ldM2, partial, bias, pre, out, activation, stream
+    fn.argtypes = [p, p] + [i] * 8 + [p] * 10 + [i, p, i] + [p] * 4 + [i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -156,14 +158,15 @@ def fused_summary_mixing(x: torch.Tensor, pad: torch.Tensor, weights: Tuple,
     n_tiles = -(-t // TILE)
     partial = torch.empty(b, n_tiles, os_, dtype=torch.float32, device=x.device)
     bias = torch.empty(b, n, dtype=torch.float32, device=x.device)
+    pre = torch.empty(b, t, n, dtype=torch.float32, device=x.device)
     out = torch.empty(b, t, n, dtype=x.dtype, device=x.device)
-    fn = _declare(_build.load_library("summary_mixing"))
+    fn = _kernel()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), pad.data_ptr(), b, t, d, hl, ol, hs, os_, n,
                  w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                  s1.data_ptr(), c1.data_ptr(), s2.data_ptr(), c2.data_ptr(),
                  m1.data_ptr(), m2.data_ptr(), m1.stride(0), mb.data_ptr(), m2.stride(0),
-                 partial.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 partial.data_ptr(), bias.data_ptr(), pre.data_ptr(), out.data_ptr(),
                  KERNEL_ACTIVATIONS[activation], torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"SummaryMixing kernel launch failed with CUDA error {err}")

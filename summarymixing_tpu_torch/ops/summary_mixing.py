@@ -17,7 +17,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from summarymixing_tpu_torch.ops import fused_summary
+from summarymixing_tpu_torch.ops import _build, fused_summary
 from summarymixing_tpu_torch.ops.linear import SummaryNet
 
 _TODO = "see ROADMAP.md, 'Modules still to port'"
@@ -94,4 +94,5 @@ class SummaryMixing(nn.Module):
                 f"one hidden layer per branch, GELU activation; {_TODO}")
         pad = pad_mask.to(torch.float32).contiguous()
         return fused_summary.fused_summary_mixing(
-            x.contiguous(), pad, fused_summary.params_to_weights(self), self.activation)
+            x.contiguous(), pad, _build.cached_weights(self, fused_summary.params_to_weights),
+            self.activation)

@@ -20,7 +20,7 @@ from summarymixing_tpu.ops import pallas_csgu as jcsgu
 from summarymixing_tpu.ops import pallas_summary as jps
 from summarymixing_tpu.ops.convolution import ConvolutionBranch as JConvolutionBranch
 from summarymixing_tpu.ops.summary_mixing import SummaryMixing as JSummaryMixing
-from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+from summarymixing_tpu_torch.ops import _build, fused_csgu, fused_summary
 from summarymixing_tpu_torch.ops.convolution import ConvolutionBranch
 from summarymixing_tpu_torch.ops.summary_mixing import SummaryMixing
 from summarymixing_tpu_torch.utils.convert import load_jax_params
@@ -194,12 +194,35 @@ def test_wrappers_take_plain_version_on_cpu_only(rng):
         fused_csgu.fused_convolution_branch(x.to("meta"), None, weights)
 
 
+@pytest.mark.parametrize("kind", ["branch", "cell"])
+def test_cached_weights_follow_parameter_updates(kind):
+    """The modules flatten their weights for the kernels once and again only
+    after a parameter changed in place or was replaced."""
+    if kind == "branch":
+        module, flatten = ConvolutionBranch(16, 32, 5, activation="gelu"), fused_csgu.branch_weights
+        param = module.csgu.conv_bias
+    else:
+        module = SummaryMixing(32, 1, (24,), 16, (24,), 16)
+        flatten, param = fused_summary.params_to_weights, module.local_proj.layers()[0].bias
+    with torch.no_grad():
+        for p in module.parameters():
+            p.normal_()
+    first = _build.cached_weights(module, flatten)
+    assert _build.cached_weights(module, flatten) is first
+    with torch.no_grad():
+        param.add_(1.0)
+    again = _build.cached_weights(module, flatten)
+    assert again is not first
+    for mine, fresh in zip(again, flatten(module)):
+        torch.testing.assert_close(mine, fresh, rtol=0, atol=0)
 
-def _cell_inputs(d=128):
+
+def _cell_inputs(d=256, merge_stride=None, m2_offset=0):
     bf = torch.bfloat16
     sq, vec = torch.zeros(d, d, dtype=bf), torch.zeros(d, dtype=bf)
-    merge = torch.zeros(d, 2 * d, dtype=bf)
-    weights = (sq, vec, sq, vec, sq, vec, sq, vec, merge[:, :d], merge[:, d:], vec)
+    merge = torch.zeros(d, merge_stride or 2 * d + m2_offset, dtype=bf)
+    weights = (sq, vec, sq, vec, sq, vec, sq, vec, merge[:, :d],
+               merge[:, d + m2_offset:2 * d + m2_offset], vec)
     return torch.zeros(2, 5, d, dtype=bf), torch.ones(2, 5, 1), weights, "gelu"
 
 
@@ -226,6 +249,14 @@ def _bad_call(case):
                "cell_pad_bf16": (x, pad.bfloat16(), w, act),
                "cell_w1_transposed": (x, pad, _replace(w, 0, w[0].t()), act),
                "cell_width_96": _cell_inputs(96),
+               # products are walked in 256-column chunks
+               "cell_width_384": _cell_inputs(384),
+               # a resident [64, D] operand holds at most 512 columns
+               "cell_width_768": _cell_inputs(768),
+               # TMA needs a row stride of a multiple of 16 bytes
+               "cell_merge_stride_516": _cell_inputs(merge_stride=2 * 256 + 4),
+               # and a 16-byte aligned start (M2 starts 1 element in)
+               "cell_m2_misaligned": _cell_inputs(m2_offset=1),
                "cell_activation_relu": (x, pad, w, "relu")}[case]
         error = NotImplementedError if case == "cell_activation_relu" else ValueError
         return fused_summary._check, good, bad, error
@@ -234,16 +265,22 @@ def _bad_call(case):
            "branch_units_192": _branch_inputs(c2=192),
            "branch_b_pre_bf16": (x, mask, _replace(w, 1, w[1].bfloat16())),
            "branch_mask_3d": (x, mask[..., None], w),
-           "branch_w_post_transposed": (x, mask, _replace(w, 6, w[6].t()))}[case]
+           "branch_w_post_transposed": (x, mask, _replace(w, 6, w[6].t())),
+           # TMA reads x and W_pre from 16-byte aligned addresses
+           "branch_x_misaligned": (torch.zeros(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape),
+                                   mask, w),
+           "branch_w_pre_misaligned": (x, mask, _replace(
+               w, 0, torch.zeros(w[0].numel() + 1, dtype=w[0].dtype)[1:].view(w[0].shape)))}[case]
     error = NotImplementedError if case == "branch_conv_width_5" else ValueError
     return fused_csgu._check, good, bad, error
 
 
 @pytest.mark.parametrize("case", [
     "cell_x_float32", "cell_x_misaligned", "cell_pad_2d", "cell_pad_bf16",
-    "cell_w1_transposed", "cell_width_96", "cell_activation_relu",
+    "cell_w1_transposed", "cell_width_96", "cell_width_384", "cell_width_768",
+    "cell_merge_stride_516", "cell_m2_misaligned", "cell_activation_relu",
     "branch_conv_width_5", "branch_units_192", "branch_b_pre_bf16", "branch_mask_3d",
-    "branch_w_post_transposed"])
+    "branch_w_post_transposed", "branch_x_misaligned", "branch_w_pre_misaligned"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(case):
     """The checks each wrapper makes before a launch, run on CPU tensors
     (the wrappers reach them only for CUDA tensors)."""
