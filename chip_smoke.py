@@ -25,10 +25,27 @@ Phases (any failure exits non-zero):
    of 8 synthetic 5-30 s utterances through `batch_waveforms` and
    `greedy_ctc_decode`, each shape warmed up once before the timed pass;
    each kernel's launch counter must rise by 18 per forward.
+   Phase 3 also checks both kernels with a dropout keep-mask (rate 0.1)
+   at the training shapes (B=16, T=751) against their plain versions, checks
+   that their autograd Functions' gradients equal the plain versions'
+   autograd gradients bit for bit, and times the masked passes, the cell's
+   pooled pass beside its bound.
 5. The same first request with both kernels swapped for their plain
    versions, on the card: CTC log-probs and greedy tokens are compared.
 6. Device time by kernel over the first request under torch.profiler.
-7. Peak memory, parameter count (must be 88,954,088) and wall time.
+7. Training: the flagship with its 6-layer attention decoder (119,304,304
+   parameters, float32, bf16 compute, xavier overwrite from seed 3407,
+   dropout 0.1, speed perturbation and SpecAugment on) trains on one batch
+   of 16 synthetic utterances (5-30 s, the first 30 s, about 3 random token
+   ids per second) through `ASRTrainer.train_step`: one warm-up step, then 5
+   timed steps with loss, grad norm and skip flag each; every parameter must
+   get a gradient and each kernel's forward and backward counters must rise
+   by 18 per step. Audio-seconds per second, the device busy share of one
+   step under torch.profiler, and one step with the kernels against the
+   same step with their plain versions (same weights, batch and dropout
+   masks, augmentation off): loss and per-tensor gradient differences.
+8. Peak memory, parameter counts (88,954,088 for decode, 119,304,304 with
+   the decoder) and wall time.
 
 The line before the last holds nvidia-smi's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. No JAX is imported here.
@@ -36,6 +53,7 @@ line is `{"ok": true, "device": {...}}`. No JAX is imported here.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -46,8 +64,12 @@ import time
 import numpy as np
 
 FLAGSHIP_PARAMS = 88_954_088
+FLAGSHIP_TRAIN_PARAMS = 119_304_304   # with the 6-layer attention decoder
 LENGTHS = [751, 700, 512, 401, 751, 300, 650, 64]   # ragged encoder frames, T = 751
 N_REQUESTS, BATCH = 4, 8
+# training shapes: the recipe's batch_size 16, ragged, T = 751
+TRAIN_LENGTHS = LENGTHS + [600, 420, 233, 751, 128, 555, 380, 690]
+TRAIN_BATCH, TRAIN_STEPS, DROPOUT = 16, 5, 0.1
 H100_BF16_FLOPS = 989e12      # dense tensor-core bf16, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12    # HBM3
@@ -60,6 +82,17 @@ CELL_TOL = 2.0 ** -5
 # output to bf16 where the plain version keeps fp32: two more rounding steps
 # that feed a LayerNorm and a 1536-deep product.
 CSGU_TOL = 2.0 ** -4
+# One training step with the kernels against the same step with their plain
+# versions, both in bf16 compute with the same dropout masks: the kernels
+# round their intermediates where the plain versions keep fp32 (see above),
+# 18 layers deep, forward and backward.
+TRAIN_LOSS_TOL = 1e-2      # |loss_kernel - loss_plain| / |loss_plain|
+TRAIN_GRAD_TOL = 5e-2      # per tensor ||g_kernel - g_plain|| / ||g_plain||
+# gradients that are zero in exact arithmetic (the attention's key biases:
+# a shift of all scores of a row) are float32 noise in both runs; a tensor
+# whose plain gradient norm is below this share of the global norm is
+# reported, not held to TRAIN_GRAD_TOL
+GRAD_NOISE_SHARE = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -332,23 +365,139 @@ def phase_kernels():
     }
 
 
-def flagship_config():
-    from summarymixing_tpu_torch.config.schema import (
-        FeaturesConfig, ModelConfig, RecipeConfig, TrainingConfig)
+def phase_masked_kernels(kernel_rows):
+    """Both kernels with a dropout keep-mask at the training shapes: forward
+    against the plain version, the autograd Function's gradients against
+    the plain version's autograd gradients (bit for bit), and the masked
+    forward's time, the cell's pooled pass beside its bound."""
+    import torch
 
-    # recipes/LibriSpeech/branchformer_summarymixing.yaml, model and features
-    # sections, without the attention decoder
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+
+    dev = torch.device("cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # the depthwise conv's backward, bit for bit
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    b, t, d, c2, k = TRAIN_BATCH, max(TRAIN_LENGTHS), 512, 3072, 31
+    c, keep_prob = c2 // 2, 1.0 - DROPOUT
+    f32 = torch.float32
+
+    def w(*shape, scale=None):
+        s_ = scale if scale is not None else (shape[-1] if len(shape) > 1 else 512) ** -0.5
+        return (torch.rand(*shape, generator=g, device=dev) * 2 - 1) * s_
+
+    x = torch.randn(b, t, d, generator=g, device=dev).to(torch.bfloat16)
+    lens = torch.tensor(TRAIN_LENGTHS, device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).to(f32)
+    pad = mask[..., None].contiguous()
+    merge = w(d, 2 * d)
+    cell = (w(d, d), w(d, scale=0.1), w(d, d), w(d, scale=0.1), w(d, d), w(d, scale=0.1),
+            w(d, d), w(d, scale=0.1), merge[:, :d], merge[:, d:], w(d, scale=0.1))
+    branch = (w(c2, d), w(c2, scale=0.1), 1.0 + w(c, scale=0.1), w(c, scale=0.1),
+              w(k, c, scale=k ** -0.5), 1.0 + w(c, scale=0.1), w(d, c), w(d, scale=0.1))
+    keep_cell = torch.rand(b, t, 2 * d, generator=g, device=dev) < keep_prob
+    keep_branch = torch.rand(b, t, c, generator=g, device=dev) < keep_prob
+    g_out = torch.randn(b, t, d, generator=g, device=dev).to(torch.bfloat16)
+    m, valid = b * t, int(mask.sum())
+    specs = {
+        "summary_mixing": (fused_summary, cell, CELL_TOL,
+                           lambda xx, ws, **kw: fused_summary.fused_summary_mixing(
+                               xx, pad, ws, "gelu", keep_cell, keep_prob, **kw),
+                           lambda xx, ws: fused_summary.summary_mixing_reference(
+                               xx, pad, fused_summary.kernel_weights(ws), "gelu", keep_cell,
+                               keep_prob)),
+        "csgu": (fused_csgu, branch, CSGU_TOL,
+                 lambda xx, ws, **kw: fused_csgu.fused_convolution_branch(
+                     xx, mask, ws, 1e-5, keep_branch, keep_prob, **kw),
+                 lambda xx, ws: fused_csgu.convolution_branch_reference(
+                     xx, mask, fused_csgu.kernel_weights(ws), 1e-5, keep_branch, keep_prob)),
+    }
+    for name, (mod, weights, tol, kern, plain) in specs.items():
+        grads = []
+        for fn in (kern, plain):
+            xx = x.detach().requires_grad_()
+            ws = [v.detach().requires_grad_() for v in weights]
+            out = fn(xx, ws)
+            grads.append((out.detach(), torch.autograd.grad(out, [xx] + ws, g_out)))
+        torch.cuda.synchronize()
+        abs_err, err = rel_err(grads[0][0], grads[1][0])
+        bit_equal = all(torch.equal(a, b_) for a, b_ in zip(grads[0][1], grads[1][1]))
+        ok = err <= tol and bit_equal
+        print(f"masked kernel {name} (B={b}, T={t}, dropout {DROPOUT}): max_abs_err {abs_err:.3e} "
+              f"max_rel_err {err:.3e} tol {tol:.3e}; Function gradients equal the plain "
+              f"version's bit for bit: {bit_equal} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"masked {name} disagrees with its plain version")
+        torch.backends.cudnn.deterministic = deterministic
+        launch = mod.kernel_weights(weights)
+        call = lambda: kern(x, launch)  # noqa: E731
+        ms, eager = graph_ms(call), cuda_ms(call)
+        plain_ms = cuda_ms(lambda: plain(x, weights))
+        # the unmasked call's bytes plus the keep-mask's, one byte an element;
+        # the cell's pooled half is now a product for every frame
+        # (x in, out: bf16; pad: fp32; the kernel reads bf16 matrices, and the
+        # cell's vectors in bf16, the cgMLP's in fp32)
+        if name == "summary_mixing":
+            w_bytes = sum(v.numel() * 2 for v in weights)
+            nbytes = m * d * 4 + m * 4 + m * 2 * d + w_bytes
+            flops, fp32 = 2 * valid * d * d * 5 + 2 * m * d * d, 0
+        else:
+            w_bytes = sum(v.numel() * (2 if i in (0, 6) else 4) for i, v in enumerate(weights))
+            nbytes = m * d * 4 + m * 4 + m * c + w_bytes
+            flops, fp32 = 2 * m * d * c2 + 2 * m * c * d, 2 * m * c * k
+        bound_ms, bound_by = bound(nbytes, flops, fp32)
+        kernel_rows[name]["masked"] = dict(batch=b, frames=t, max_abs_err=abs_err,
+                                           grad_bit_equal=bit_equal, ms=ms, eager_ms=eager,
+                                           plain_ms=plain_ms, bound_ms=bound_ms,
+                                           bound_by=bound_by)
+        print(f"masked kernel {name}: {ms:.4f} ms (graph), eager {eager:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    # the cell's passes with the mask; the pooled pass runs the masked pooled
+    # rows of every frame against M2 and adds them to the fp32 pre-activation
+    n_tiles = -(-t // 64)
+    mats = sum(v.numel() * 2 for v in cell[:8]) + d * d * 2
+    cell_launch = fused_summary.kernel_weights(cell)
+    cell_call = lambda: specs["summary_mixing"][3](x, cell_launch)  # noqa: E731
+    kernel_rows["summary_mixing"]["masked"]["passes"] = report_passes(
+        "summary_mixing[masked]", pass_us(cell_call), [
+            ("branch_pass", "branch_pass",
+             *bound(valid * d * 2 + mats + valid * d * 4 + valid * d, 2 * valid * d * d * 5), None),
+            ("pool_pass", "pool_pass", *bound(b * n_tiles * d * 4 + m * 4 + b * d * 6, 0), None),
+            ("pooled_pass", "pooled_pass",
+             *bound(m * d + b * d * 2 + d * d * 2 + valid * d * 4 + m * d * 4, 2 * m * d * d),
+             None),
+            ("finish_pass", "finish_pass", *bound(m * d * 4 + b * d * 4 + m * 4 + m * d * 2, 0),
+             None)])
+
+
+def flagship_config(decoder_layers: int = 0):
+    from summarymixing_tpu_torch.config.schema import (
+        AugmentConfig, FeaturesConfig, ModelConfig, RecipeConfig, TrainingConfig)
+
+    # recipes/LibriSpeech/branchformer_summarymixing.yaml (no YAML package is
+    # needed here), with or without the attention decoder
     return RecipeConfig(
         seed=3407,
-        features=FeaturesConfig(sample_rate=16000, n_fft=512, win_length=32, n_mels=80),
+        features=FeaturesConfig(sample_rate=16000, n_fft=512, win_length=32, n_mels=80,
+                                normalize_update_until_epoch=4),
+        augment=AugmentConfig(speed_perturb=True, speeds=(95, 100, 105),
+                              time_drop_length_low=15, time_drop_length_high=25,
+                              time_drop_count=4, freq_drop_length_low=10,
+                              freq_drop_length_high=20, freq_drop_count=4, time_warp_window=5,
+                              drop_replace="mean", min_augmentations=3, max_augmentations=3),
         model=ModelConfig(
             attention_type="SummaryMixing", mode="SummaryMixing", encoder_module="branchformer",
-            d_model=512, nhead=1, num_encoder_layers=18, num_decoder_layers=0, d_ffn=2048,
-            transformer_dropout=0.1, activation="gelu", csgu_linear_units=3072,
+            d_model=512, nhead=1, num_encoder_layers=18, num_decoder_layers=decoder_layers,
+            d_ffn=2048, transformer_dropout=DROPOUT, activation="gelu", csgu_linear_units=3072,
             csgu_kernel_size=31, local_proj_hid_dim=(512,), local_proj_out_dim=512,
             summary_hid_dim=(512,), summary_out_dim=512, causal=False, input_size=640,
             output_neurons=5000),
-        training=TrainingConfig(precision="bf16"))
+        training=TrainingConfig(precision="bf16", batch_size=TRAIN_BATCH,
+                                grad_accumulation_factor=1, max_grad_norm=5.0, ctc_weight=0.3,
+                                label_smoothing=0.0, lr_adam=0.0005, adam_betas=(0.9, 0.98),
+                                adam_eps=1e-9, weight_decay=0.01, scheduler="noam",
+                                n_warmup_steps=30000, max_batch_length=500.0))
 
 
 def synthetic_waveforms(n: int, seed: int, sample_rate: int = 16000):
@@ -426,7 +575,7 @@ def phase_main_path(kernel_rows):
         results.append((dt, audio_s, out, hyps))
     launches = {"summary_mixing": kernels[0].launches, "csgu": kernels[1].launches}
     for name, n in launches.items():
-        kernel_rows[name]["launches"] = n
+        kernel_rows[name]["launches_by_path"] = {"decode": n}
         if n == 0:
             fail(f"kernel {name} was never launched on the main path")
     total_dt = sum(r[0] for r in results)
@@ -436,21 +585,38 @@ def phase_main_path(kernel_rows):
     return model, fbank, stats, batches, results, n_params
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Swap both wrappers for their plain versions on the bf16-cast weights
+    the kernels take (the model's modules call the wrappers through these
+    module attributes); autograd then differentiates the plain versions."""
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+
+    saved = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
+
+    def cell(x, pad, weights, activation, keep=None, keep_prob=1.0, launch_weights=None):
+        return fused_summary.summary_mixing_reference(
+            x, pad, fused_summary.kernel_weights(weights), activation, keep, keep_prob)
+
+    def branch(x, mask, weights, eps, keep=None, keep_prob=1.0, launch_weights=None):
+        return fused_csgu.convolution_branch_reference(
+            x, mask, fused_csgu.kernel_weights(weights), eps, keep, keep_prob)
+
+    fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch = cell, branch
+    try:
+        yield
+    finally:
+        fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch = saved
+
+
 def phase_plain_path(model, fbank, stats, batches, results):
     import torch
 
-    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
     from summarymixing_tpu_torch.transcribe import greedy_ctc_decode
 
-    # the model's modules call the wrappers through these module attributes
-    saved = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
-    fused_summary.fused_summary_mixing = fused_summary.summary_mixing_reference
-    fused_csgu.fused_convolution_branch = fused_csgu.convolution_branch_reference
-    try:
+    with plain_kernels():
         _, wav, lens = batches[0]
         hyps, out = greedy_ctc_decode(model, fbank, stats, wav, lens)
-    finally:
-        fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch = saved
     torch.cuda.synchronize()
     k_out, k_hyps = results[0][2], results[0][3]
     enc_len = out["enc_lengths"]
@@ -471,19 +637,17 @@ def phase_plain_path(model, fbank, stats, batches, results):
         fail("the kernel path disagrees with the plain path")
 
 
-def phase_profile(model, fbank, stats, batches):
-    """Device time by kernel over request 0, under torch.profiler. The
-    profiler slows the host, so the idle share it shows is an upper bound."""
+def device_profile(fn, label: str, top: int = 14) -> None:
+    """Device time by kernel over one call of `fn` under torch.profiler.
+    The profiler slows the host, so the idle share it shows is an upper
+    bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from summarymixing_tpu_torch.transcribe import greedy_ctc_decode
-
-    _, wav, lens = batches[0]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        greedy_ctc_decode(model, fbank, stats, wav, lens)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -497,12 +661,161 @@ def phase_profile(model, fbank, stats, batches):
             rows.append((us, e.count, e.key))
     busy_us = sum(r[0] for r in rows)
     if busy_us == 0:
-        print("profile: the profiler recorded no device time; device busy share not measured")
+        print(f"profile ({label}): the profiler recorded no device time; device busy share "
+              "not measured")
         return
-    print(f"profile (request 0): device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+    print(f"profile ({label}): device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
           f"wall under the profiler, idle share {1 - busy_us / wall_us:.3f}")
-    for us, count, key in sorted(rows, reverse=True)[:14]:
+    for us, count, key in sorted(rows, reverse=True)[:top]:
         print(f"  profile: {us / 1e3:8.3f} ms {100 * us / busy_us:5.1f}% x{count:<5d} {key[:90]}")
+
+
+def phase_profile(model, fbank, stats, batches):
+    from summarymixing_tpu_torch.transcribe import greedy_ctc_decode
+
+    _, wav, lens = batches[0]
+    device_profile(lambda: greedy_ctc_decode(model, fbank, stats, wav, lens), "request 0")
+
+
+def training_batch(seed: int = 21) -> dict:
+    """16 synthetic utterances of 5-30 s, the first 30 s (so the encoder
+    runs at T = 751), at most 500 s in all (the recipe's batch_size 16,
+    max_batch_length 500), with random token ids in [3, 5000) at about 3
+    per second of audio, padded with 0."""
+    import torch
+
+    wavs = synthetic_waveforms(TRAIN_BATCH, seed)
+    secs = [len(w) / 16000 for w in wavs]
+    if sum(secs) > 500.0:
+        fail(f"the training batch holds {sum(secs):.1f} s of audio, above 500 s")
+    n = max(len(w) for w in wavs)
+    wav = np.zeros((TRAIN_BATCH, n), np.float32)
+    for i, w in enumerate(wavs):
+        wav[i, :len(w)] = w
+    rng = np.random.default_rng(seed)
+    token_lens = np.array([max(1, round(3.0 * s)) for s in secs], np.int32)
+    tokens = np.zeros((TRAIN_BATCH, int(token_lens.max())), np.int32)
+    for i, u in enumerate(token_lens):
+        tokens[i, :u] = rng.integers(3, 5000, u)
+    lens = np.array([len(w) for w in wavs], np.int32)
+    return {k: torch.from_numpy(v).cuda() for k, v in
+            dict(wav=wav, wav_lens=lens, tokens=tokens, token_lens=token_lens).items()}
+
+
+def phase_train(kernel_rows) -> int:
+    import dataclasses
+
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model, build_trainer
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+    from summarymixing_tpu_torch.ops.layers import set_dropout_generator
+
+    cfg = flagship_config(decoder_layers=6)
+    n_layers = cfg.model.num_encoder_layers
+    torch.cuda.reset_peak_memory_stats()
+    model, fbank = build_model(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != FLAGSHIP_TRAIN_PARAMS:
+        fail(f"training parameter count {n_params} != {FLAGSHIP_TRAIN_PARAMS}")
+    if {p.dtype for p in model.parameters()} != {torch.float32}:
+        fail("the training model's parameters are not all float32")
+    trainer = build_trainer(cfg, model, fbank)
+    state = trainer.init_state(cfg.seed)
+    batch = training_batch()
+    audio_s = float(batch["wav_lens"].sum()) / cfg.features.sample_rate
+    print(f"train: {TRAIN_BATCH} utterances, {audio_s:.2f} audio-s, "
+          f"wav {tuple(batch['wav'].shape)}, "
+          f"tokens {tuple(batch['tokens'].shape)}, {n_params:,} float32 parameters, "
+          f"dropout {DROPOUT}, speed perturbation and SpecAugment on")
+    kernels = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
+    names = [n for n, _ in model.named_parameters()]
+
+    def check(step, metrics):
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        if not (np.isfinite(loss) and np.isfinite(norm)) or metrics["nonfinite_skipped"]:
+            fail(f"train step {step}: loss {loss}, grad norm {norm}, "
+                 f"skipped {metrics['nonfinite_skipped']}")
+        missing = [n for n, p in zip(names, model.parameters()) if p.grad is None]
+        if missing:
+            fail(f"train step {step}: {len(missing)} parameters got no gradient: {missing[:8]}")
+
+    state, metrics = trainer.train_step(state, batch)      # warm-up
+    torch.cuda.synchronize()
+    check("warm-up", metrics)
+    for fn in kernels:
+        fn.launches, fn.backwards = 0, 0
+    times = []
+    for step in range(TRAIN_STEPS):
+        before = [(fn.launches, fn.backwards) for fn in kernels]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        check(step, metrics)
+        rose = [(fn.launches - a, fn.backwards - b_) for fn, (a, b_) in zip(kernels, before)]
+        print(f"train step {step}: {dt * 1e3:.2f} ms, loss {float(metrics['loss']):.4f} "
+              f"(ctc {float(metrics['ctc']):.4f}, att {float(metrics['att']):.4f}), grad norm "
+              f"{float(metrics['grad_norm']):.4f}, skipped {metrics['nonfinite_skipped']}, "
+              f"summary_mixing +{rose[0][0]}/+{rose[0][1]} csgu +{rose[1][0]}/+{rose[1][1]} "
+              "(forward/backward)")
+        if rose != [(n_layers, n_layers)] * 2:
+            fail(f"train step {step}: kernel forward/backward counts rose by {rose}, expected "
+                 f"{n_layers} each")
+    for name, fn in zip(("summary_mixing", "csgu"), kernels):
+        kernel_rows[name]["launches_by_path"]["train"] = fn.launches
+        kernel_rows[name]["backwards_in_train"] = fn.backwards
+        if fn.launches == 0 or fn.backwards == 0:
+            fail(f"kernel {name} was never launched or never differentiated in training")
+    total = sum(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train: {TRAIN_STEPS} steps in {total * 1e3:.2f} ms, {total / TRAIN_STEPS * 1e3:.2f} ms "
+          f"per step, {TRAIN_STEPS * audio_s / total:.1f} audio-s trained per second, peak "
+          f"memory {peak:.2f} GiB, parameters {n_params:,}")
+    device_profile(lambda: trainer.train_step(state, batch), "one train step", top=16)
+
+    # one step with the kernels against the same step with their plain
+    # versions: same weights, batch and dropout masks, augmentation off
+    same = dataclasses.replace(trainer.config, augment=None, speed_perturb=False)
+    cmp = type(trainer)(model, trainer.optimizer, fbank, same)
+
+    def one_step(plain: bool):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(99)
+        set_dropout_generator(model, gen)
+        for p in model.parameters():
+            p.grad = None
+        with plain_kernels() if plain else contextlib.nullcontext():
+            loss, _ = cmp._forward_loss(state["norm_stats"], batch, True, state["epoch"], gen)
+            loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), [p.grad.detach().clone() for p in model.parameters()]
+
+    loss_k, grads_k = one_step(False)
+    loss_p, grads_p = one_step(True)
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    norm_p = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads_p])))
+    errs, noise = [], []
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        nrm = float(gp.norm())
+        if nrm < GRAD_NOISE_SHARE * norm_p:
+            noise.append(name)
+            continue
+        errs.append((float((gk - gp).norm()) / nrm, name))
+    errs.sort(reverse=True)
+    ok = rel_loss <= TRAIN_LOSS_TOL and errs[0][0] <= TRAIN_GRAD_TOL
+    print(f"train kernel path vs plain path (one step, same masks, augmentation off): loss "
+          f"{loss_k:.6f} vs {loss_p:.6f}, relative {rel_loss:.2e} (tol {TRAIN_LOSS_TOL:.0e}); "
+          f"per-tensor relative L2 gradient error max {errs[0][0]:.3e} (tol "
+          f"{TRAIN_GRAD_TOL:.0e}), median {errs[len(errs) // 2][0]:.3e} over {len(errs)} "
+          f"tensors; worst {[(n, round(e, 4)) for e, n in errs[:3]]}; {len(noise)} tensors "
+          f"with a gradient below {GRAD_NOISE_SHARE:.0e} of the global norm {norm_p:.4f} "
+          f"not held to it: {noise[:6]} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("the training step with the kernels disagrees with the plain versions")
+    return n_params
 
 
 def main() -> int:
@@ -520,14 +833,20 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     kernel_rows = phase_kernels()
+    phase_masked_kernels(kernel_rows)
     model, fbank, stats, batches, results, n_params = phase_main_path(kernel_rows)
     phase_plain_path(model, fbank, stats, batches, results)
     phase_profile(model, fbank, stats, batches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"peak memory allocated: {peak:.2f} GiB; parameters: {n_params:,}; "
-          f"wall {time.perf_counter() - wall0:.1f} s")
+    print(f"decode: peak memory allocated {peak:.2f} GiB; parameters: {n_params:,}")
     if n_params != FLAGSHIP_PARAMS:
         fail(f"parameter count {n_params} != {FLAGSHIP_PARAMS}")
+    del model, fbank, batches, results
+    torch.cuda.empty_cache()
+    phase_train(kernel_rows)
+    for row in kernel_rows.values():
+        row["launches"] = sum(row["launches_by_path"].values())
+    print(f"wall {time.perf_counter() - wall0:.1f} s; nvidia-smi: {smi}")
     print(json.dumps({"kernels": [kernel_rows["summary_mixing"], kernel_rows["csgu"]]}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

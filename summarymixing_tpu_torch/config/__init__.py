@@ -1,6 +1,6 @@
 """Recipe schema and loader of the port."""
 
-from summarymixing_tpu_torch.config.loader import build_model, load_recipe
+from summarymixing_tpu_torch.config.loader import build_model, build_trainer, load_recipe
 from summarymixing_tpu_torch.config.schema import (
     DecodingConfig,
     FeaturesConfig,
@@ -19,4 +19,5 @@ __all__ = [
     "TransducerConfig",
     "load_recipe",
     "build_model",
+    "build_trainer",
 ]

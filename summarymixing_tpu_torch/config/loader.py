@@ -1,6 +1,7 @@
-"""YAML recipe loader and model builder — the port of
+"""YAML recipe loader, `build_model` and `build_trainer` — the port of
 `summarymixing_tpu/config/loader.py` for the Branchformer-SummaryMixing
-CTC path. `yaml` is imported inside `load_recipe`, so building a model from
+CTC/attention recipe, and of the trainer set-up of `recipes/train.py`.
+`yaml` is imported inside `load_recipe`, so building a model from
 a config made in Python needs no YAML package."""
 
 from __future__ import annotations
@@ -69,12 +70,15 @@ def load_recipe(path: str, overrides: Optional[dict] = None) -> RecipeConfig:
 def build_model(cfg: RecipeConfig, device=None) -> Tuple["torch.nn.Module", "torch.nn.Module"]:
     """RecipeConfig -> (SpeechRecognizer, Fbank) in eval mode on `device`
     (the card unless `device` says otherwise). Weights are drawn from
-    `cfg.seed` with a `torch.Generator`; on the `meta`
-    device nothing is drawn. `training.precision == "bf16"` casts the model
-    to bfloat16; the Fbank stays float32."""
+    `cfg.seed` with a `torch.Generator`; on the `meta` device nothing is
+    drawn. Parameters stay float32, as the JAX package keeps them;
+    `training.precision == "bf16"` makes the layers compute in bfloat16
+    (`ops.layers.set_compute_dtype`), as the flax modules' `dtype` does.
+    The Fbank stays float32."""
     from summarymixing_tpu_torch.frontend.features import Fbank
     from summarymixing_tpu_torch.models.asr import TransformerASR
     from summarymixing_tpu_torch.models.speech_recognizer import SpeechRecognizer
+    from summarymixing_tpu_torch.ops.layers import set_compute_dtype
     from summarymixing_tpu_torch.utils.init import init_parameters
 
     device = resolve_device(device)
@@ -85,8 +89,11 @@ def build_model(cfg: RecipeConfig, device=None) -> Tuple["torch.nn.Module", "tor
         asr = TransformerASR(
             tgt_vocab=m.output_neurons, input_size=m.input_size, d_model=m.d_model,
             nhead=m.nhead, num_encoder_layers=m.num_encoder_layers,
-            num_decoder_layers=m.num_decoder_layers, kernel_size=m.csgu_kernel_size,
+            num_decoder_layers=m.num_decoder_layers, d_ffn=m.d_ffn,
+            dropout_rate=m.transformer_dropout, activation=m.activation,
+            normalize_before=m.normalize_before, kernel_size=m.csgu_kernel_size,
             encoder_module=m.encoder_module, attention_type=m.attention_type,
+            decoder_attention_type=m.decoder_attention_type,
             causal=m.causal, csgu_linear_units=m.csgu_linear_units,
             local_proj_hid_dim=tuple(m.local_proj_hid_dim),
             local_proj_out_dim=m.local_proj_out_dim,
@@ -94,7 +101,8 @@ def build_model(cfg: RecipeConfig, device=None) -> Tuple["torch.nn.Module", "tor
             mode=m.mode, branchformer_activation=m.activation)
         model = SpeechRecognizer(asr, m.output_neurons,
                                  frontend_channels=tuple(m.frontend_channels),
-                                 frontend_strides=tuple(m.frontend_strides))
+                                 frontend_strides=tuple(m.frontend_strides),
+                                 frontend_dropout=m.transformer_dropout)
         f = cfg.features
         fbank = Fbank(sample_rate=f.sample_rate, n_fft=f.n_fft,
                       win_length_ms=float(f.win_length), hop_length_ms=float(f.hop_length),
@@ -104,5 +112,39 @@ def build_model(cfg: RecipeConfig, device=None) -> Tuple["torch.nn.Module", "tor
         gen.manual_seed(cfg.seed)
         init_parameters(model, gen)
     if cfg.training.precision == "bf16":
-        model = model.to(torch.bfloat16)
+        set_compute_dtype(model, torch.bfloat16)
     return model.eval(), fbank.eval()
+
+
+def build_trainer(cfg: RecipeConfig, model, fbank):
+    """RecipeConfig -> `ASRTrainer` for `model`: the training section's
+    loss weights and label smoothing, AdamW (betas, eps, weight decay) with
+    the Noam schedule (peak `lr_adam`, `n_warmup_steps`) and gradient
+    clipping, the augment section's speed perturbation and SpecAugment, the
+    features section's normalization epochs and the model's token ids."""
+    from summarymixing_tpu_torch.frontend.augment import SpecAugmentConfig
+    from summarymixing_tpu_torch.training.optim import AdamW, noam_schedule
+    from summarymixing_tpu_torch.training.trainer import ASRTrainer, TrainerConfig
+
+    t, a, m = cfg.training, cfg.augment, cfg.model
+    if t.scheduler != "noam" or t.stage_one_epochs or t.grad_accumulation_factor > 1:
+        raise NotImplementedError("the port trains with AdamW + Noam and no gradient "
+                                  "accumulation; see ROADMAP.md")
+    augment = None
+    if a.fea_augment:
+        augment = SpecAugmentConfig(
+            time_drop_length=(a.time_drop_length_low, a.time_drop_length_high),
+            time_drop_count=a.time_drop_count,
+            freq_drop_length=(a.freq_drop_length_low, a.freq_drop_length_high),
+            freq_drop_count=a.freq_drop_count, warp_window=a.time_warp_window,
+            replace=a.drop_replace, min_augmentations=a.min_augmentations,
+            max_augmentations=a.max_augmentations,
+            shuffle_augmentations=a.shuffle_augmentations)
+    optimizer = AdamW(noam_schedule(t.lr_adam, t.n_warmup_steps), t.weight_decay,
+                      tuple(t.adam_betas), t.adam_eps, t.max_grad_norm)
+    config = TrainerConfig(
+        ctc_weight=t.ctc_weight, label_smoothing=t.label_smoothing, blank_id=m.blank_index,
+        pad_id=m.pad_index, bos_id=m.bos_index, eos_id=m.eos_index, augment=augment,
+        speed_perturb=a.speed_perturb, speeds=tuple(a.speeds),
+        normalize_update_until_epoch=cfg.features.normalize_update_until_epoch)
+    return ASRTrainer(model, optimizer, fbank, config)

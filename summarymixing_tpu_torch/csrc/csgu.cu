@@ -20,7 +20,9 @@
 //       LayerNorm(0) = ln_bias. Each thread keeps one channel's K conv taps
 //       in registers and slides over 16 output frames at a time, all indices
 //       compile-time; the result goes back through shared memory, so res is
-//       read and g = res * (conv + bias) written as 16-byte vectors.
+//       read and g = res * (conv + bias) written as 16-byte vectors. With a
+//       dropout keep-mask (bytes [B, T, C], 1 = keep), each product is
+//       multiplied by `scale` = 1 / keep_prob where kept and zeroed elsewhere.
 //   (4) gemm_tma<none>: out = g W_post^T + b_post -> bf16 [M, D], the same
 //       kernel with a 4-stage ring: the 188 tiles of M = 6008 by D = 512 give
 //       one or two per block, one per warpgroup.
@@ -189,7 +191,7 @@ __global__ void __launch_bounds__(kThreads) ln_stats(const bf16* __restrict__ h,
 
 // h [B, T, 2C] bf16 (res = h[..., :C], gate = h[..., C:]); mask [B, T];
 // stats [B*T] from ln_stats; conv_w [K, C];
-// g [B, T, C] = res * (conv(LN(gate) * mask) + conv_b).
+// g [B, T, C] = res * (conv(LN(gate) * mask) + conv_b) [* keep * scale].
 // Three phases per block, every device access a 16-byte vector:
 //   1. the normalised, masked gate window [TT + K - 1, CT] into xs (fp32);
 //   2. the conv: a thread holds one channel's K taps in registers and
@@ -208,7 +210,8 @@ template <int K>
 __global__ void __launch_bounds__(kThreads, 3) gate_pass(
     const bf16* __restrict__ h, const float* __restrict__ mask, const float2* __restrict__ stats,
     int T, int C, const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-    const float* __restrict__ conv_w, const float* __restrict__ conv_b, bf16* __restrict__ g) {
+    const float* __restrict__ conv_w, const float* __restrict__ conv_b,
+    const uint8_t* __restrict__ keep, float scale, bf16* __restrict__ g) {
   constexpr int HALO = (K - 1) / 2, ROWS = kGateTT + K - 1, CT = kGateCT, R = kGateR;
   constexpr int SEGS = kThreads / CT, SEG_FRAMES = kGateTT / SEGS;
   constexpr int VECS = ROWS * (CT / 8), PER = (VECS + kThreads - 1) / kThreads;
@@ -310,13 +313,20 @@ __global__ void __launch_bounds__(kThreads, 3) gate_pass(
       const bf16* e8 = reinterpret_cast<const bf16*>(&r[i]);
       const float4 y0 = *reinterpret_cast<const float4*>(&ys[f][8 * q]);
       const float4 y1 = *reinterpret_cast<const float4*>(&ys[f][8 * q + 4]);
+      const size_t at = ((size_t)b * T + t0 + f) * C + c0 + 8 * q;
+      float v[8] = {bf(e8[0]) * y0.x, bf(e8[1]) * y0.y, bf(e8[2]) * y0.z, bf(e8[3]) * y0.w,
+                    bf(e8[4]) * y1.x, bf(e8[5]) * y1.y, bf(e8[6]) * y1.z, bf(e8[7]) * y1.w};
+      if (keep != nullptr) {
+        const uint2 k8 = *reinterpret_cast<const uint2*>(keep + at);
+        const uint8_t* kb = reinterpret_cast<const uint8_t*>(&k8);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = kb[e] ? v[e] * scale : 0.0f;
+      }
       uint4 o;
       __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
-      o2[0] = __floats2bfloat162_rn(bf(e8[0]) * y0.x, bf(e8[1]) * y0.y);
-      o2[1] = __floats2bfloat162_rn(bf(e8[2]) * y0.z, bf(e8[3]) * y0.w);
-      o2[2] = __floats2bfloat162_rn(bf(e8[4]) * y1.x, bf(e8[5]) * y1.y);
-      o2[3] = __floats2bfloat162_rn(bf(e8[6]) * y1.z, bf(e8[7]) * y1.w);
-      *reinterpret_cast<uint4*>(g + ((size_t)b * T + t0 + f) * C + c0 + 8 * q) = o;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o2[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      *reinterpret_cast<uint4*>(g + at) = o;
     }
   }
 }
@@ -347,8 +357,8 @@ static int resident_blocks(F* kernel, size_t smem) {
 extern "C" int csgu_forward(const void* x, const void* mask, int B, int T, int D, int C2, int K,
                             const void* w_pre, const void* b_pre, const void* ln_w,
                             const void* ln_b, float eps, const void* conv_w, const void* conv_b,
-                            const void* w_post, const void* b_post, void* h, void* stats, void* g,
-                            void* out, void* stream) {
+                            const void* w_post, const void* b_post, const void* keep,
+                            float scale, void* h, void* stats, void* g, void* out, void* stream) {
   using namespace smt;
   if (K != 15 && K != 31) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -386,11 +396,13 @@ extern "C" int csgu_forward(const void* x, const void* mask, int B, int T, int D
   if (K == 31)
     gate_pass<31><<<gate_grid, kThreads, gate_smem<31>(), st>>>(
         (const bf16*)h, (const float*)mask, (const float2*)stats, T, C, (const float*)ln_w,
-        (const float*)ln_b, (const float*)conv_w, (const float*)conv_b, (bf16*)g);
+        (const float*)ln_b, (const float*)conv_w, (const float*)conv_b, (const uint8_t*)keep,
+        scale, (bf16*)g);
   else
     gate_pass<15><<<gate_grid, kThreads, gate_smem<15>(), st>>>(
         (const bf16*)h, (const float*)mask, (const float2*)stats, T, C, (const float*)ln_w,
-        (const float*)ln_b, (const float*)conv_w, (const float*)conv_b, (bf16*)g);
+        (const float*)ln_b, (const float*)conv_w, (const float*)conv_b, (const uint8_t*)keep,
+        scale, (bf16*)g);
   POST_KERNEL<<<post_tiles < post_grid ? post_tiles : post_grid, kCoreThreads, post_smem, st>>>(
       map_g, map_wpost, map_out, (const float*)b_post, M, D, C);
   return (int)cudaGetLastError();

@@ -29,6 +29,19 @@
 // The ragged T edge: TMA fills frames past T with zeros, they carry pad 0
 // and are never stored.
 //
+// Dropout (training): a keep-mask `keep` [B, T, OL + OS] (bytes, 1 = keep)
+// over the concatenated [local, pooled] features, kept values times
+// `scale` = 1 / keep_prob and rounded to bf16. (a)'s local epilogue masks
+// the local half before the M1 product. The pooled half differs per frame,
+// so pooled M2^T can no longer be folded into a row bias: (b) writes
+// pooled * scale (bf16) and bias = mb, and
+//   (d) pooled_pass: grid (64-frame tile, utterance), every tile with a
+//       frame < T: the block builds the tile's masked pooled rows
+//       (keep ? pooled * scale : 0) in a swizzled shared buffer and runs
+//       their product with M2 on the same core, adding it to pre on every
+//       frame (pre is taken as 0 on a padded frame, as (c) does), so (c)
+//       then reads pre on every frame.
+//
 // C interface: sm_forward(...) returns 0, a CUDA error after the launches,
 // or cudaErrorInvalidValue for an unknown activation or a tensor map that
 // cannot be encoded.
@@ -45,6 +58,7 @@ constexpr uint32_t kBufBytes = kTile * kMaxWidth * 2;       // 64 KB, 8 swizzled
 constexpr uint32_t kKBlockBytes = kTile * kLineBytes;       // 8 KB
 constexpr uint32_t kStageBytes = kChunk * kLineBytes;       // 32 KB
 constexpr size_t kBranchSmem = 2 * kBufBytes + kStages * kStageBytes + 512 + 1024;
+constexpr size_t kPooledSmem = kBufBytes + kStages * kStageBytes + 2 * kStages * 8 + 1024;
 
 // Offset in a resident [64 x 512] operand of row r, column c0 + 8j + cq,
 // for a column start c0 that is a multiple of 128 (j known at compile time).
@@ -65,7 +79,8 @@ __global__ void __launch_bounds__(kCoreThreads, 1) branch_pass(
     const __grid_constant__ CUtensorMap map_s2, const __grid_constant__ CUtensorMap map_m1,
     const float* __restrict__ pad, int T, int D, int HL, int OL, int HS, int OS, int N,
     const bf16* __restrict__ b1, const bf16* __restrict__ b2, const bf16* __restrict__ c1,
-    const bf16* __restrict__ c2, float* __restrict__ partial, float* __restrict__ pre) {
+    const bf16* __restrict__ c2, const uint8_t* __restrict__ keep, int ldk, float scale,
+    float* __restrict__ partial, float* __restrict__ pre) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* xbuf = smem;                   // x, then the local branch output (or fp32 scratch)
@@ -149,8 +164,9 @@ __global__ void __launch_bounds__(kCoreThreads, 1) branch_pass(
     fence_async_smem();
     consumers_sync();
   };
-  // act(acc + bias) [* pad], rounded to bf16, into a swizzled A buffer
-  auto to_buffer = [&](uint8_t* dst, const bf16* bias, bool masked) {
+  // act(acc + bias) [* pad], rounded to bf16, into a swizzled A buffer;
+  // with `drop`, each value then kept (times `scale`, rounded again) or zeroed
+  auto to_buffer = [&](uint8_t* dst, const bf16* bias, bool masked, const uint8_t* drop) {
     return [=](float(&acc)[64], int c0) {
       const float m0 = masked ? pads[r0] : 1.0f, m1 = masked ? pads[r0 + 8] : 1.0f;
 #pragma unroll
@@ -160,15 +176,25 @@ __global__ void __launch_bounds__(kCoreThreads, 1) branch_pass(
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const float m = hh ? m1 : m0;
+          float v0 = activate<ACT>(acc[4 * j + 2 * hh] + bb.x) * m;
+          float v1 = activate<ACT>(acc[4 * j + 2 * hh + 1] + bb.y) * m;
+          if (drop != nullptr) {
+            const int t = t0 + r0 + 8 * hh;
+            uint32_t k2 = 0;  // two keep bytes, the lower column in the low byte
+            if (t < T)
+              k2 = *reinterpret_cast<const uint16_t*>(drop + ((size_t)b * T + t) * ldk + c0 +
+                                                      8 * j + cq);
+            v0 = (k2 & 0xffu) ? round_bf16(v0) * scale : 0.0f;
+            v1 = (k2 >> 8) ? round_bf16(v1) * scale : 0.0f;
+          }
           *reinterpret_cast<__nv_bfloat162*>(dst + chunk_offset(r0 + 8 * hh, c0, j, cq)) =
-              __floats2bfloat162_rn(activate<ACT>(acc[4 * j + 2 * hh] + bb.x) * m,
-                                    activate<ACT>(acc[4 * j + 2 * hh + 1] + bb.y) * m);
+              __floats2bfloat162_rn(v0, v1);
         }
       }
     };
   };
 
-  run(0, xbuf, to_buffer(hbuf, summary ? c1 : b1, false));
+  run(0, xbuf, to_buffer(hbuf, summary ? c1 : b1, false, nullptr));
   if (summary) {
     // act(h S2^T + c2) * pad, summed over the tile's 64 rows: per thread over
     // its 2 rows, across the 8 lanes of a column, then over the 4 warps in
@@ -201,7 +227,7 @@ __global__ void __launch_bounds__(kCoreThreads, 1) branch_pass(
       warpgroup_sync(wg);
     });
   } else {
-    run(1, hbuf, to_buffer(xbuf, b2, true));
+    run(1, hbuf, to_buffer(xbuf, b2, true, keep));
     run(2, xbuf, [&](float(&acc)[64], int c0) {
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
@@ -220,10 +246,12 @@ __global__ void __launch_bounds__(kCoreThreads, 1) branch_pass(
 
 constexpr int kPoolCols = 32;
 
+// With `scaled` (dropout), no fold: pooled * scale to `pooled_out` [B, OS]
+// (by the column-block-0 blocks) and bias = mb; pooled_pass adds the rest.
 __global__ void __launch_bounds__(kThreads) pool_pass(
     const float* __restrict__ partial, const float* __restrict__ pad, int T, int n_tiles, int OS,
     int N, const bf16* __restrict__ m2, int ldm2, const bf16* __restrict__ mb,
-    float* __restrict__ bias) {
+    float* __restrict__ bias, int scaled, float scale, bf16* __restrict__ pooled_out) {
   extern __shared__ __align__(16) float pooled[];  // [OS]
   __shared__ float red[kThreads / 32];
   const int b = blockIdx.y, n_first = blockIdx.x * kPoolCols;
@@ -242,6 +270,13 @@ __global__ void __launch_bounds__(kThreads) pool_pass(
     float s = 0.0f;
     for (int i = 0; i < n_tiles; ++i) s += partial[((size_t)b * n_tiles + i) * OS + o];
     pooled[o] = round_bf16(s / count);
+    if (scaled && blockIdx.x == 0)
+      pooled_out[(size_t)b * OS + o] = __float2bfloat16(pooled[o] * scale);
+  }
+  if (scaled) {
+    for (int n = n_first + threadIdx.x; n < n_first + kPoolCols; n += kThreads)
+      bias[(size_t)b * N + n] = bf(mb[n]);
+    return;
   }
   __syncthreads();
   // one warp per output column: lanes walk row n of M2 (contiguous)
@@ -253,18 +288,106 @@ __global__ void __launch_bounds__(kThreads) pool_pass(
   }
 }
 
+// (d) pre[b, t] (+)= (keep_s[b, t] ? pooled_s[b] : 0) M2^T for the 64 frames
+// of a tile; pre on a padded frame is taken as 0 (its local row is zero).
+// OS <= kMaxWidth: the masked pooled rows stay resident in one buffer.
+__global__ void __launch_bounds__(kCoreThreads, 1) pooled_pass(
+    const __grid_constant__ CUtensorMap map_m2, const uint8_t* __restrict__ keep, int ldk,
+    int OL, const bf16* __restrict__ pooled, const float* __restrict__ pad, int T, int OS,
+    int N, float* __restrict__ pre) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* abuf = smem;
+  uint8_t* ring = smem + kBufBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int tile = blockIdx.x, b = blockIdx.y, t0 = tile * kTile;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+
+  if (warp == kConsumerWarps) {  // producer: every M2 tile in order
+    if ((threadIdx.x & 31) == 0) {
+      RingPos pos;
+      for (int n0 = 0; n0 < N; n0 += kChunk)
+        for (int kb = 0; kb < OS / kBK; ++kb) {
+          mbar_wait(&empty[pos.stage], pos.phase ^ 1u);
+          mbar_expect_tx(&full[pos.stage], kStageBytes);
+          tma_load_2d(ring + pos.stage * kStageBytes, &map_m2, &full[pos.stage], kb * kBK, n0);
+          pos.next(kStages);
+        }
+    }
+    return;
+  }
+
+  // the masked pooled rows, 8 columns (16 bytes) per store, in the layout
+  // TMA would write
+  const int vecs = OS / 8;
+  for (int v = threadIdx.x; v < kTile * vecs; v += kConsumerWarps * 32) {
+    const int r = v / vecs, c = (v % vecs) * 8, t = t0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (t < T) {
+      const uint2 k8 = *reinterpret_cast<const uint2*>(keep + ((size_t)b * T + t) * ldk + OL + c);
+      const uint4 p8 = *reinterpret_cast<const uint4*>(pooled + (size_t)b * OS + c);
+      const uint8_t* kb = reinterpret_cast<const uint8_t*>(&k8);
+      const uint32_t* pw = reinterpret_cast<const uint32_t*>(&p8);
+      uint32_t* vw = reinterpret_cast<uint32_t*>(&val);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        vw[e] = (kb[2 * e] ? (pw[e] & 0xffffu) : 0u) | (kb[2 * e + 1] ? (pw[e] & 0xffff0000u) : 0u);
+    }
+    *reinterpret_cast<uint4*>(abuf + swizzled_offset(r, c, kTile)) = val;
+  }
+  fence_async_smem();
+  consumers_sync();
+
+  const int wg = warp / 4;
+  const uint32_t ring_u32 = smem_u32(ring), a_u32 = smem_u32(abuf);
+  const int r0 = acc_row(), cq = acc_col();
+  RingPos pos;
+  for (int n0 = 0; n0 < N; n0 += kChunk) {
+    float acc[1][64];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[0][j] = 0.0f;
+    consume<1>(
+        acc, OS / kBK, full, empty, kStages, pos,
+        [&](int kb, int) { return a_u32 + kb * kKBlockBytes; },
+        [&](int st) { return ring_u32 + st * kStageBytes + wg * 128 * kLineBytes; });
+    const int c0 = n0 + wg * 128;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int t = t0 + r0 + 8 * hh;
+      if (t >= T) continue;
+      const bool valid = pad[(size_t)b * T + t] != 0.0f;
+      float* row = pre + ((size_t)b * T + t) * N;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float2* p = reinterpret_cast<float2*>(row + c0 + 8 * j + cq);
+        const float2 old = valid ? *p : make_float2(0.0f, 0.0f);
+        *p = make_float2(old.x + acc[0][4 * j + 2 * hh], old.y + acc[0][4 * j + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
 template <int ACT>
 __global__ void __launch_bounds__(kThreads) finish_pass(const float* __restrict__ pre,
                                                         const float* __restrict__ pad,
                                                         const float* __restrict__ bias, int T,
-                                                        int N, size_t total,
+                                                        int N, size_t total, int pre_all,
                                                         bf16* __restrict__ out) {
   const size_t e = ((size_t)blockIdx.x * kThreads + threadIdx.x) * 4;
   if (e >= total) return;
   const size_t row = e / N;
   const int n = (int)(e % N), b = (int)(row / T);
   float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (pad[row] != 0.0f) v = *reinterpret_cast<const float4*>(pre + e);
+  if (pre_all || pad[row] != 0.0f) v = *reinterpret_cast<const float4*>(pre + e);
   const float4 bb = *reinterpret_cast<const float4*>(bias + (size_t)b * N + n);
   __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + e);
   o[0] = __floats2bfloat162_rn(activate<ACT>(v.x + bb.x), activate<ACT>(v.y + bb.y));
@@ -276,16 +399,20 @@ static cudaError_t launch(const bf16* x, const float* pad, int B, int T, int D, 
                           int HS, int OS, int N, const bf16* w1, const bf16* b1, const bf16* w2,
                           const bf16* b2, const bf16* s1, const bf16* c1, const bf16* s2,
                           const bf16* c2, const bf16* m1, int ldm1, const bf16* m2, int ldm2,
-                          const bf16* mb, float* partial, float* bias, float* pre, bf16* out,
-                          cudaStream_t stream) {
+                          const bf16* mb, const uint8_t* keep, float scale, float* partial,
+                          float* bias, bf16* pooled, float* pre, bf16* out, cudaStream_t stream) {
   static bool attribute_set = false;
   if (!attribute_set) {
     cudaError_t err = cudaFuncSetAttribute(
         branch_pass<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBranchSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(pooled_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kPooledSmem);
     if (err != cudaSuccess) return err;
     attribute_set = true;
   }
-  CUtensorMap mx, mw1, mw2, ms1, ms2, mm1;
+  if (keep != nullptr && OS > kMaxWidth) return cudaErrorInvalidValue;
+  CUtensorMap mx, mw1, mw2, ms1, ms2, mm1, mm2;
   const uint64_t xdims[3] = {(uint64_t)D, (uint64_t)T, (uint64_t)B};
   const uint64_t xstrides[2] = {(uint64_t)D * 2, (uint64_t)T * D * 2};
   const uint32_t xbox[3] = {(uint32_t)kBK, (uint32_t)kTile, 1};
@@ -294,16 +421,21 @@ static cudaError_t launch(const bf16* x, const float* pad, int B, int T, int D, 
       !smt_host::matrix_map(&mw2, w2, OL, HL, HL, kChunk) ||
       !smt_host::matrix_map(&ms1, s1, HS, D, D, kChunk) ||
       !smt_host::matrix_map(&ms2, s2, OS, HS, HS, kChunk) ||
-      !smt_host::matrix_map(&mm1, m1, N, OL, ldm1, kChunk))
+      !smt_host::matrix_map(&mm1, m1, N, OL, ldm1, kChunk) ||
+      (keep != nullptr && !smt_host::matrix_map(&mm2, m2, N, OS, ldm2, kChunk)))
     return cudaErrorInvalidValue;
-  const int n_tiles = (T + kTile - 1) / kTile;
+  const int n_tiles = (T + kTile - 1) / kTile, ldk = OL + OS;
   branch_pass<ACT><<<dim3(n_tiles, B, 2), kCoreThreads, kBranchSmem, stream>>>(
-      mx, mw1, mw2, ms1, ms2, mm1, pad, T, D, HL, OL, HS, OS, N, b1, b2, c1, c2, partial, pre);
+      mx, mw1, mw2, ms1, ms2, mm1, pad, T, D, HL, OL, HS, OS, N, b1, b2, c1, c2, keep, ldk,
+      scale, partial, pre);
   pool_pass<<<dim3(N / kPoolCols, B), kThreads, OS * sizeof(float), stream>>>(
-      partial, pad, T, n_tiles, OS, N, m2, ldm2, mb, bias);
+      partial, pad, T, n_tiles, OS, N, m2, ldm2, mb, bias, keep != nullptr, scale, pooled);
+  if (keep != nullptr)
+    pooled_pass<<<dim3(n_tiles, B), kCoreThreads, kPooledSmem, stream>>>(
+        mm2, keep, ldk, OL, pooled, pad, T, OS, N, pre);
   const size_t total = (size_t)B * T * N;
   finish_pass<ACT><<<(unsigned)((total / 4 + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      pre, pad, bias, T, N, total, out);
+      pre, pad, bias, T, N, total, keep != nullptr, out);
   return cudaGetLastError();
 }
 
@@ -313,8 +445,9 @@ extern "C" int sm_forward(const void* x, const void* pad, int B, int T, int D, i
                           int HS, int OS, int N, const void* w1, const void* b1, const void* w2,
                           const void* b2, const void* s1, const void* c1, const void* s2,
                           const void* c2, const void* m1, const void* m2, int ldm1,
-                          const void* mb, int ldm2, void* partial, void* bias, void* pre,
-                          void* out, int act, void* stream) {
+                          const void* mb, int ldm2, const void* keep, float scale,
+                          void* partial, void* bias, void* pooled, void* pre, void* out, int act,
+                          void* stream) {
   using smt::bf16;
   auto fn = act == smt::ACT_GELU_ERF ? smt::launch<smt::ACT_GELU_ERF>
           : act == smt::ACT_GELU_TANH ? smt::launch<smt::ACT_GELU_TANH>
@@ -324,5 +457,6 @@ extern "C" int sm_forward(const void* x, const void* pad, int B, int T, int D, i
                  (const bf16*)w1, (const bf16*)b1, (const bf16*)w2, (const bf16*)b2,
                  (const bf16*)s1, (const bf16*)c1, (const bf16*)s2, (const bf16*)c2,
                  (const bf16*)m1, ldm1, (const bf16*)m2, ldm2, (const bf16*)mb,
-                 (float*)partial, (float*)bias, (float*)pre, (bf16*)out, (cudaStream_t)stream);
+                 (const uint8_t*)keep, scale, (float*)partial, (float*)bias, (bf16*)pooled,
+                 (float*)pre, (bf16*)out, (cudaStream_t)stream);
 }

@@ -1,6 +1,5 @@
 """Speech features — the port of `Fbank`, `NormStats` and
-`InputNormalization` (the `update=False` path) from
-`summarymixing_tpu/frontend/features.py`.
+`InputNormalization` from `summarymixing_tpu/frontend/features.py`.
 
 Fbank: centered framing with zero padding, ONE float32 matmul of the frames
 against the hamming-windowed DFT basis, power spectrum, HTK-mel filterbank,
@@ -12,7 +11,7 @@ top_db, power) keep their defaults here, the values the recipes use.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,13 +102,30 @@ class Fbank(nn.Module):
 
 
 class NormStats:
-    """Running global mean/variance as a dict of tensors (count, mean, m2)."""
+    """Running global mean/variance as a dict of tensors (count, mean, m2),
+    merged over the valid frames of each batch (Chan's parallel Welford)."""
 
     @staticmethod
     def init(dim: int, device=None) -> dict:
         return {"count": torch.zeros((), dtype=torch.float32, device=device),
                 "mean": torch.zeros(dim, dtype=torch.float32, device=device),
                 "m2": torch.zeros(dim, dtype=torch.float32, device=device)}
+
+    @staticmethod
+    def update(stats: dict, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> dict:
+        """x `[B, T, F]`; pad_mask `[B, T]`, 1 = valid."""
+        if pad_mask is None:
+            pad_mask = torch.ones(x.shape[:2], dtype=x.dtype, device=x.device)
+        w = pad_mask[..., None].to(torch.float32)
+        n_b = w.sum()
+        mean_b = (x * w).sum(dim=(0, 1)) / n_b.clamp_min(1.0)
+        m2_b = (((x - mean_b) ** 2) * w).sum(dim=(0, 1))
+        n_a, mean_a, m2_a = stats["count"], stats["mean"], stats["m2"]
+        n = n_a + n_b
+        delta = mean_b - mean_a
+        mean = mean_a + delta * n_b / n.clamp_min(1.0)
+        m2 = m2_a + m2_b + delta * delta * n_a * n_b / n.clamp_min(1.0)
+        return {"count": n, "mean": mean, "m2": m2}
 
     @staticmethod
     def mean_std(stats: dict) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -123,10 +139,19 @@ class NormStats:
 
 
 class InputNormalization:
-    """Global mean/variance normalization with frozen statistics: the JAX
-    module's `update=False` path, which needs no pad mask. Updating the
-    statistics is training work, still to port."""
+    """Global mean/variance normalization. With `update=True` the
+    statistics first take in the batch's valid frames, while the trainer's
+    0-based `epoch` + 1 is below `update_until_epoch` (the reference counts
+    epochs from 1); after that they are frozen."""
 
-    def __call__(self, x: torch.Tensor, stats: dict) -> Tuple[torch.Tensor, dict]:
+    def __init__(self, update_until_epoch: int = 4, std_norm: bool = True):
+        self.update_until_epoch = update_until_epoch
+        self.std_norm = std_norm
+
+    def __call__(self, x: torch.Tensor, stats: dict, pad_mask: Optional[torch.Tensor] = None,
+                 epoch: Optional[int] = None, update: bool = False) -> Tuple[torch.Tensor, dict]:
+        if update and (epoch is None or epoch + 1 < self.update_until_epoch):
+            stats = NormStats.update(stats, x, pad_mask)
         mean, std = NormStats.mean_std(stats)
-        return (x - mean) / std, stats
+        out = x - mean
+        return (out / std if self.std_norm else out), stats

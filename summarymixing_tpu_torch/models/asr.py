@@ -1,8 +1,9 @@
-"""Encoder-only `TransformerASR` — the port of the parts of
-`summarymixing_tpu/models/asr.py` that greedy CTC decoding runs:
-`_src_masks` (non-causal, no Dynamic Chunk Training), `_encode_inner`,
-`encode`, and `forward` with no decoder. The attention decoder, the
-conformer/transformer encoders and streaming are still to port.
+"""`TransformerASR` with the Branchformer encoder — the port of
+`summarymixing_tpu/models/asr.py`: `_src_masks` (non-causal, no Dynamic
+Chunk Training), `_encode_inner` with the source dropout, `encode`, the
+target embedding and the regularMHA attention decoder (`_decode_inner`),
+and `forward` with or without targets. The conformer/transformer
+encoders, streaming and the decoder's KV-cached step are still to port.
 """
 
 from __future__ import annotations
@@ -13,7 +14,13 @@ import torch
 from torch import nn
 
 from summarymixing_tpu_torch.models.branchformer import BranchformerEncoder
-from summarymixing_tpu_torch.ops.masks import rel_length_to_mask
+from summarymixing_tpu_torch.models.transformer import NormalizedEmbedding, TransformerDecoder
+from summarymixing_tpu_torch.ops.layers import Dense, Dropout
+from summarymixing_tpu_torch.ops.masks import (
+    key_padding_mask_from_tokens,
+    lookahead_mask,
+    rel_length_to_mask,
+)
 from summarymixing_tpu_torch.ops.positional import positional_encoding
 
 _TODO = "see ROADMAP.md, 'Modules still to port'"
@@ -21,17 +28,18 @@ _TODO = "see ROADMAP.md, 'Modules still to port'"
 
 class TransformerASR(nn.Module):
     def __init__(self, tgt_vocab: int, input_size: int, d_model: int = 512, nhead: int = 8,
-                 num_encoder_layers: int = 6, num_decoder_layers: int = 0,
+                 num_encoder_layers: int = 6, num_decoder_layers: int = 0, d_ffn: int = 2048,
+                 dropout_rate: float = 0.0, activation: str = "gelu",
                  positional_encoding: Optional[str] = "fixed_abs_sine", kernel_size: int = 31,
+                 normalize_before: bool = True,
                  encoder_module: str = "branchformer", attention_type: str = "SummaryMixing",
+                 decoder_attention_type: str = "regularMHA",
                  causal: bool = False, csgu_linear_units: int = 3072,
                  gate_activation: Optional[str] = None, use_linear_after_conv: bool = False,
                  local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
                  summary_hid_dim: Sequence[int] = (1024,), summary_out_dim: int = 1024,
                  mode: str = "SummaryMixing", branchformer_activation: str = "gelu_exact"):
         super().__init__()
-        if num_decoder_layers:
-            raise NotImplementedError(f"the attention decoder is not ported; {_TODO}")
         if encoder_module != "branchformer":
             raise NotImplementedError(f"encoder {encoder_module!r} is not ported; {_TODO}")
         if causal:
@@ -41,14 +49,20 @@ class TransformerASR(nn.Module):
         self.num_decoder_layers = num_decoder_layers
         self.positional_encoding = positional_encoding
         self.attention_type = attention_type
-        self.src_proj = nn.Linear(input_size, d_model)
+        self.src_proj = Dense(input_size, d_model)
+        self.src_dropout = Dropout(dropout_rate)
         self.encoder = BranchformerEncoder(
             num_encoder_layers, d_model, nhead, kernel_size=kernel_size,
             attention_type=attention_type, csgu_linear_units=csgu_linear_units,
             gate_activation=gate_activation, use_linear_after_conv=use_linear_after_conv,
             local_proj_hid_dim=local_proj_hid_dim, local_proj_out_dim=local_proj_out_dim,
             summary_hid_dim=summary_hid_dim, summary_out_dim=summary_out_dim, mode=mode,
-            activation=branchformer_activation)
+            activation=branchformer_activation, dropout_rate=dropout_rate)
+        if num_decoder_layers > 0:
+            self.tgt_emb = NormalizedEmbedding(d_model, tgt_vocab)
+            self.decoder = TransformerDecoder(
+                num_decoder_layers, d_model, d_ffn, nhead, dropout_rate, activation,
+                normalize_before, decoder_attention_type)
 
     def _src_masks(self, t: int, wav_len: Optional[torch.Tensor]):
         pad_mask = None if wav_len is None else rel_length_to_mask(wav_len, t)
@@ -60,16 +74,32 @@ class TransformerASR(nn.Module):
             b, t, f, c = src.shape
             src = src.reshape(b, t, f * c)
         t = src.shape[1]
-        src = self.src_proj(src)
+        src = self.src_dropout(self.src_proj(src))
         if self.positional_encoding == "fixed_abs_sine" and self.attention_type != "hypermixing":
             src = src + positional_encoding(t, self.d_model, src.dtype, src.device)
         return self.encoder(src, src_mask, pad_mask)
 
+    def _decode_inner(self, tgt: torch.Tensor, enc_out: torch.Tensor,
+                      enc_pad_mask: Optional[torch.Tensor],
+                      tgt_pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        u = tgt.shape[1]
+        x = self.tgt_emb(tgt)
+        x = x + positional_encoding(u, self.d_model, x.dtype, x.device)
+        return self.decoder(x, enc_out, tgt_mask=lookahead_mask(u, device=x.device),
+                            tgt_pad_mask=tgt_pad_mask, memory_pad_mask=enc_pad_mask)
+
     def forward(self, src: torch.Tensor, tgt: Optional[torch.Tensor] = None,
-                wav_len: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, None]:
-        """src `[B, T, F]` (or `[B, T, F, C]`); wav_len `[B]` relative lengths.
-        Returns `(enc_out, None)`: there is no decoder."""
-        return self.encode(src, wav_len), None
+                wav_len: Optional[torch.Tensor] = None,
+                pad_idx: int = 0) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """src `[B, T, F]` (or `[B, T, F, C]`); tgt `[B, U]` int tokens (BOS
+        first); wav_len `[B]` relative lengths. Returns `(enc_out, dec_out)`,
+        `dec_out` None without targets or decoder."""
+        pad_mask, src_mask = self._src_masks(src.shape[1], wav_len)
+        enc_out = self._encode_inner(src, pad_mask, src_mask)
+        if tgt is None or self.num_decoder_layers == 0:
+            return enc_out, None
+        tgt_pad_mask = key_padding_mask_from_tokens(tgt, pad_idx)
+        return enc_out, self._decode_inner(tgt, enc_out, pad_mask, tgt_pad_mask)
 
     def encode(self, src: torch.Tensor, wav_len: Optional[torch.Tensor] = None) -> torch.Tensor:
         pad_mask, src_mask = self._src_masks(src.shape[1], wav_len)

@@ -3,8 +3,9 @@ of `summarymixing_tpu/models/branchformer.py` (unrolled `layer_{i}` layout).
 
 Each layer runs LayerNorm -> SummaryMixing beside LayerNorm -> cgMLP,
 merges the two with `SummaryNet(summary_hid_dim + (d_model,))` over
-`cat([x1, x2])`, and adds the residual. The stack ends in a LayerNorm with
-eps 1e-6; the layers' norms use 1e-5.
+`cat([x1, x2])`, and adds the residual. Dropout follows each branch and
+the merge, as in the flax layer. The stack ends in a LayerNorm with eps
+1e-6; the layers' norms use 1e-5.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from torch import nn
 
 from summarymixing_tpu_torch.models.mixers import apply_mixer, make_mixer
 from summarymixing_tpu_torch.ops.convolution import ConvolutionBranch
+from summarymixing_tpu_torch.ops.layers import Dropout, LayerNorm
 from summarymixing_tpu_torch.ops.linear import SummaryNet
 
 
@@ -25,27 +27,30 @@ class BranchformerEncoderLayer(nn.Module):
                  gate_activation: Optional[str] = None, use_linear_after_conv: bool = False,
                  local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
                  summary_hid_dim: Sequence[int] = (1024,), summary_out_dim: int = 1024,
-                 mode: str = "SummaryMixing", activation: str = "gelu_exact"):
+                 mode: str = "SummaryMixing", activation: str = "gelu_exact",
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.attention_type = attention_type
         self.mixer = make_mixer(
             attention_type, d_model, nhead, local_proj_hid_dim=local_proj_hid_dim,
             local_proj_out_dim=local_proj_out_dim, summary_hid_dim=summary_hid_dim,
-            summary_out_dim=summary_out_dim, mode=mode, activation=activation)
+            summary_out_dim=summary_out_dim, mode=mode, activation=activation,
+            dropout_rate=dropout_rate)
         self.merge_proj = SummaryNet(summary_out_dim + d_model,
                                      tuple(summary_hid_dim) + (d_model,), activation=activation)
-        self.norm_mhsa = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm_mhsa = LayerNorm(d_model, eps=1e-5)
         self.convolution_branch = ConvolutionBranch(
             d_model, csgu_linear_units, kernel_size, activation, gate_activation,
-            use_linear_after_conv)
-        self.norm_conv = nn.LayerNorm(d_model, eps=1e-5)
+            use_linear_after_conv, dropout_rate)
+        self.norm_conv = LayerNorm(d_model, eps=1e-5)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
                 pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x1 = apply_mixer(self.mixer, self.attention_type, self.norm_mhsa(x),
-                         attn_mask=src_mask, pad_mask=pad_mask)
-        x2 = self.convolution_branch(self.norm_conv(x), pad_mask=pad_mask)
-        return x + self.merge_proj(torch.cat([x1, x2], dim=-1))
+        x1 = self.dropout(apply_mixer(self.mixer, self.attention_type, self.norm_mhsa(x),
+                                      attn_mask=src_mask, pad_mask=pad_mask))
+        x2 = self.dropout(self.convolution_branch(self.norm_conv(x), pad_mask=pad_mask))
+        return x + self.dropout(self.merge_proj(torch.cat([x1, x2], dim=-1)))
 
 
 class BranchformerEncoder(nn.Module):
@@ -56,7 +61,7 @@ class BranchformerEncoder(nn.Module):
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer_{i}", BranchformerEncoderLayer(d_model, nhead, **layer_kwargs))
-        self.norm = nn.LayerNorm(d_model, eps=1e-6)
+        self.norm = LayerNorm(d_model, eps=1e-6)
 
     def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
                 pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:

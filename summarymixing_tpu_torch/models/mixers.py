@@ -15,14 +15,16 @@ from summarymixing_tpu_torch.ops.summary_mixing import SummaryMixing
 def make_mixer(attention_type: str, d_model: int, nhead: int, *,
                local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
                summary_hid_dim: Sequence[int] = (1024,), summary_out_dim: int = 1024,
-               mode: str = "SummaryMixing", activation: str = "gelu_exact") -> SummaryMixing:
+               mode: str = "SummaryMixing", activation: str = "gelu_exact",
+               dropout_rate: float = 0.0) -> SummaryMixing:
     if attention_type != "SummaryMixing":
         raise NotImplementedError(
             f"mixer {attention_type!r} is not ported; see ROADMAP.md, 'Modules still to port'")
     return SummaryMixing(
         enc_dim=d_model, nhead=nhead, local_proj_hid_dim=tuple(local_proj_hid_dim),
         local_proj_out_dim=local_proj_out_dim, summary_hid_dim=tuple(summary_hid_dim),
-        summary_out_dim=summary_out_dim, activation=activation, mode=mode)
+        summary_out_dim=summary_out_dim, activation=activation, mode=mode,
+        dropout_rate=dropout_rate)
 
 
 def apply_mixer(mixer: SummaryMixing, attention_type: str, x: torch.Tensor, *,

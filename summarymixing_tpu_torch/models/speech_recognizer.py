@@ -1,10 +1,11 @@
-"""The recognizer graph without a decoder — the port of
+"""The recognizer graph — the port of
 `summarymixing_tpu/models/speech_recognizer.py`: CNN frontend ->
-`TransformerASR` encoder -> CTC head."""
+`TransformerASR` -> CTC head, and the attention decoder's head
+(`seq_lin`) when the model has a decoder."""
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -12,33 +13,47 @@ from torch import nn
 
 from summarymixing_tpu_torch.models.asr import TransformerASR
 from summarymixing_tpu_torch.ops.convolution import ConvolutionFrontEnd
+from summarymixing_tpu_torch.ops.layers import Dense
 
 
 class SpeechRecognizer(nn.Module):
-    """features `[B, T, n_mels]` -> dict with `ctc_log_probs` `[B, T', V]`.
+    """features `[B, T, F]` -> dict with `ctc_log_probs` `[B, T', V]` and,
+    given BOS-prefixed targets, `seq_log_probs` `[B, U, V]`.
 
-    The model computes in the dtype of its weights (`model.to(torch.bfloat16)`
-    for the card); the CTC log-softmax is taken in float32."""
+    Parameters stay float32; the layers compute in their compute dtype
+    (`ops.layers.set_compute_dtype`). Both log-softmaxes are taken in
+    float32."""
 
     def __init__(self, asr: TransformerASR, vocab_size: int,
                  frontend_channels: Sequence[int] = (64, 32),
-                 frontend_strides: Sequence[int] = (2, 2)):
+                 frontend_strides: Sequence[int] = (2, 2), frontend_dropout: float = 0.0):
         super().__init__()
         self.frontend_strides = tuple(frontend_strides)
         self.cnn = ConvolutionFrontEnd(out_channels=tuple(frontend_channels),
-                                       strides=self.frontend_strides)
+                                       strides=self.frontend_strides,
+                                       dropout_rate=frontend_dropout)
         self.asr = asr
-        self.ctc_lin = nn.Linear(asr.d_model, vocab_size)
+        self.ctc_lin = Dense(asr.d_model, vocab_size)
+        if asr.num_decoder_layers > 0:
+            self.seq_lin = Dense(asr.d_model, vocab_size)
 
     def subsampled_length(self, feat_lengths: torch.Tensor) -> torch.Tensor:
         return ConvolutionFrontEnd.subsampled_length(feat_lengths, self.frontend_strides)
 
-    def forward(self, feats: torch.Tensor, feat_lengths: torch.Tensor) -> dict:
-        """feats `[B, T, F]`; feat_lengths `[B]` absolute frame counts."""
-        enc_out, out_len = self.encode(feats, feat_lengths)
+    def forward(self, feats: torch.Tensor, feat_lengths: torch.Tensor,
+                tokens_bos: Optional[torch.Tensor] = None, pad_idx: int = 0) -> dict:
+        """feats `[B, T, F]`; feat_lengths `[B]` absolute frame counts;
+        tokens_bos `[B, U]` targets with BOS first, or None."""
+        x = self.cnn(feats)
+        out_len = self.subsampled_length(feat_lengths)
+        wav_len_rel = out_len.to(torch.float32) / x.shape[1]
+        enc_out, dec_out = self.asr(x, tokens_bos, wav_len_rel, pad_idx)
+        seq_log_probs = None
+        if dec_out is not None:
+            seq_log_probs = F.log_softmax(self.seq_lin(dec_out).to(torch.float32), dim=-1)
         return {"enc_out": enc_out, "enc_lengths": out_len,
                 "ctc_log_probs": self.ctc_head(enc_out),
-                "dec_out": None, "seq_log_probs": None}
+                "dec_out": dec_out, "seq_log_probs": seq_log_probs}
 
     def encode(self, feats: torch.Tensor,
                feat_lengths: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

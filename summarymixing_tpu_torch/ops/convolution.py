@@ -5,8 +5,10 @@
 `ConvolutionBranch` runs the plain path on the CPU and the fused cgMLP
 kernel (`ops/fused_csgu.py`) on a CUDA tensor; on the card it takes the
 recipe configuration (tanh-GELU, identity gate, no linear after the conv)
-and raises `NotImplementedError` for any other. `ConvolutionModule` and
-its Dynamic Chunk Convolution are still to port (ROADMAP.md).
+and raises `NotImplementedError` for any other. The CSGU's dropout runs
+inside the kernel there, from a keep-mask the branch draws.
+`ConvolutionModule` and its Dynamic Chunk Convolution are still to port
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from summarymixing_tpu_torch.ops import _build, fused_csgu
+from summarymixing_tpu_torch.ops.layers import Conv2d, Dense, Dropout, LayerNorm
 from summarymixing_tpu_torch.ops.linear import get_activation
+from summarymixing_tpu_torch.ops.summary_mixing import uses_kernel
 
 _TODO = "see ROADMAP.md, 'Modules still to port'"
 
@@ -30,27 +34,28 @@ def depthwise_conv1d(x: torch.Tensor, kernel: torch.Tensor,
     k, c = kernel.shape
     left = (k - 1) // 2
     xt = F.pad(x.transpose(1, 2), (left, k - 1 - left))
-    out = F.conv1d(xt, kernel.t()[:, None, :].to(x.dtype),
-                   None if bias is None else bias.to(x.dtype), groups=c)
-    return out.transpose(1, 2)
+    out = F.conv1d(xt, kernel.t()[:, None, :].to(x.dtype), None, groups=c).transpose(1, 2)
+    return out if bias is None else out + bias.to(x.dtype)
 
 
 class ConvolutionalSpatialGatingUnit(nn.Module):
     """Split channels in half; the gate half goes LayerNorm -> pad mask ->
     depthwise conv (-> optional linear) -> gate activation; the output is
-    the residual half times the gate."""
+    the residual half times the gate, then dropout."""
 
     def __init__(self, input_size: int, kernel_size: int = 31,
-                 use_linear_after_conv: bool = False, gate_activation: Optional[str] = None):
+                 use_linear_after_conv: bool = False, gate_activation: Optional[str] = None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         half = input_size // 2
         self.gate_activation = gate_activation
         self.use_linear_after_conv = use_linear_after_conv
-        self.norm = nn.LayerNorm(half, eps=1e-5)
+        self.norm = LayerNorm(half, eps=1e-5)
         self.conv_kernel = nn.Parameter(torch.empty(kernel_size, half))
         self.conv_bias = nn.Parameter(torch.empty(half))
         if use_linear_after_conv:
-            self.linear_after_conv = nn.Linear(half, half)
+            self.linear_after_conv = Dense(half, half)
+        self.dropout = Dropout(dropout_rate)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         with torch.no_grad():
@@ -67,7 +72,7 @@ class ConvolutionalSpatialGatingUnit(nn.Module):
             x_gate = self.linear_after_conv(x_gate)
         if self.gate_activation is not None:
             x_gate = get_activation(self.gate_activation)(x_gate)
-        return x_res * x_gate
+        return self.dropout(x_res * x_gate)
 
 
 class ConvolutionBranch(nn.Module):
@@ -76,16 +81,16 @@ class ConvolutionBranch(nn.Module):
 
     def __init__(self, input_size: int, linear_units: int = 3072, kernel_size: int = 31,
                  activation: str = "gelu_exact", gate_activation: Optional[str] = None,
-                 use_linear_after_conv: bool = False):
+                 use_linear_after_conv: bool = False, dropout_rate: float = 0.0):
         super().__init__()
         self.activation = activation
-        self.pre_channel_proj = nn.Linear(input_size, linear_units)
+        self.pre_channel_proj = Dense(input_size, linear_units)
         self.csgu = ConvolutionalSpatialGatingUnit(
-            linear_units, kernel_size, use_linear_after_conv, gate_activation)
-        self.post_channel_proj = nn.Linear(linear_units // 2, input_size)
+            linear_units, kernel_size, use_linear_after_conv, gate_activation, dropout_rate)
+        self.post_channel_proj = Dense(linear_units // 2, input_size)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if x.device.type == "cuda":
+        if uses_kernel(x):
             if (self.activation != "gelu" or self.csgu.gate_activation is not None
                     or self.csgu.use_linear_after_conv):
                 raise NotImplementedError(
@@ -93,9 +98,14 @@ class ConvolutionBranch(nn.Module):
                     f"gate, no linear after the conv; {_TODO}")
             if pad_mask is not None:
                 pad_mask = pad_mask.to(torch.float32).contiguous()
+            b, t, _ = x.shape
+            drop = self.csgu.dropout
+            keep = drop.keep_mask((b, t, self.csgu.conv_bias.shape[0]), x.device)
+            launch = _build.cached_weights(self, lambda m: tuple(
+                w.detach() for w in fused_csgu.kernel_weights(fused_csgu.branch_weights(m))))
             return fused_csgu.fused_convolution_branch(
-                x.contiguous(), pad_mask, _build.cached_weights(self, fused_csgu.branch_weights),
-                eps=self.csgu.norm.eps)
+                x.contiguous(), pad_mask, fused_csgu.branch_weights(self), self.csgu.norm.eps,
+                keep, 1.0 - drop.rate, launch_weights=launch)
         x = get_activation(self.activation)(self.pre_channel_proj(x))
         x = self.csgu(x, pad_mask=pad_mask)
         return self.post_channel_proj(x)
@@ -104,26 +114,28 @@ class ConvolutionBranch(nn.Module):
 class ConvolutionFrontEnd(nn.Module):
     """2-D convolutional subsampling over `[B, T, F]` features: blocks of
     (Conv2d stride s×s, symmetric k//2 padding -> LayerNorm over channels ->
-    leaky-ReLU 0.01), then (freq, channel) flattened in NHWC order to
-    `[B, T', F'·C]`. Computes in the dtype of its weights."""
+    leaky-ReLU 0.01 -> dropout), then (freq, channel) flattened in NHWC
+    order to `[B, T', F'·C]`."""
 
     def __init__(self, out_channels: Sequence[int] = (64, 32),
-                 kernel_sizes: Sequence[int] = (3, 3), strides: Sequence[int] = (2, 2)):
+                 kernel_sizes: Sequence[int] = (3, 3), strides: Sequence[int] = (2, 2),
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.strides = tuple(strides)
         in_ch = 1
         for i, (ch, k, s) in enumerate(zip(out_channels, kernel_sizes, strides)):
-            self.add_module(f"conv_{i}", nn.Conv2d(in_ch, ch, k, stride=s, padding=k // 2))
-            self.add_module(f"norm_{i}", nn.LayerNorm(ch, eps=1e-5))
+            self.add_module(f"conv_{i}", Conv2d(in_ch, ch, k, stride=s, padding=k // 2))
+            self.add_module(f"norm_{i}", LayerNorm(ch, eps=1e-5))
             in_ch = ch
         self.num_blocks = len(self.strides)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.conv_0.weight.dtype)[:, None]            # NCHW [B, 1, T, F]
+        x = x.to(self.conv_0.compute_dtype or self.conv_0.weight.dtype)[:, None]  # [B, 1, T, F]
         for i in range(self.num_blocks):
             x = getattr(self, f"conv_{i}")(x)
             x = getattr(self, f"norm_{i}")(x.permute(0, 2, 3, 1))  # NHWC
-            x = F.leaky_relu(x, 0.01)
+            x = self.dropout(F.leaky_relu(x, 0.01))
             if i + 1 < self.num_blocks:
                 x = x.permute(0, 3, 1, 2)
         b, t, f, c = x.shape

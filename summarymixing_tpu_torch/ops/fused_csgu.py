@@ -1,11 +1,12 @@
 """The whole Branchformer cgMLP branch: plain PyTorch version, weight
-flattener and the CUDA kernel's wrapper.
+flattener and the CUDA kernel's wrapper, an autograd Function.
 
     h         = gelu_tanh(x·W_pre + b_pre)                    (D -> 2C)
     res, gate = h[..., :C], h[..., C:]
     gate      = LayerNorm(gate) · mask                         (fp32 stats)
     gate      = depthwise_conv(gate, K taps, zero outside [0, T)) + conv_b
-    out       = (res · gate)·W_post + b_post                   (C -> D)
+    g         = dropout(res · gate)                            (optional keep-mask)
+    out       = g·W_post + b_post                              (C -> D)
 
 Source note (csrc/csgu.cu, on the product core of csrc/gemm_sm90.cuh):
 
@@ -32,6 +33,13 @@ Source note (csrc/csgu.cu, on the product core of csrc/gemm_sm90.cuh):
   scratch, every device access a 16-byte vector; (4) the same product
   kernel for `·W_postᵀ + b_post`. The bf16 scratches round where the TPU
   kernel keeps fp32.
+- Dropout: the flax CSGU drops `res·gate` before `post_channel_proj`
+  (`convolution.py:103-104`); with a bool keep-mask `[B, T, C]` the gate
+  pass divides the kept products by `keep_prob` and zeroes the others.
+- Gradient: the Pallas kernel is forward-only and JAX differentiates the
+  flax module. The autograd Function's backward here is the VJP of the
+  plain version, recomputed from the saved inputs, the float32
+  parameters and the keep-mask.
 
 Matrices use `torch.nn.Linear`'s layout, `[out, in]`; the conv weight is
 `[K, C]` with tap 0 reading frame t - (K-1)/2.
@@ -59,10 +67,13 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def convolution_branch_reference(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
-                                 weights: Tuple, eps: float = 1e-5) -> torch.Tensor:
+                                 weights: Tuple, eps: float = 1e-5,
+                                 keep: Optional[torch.Tensor] = None,
+                                 keep_prob: float = 1.0) -> torch.Tensor:
     """Plain PyTorch version of the kernel. x `[B, T, D]`; pad_mask `[B, T]`
     float, 1 = valid, or None; weights `(W_pre, b_pre, ln_scale, ln_bias,
-    conv_w, conv_b, W_post, b_post)`."""
+    conv_w, conv_b, W_post, b_post)`; keep, optional, a bool `[B, T, C]`
+    dropout keep-mask on `res·gate`, kept values divided by `keep_prob`."""
     w_pre, b_pre, ln_w, ln_b, conv_w, conv_b, w_post, b_post = weights
     f32 = torch.float32
     h = gelu_tanh(_mm(x, w_pre) + b_pre.to(f32))
@@ -76,21 +87,31 @@ def convolution_branch_reference(x: torch.Tensor, pad_mask: Optional[torch.Tenso
     gate = F.pad(gate.transpose(1, 2), (left, k - 1 - left))
     gate = F.conv1d(gate, conv_w.to(f32).t()[:, None, :], conv_b.to(f32), groups=c)
     o = res * gate.transpose(1, 2)
+    if keep is not None:
+        o = torch.where(keep, o / keep_prob, torch.zeros((), dtype=f32, device=o.device))
     return (_mm(o.to(x.dtype), w_post) + b_post.to(f32)).to(x.dtype)
 
 
 def branch_weights(branch) -> Tuple:
-    """Flatten a port `ConvolutionBranch` into the kernel's weight tuple:
-    bf16-capable matrices as they are, the vectors and the conv in fp32."""
+    """Flatten a port `ConvolutionBranch` into its parameter tuple in the
+    kernel's order: `(W_pre, b_pre, ln_scale, ln_bias, conv_w, conv_b,
+    W_post, b_post)`."""
     csgu = branch.csgu
-    f32 = torch.float32
-    return (branch.pre_channel_proj.weight, branch.pre_channel_proj.bias.to(f32),
-            csgu.norm.weight.to(f32), csgu.norm.bias.to(f32),
-            csgu.conv_kernel.to(f32), csgu.conv_bias.to(f32),
-            branch.post_channel_proj.weight, branch.post_channel_proj.bias.to(f32))
+    return (branch.pre_channel_proj.weight, branch.pre_channel_proj.bias,
+            csgu.norm.weight, csgu.norm.bias, csgu.conv_kernel, csgu.conv_bias,
+            branch.post_channel_proj.weight, branch.post_channel_proj.bias)
 
 
-def _check(x, pad_mask, weights):
+def kernel_weights(weights: Tuple) -> Tuple:
+    """The parameter tuple as the kernel takes it: the two matrices in
+    bf16, the vectors and the conv in fp32. Differentiable."""
+    w_pre, b_pre, ln_w, ln_b, conv_w, conv_b, w_post, b_post = weights
+    bf, f32 = torch.bfloat16, torch.float32
+    return (w_pre.to(bf), b_pre.to(f32), ln_w.to(f32), ln_b.to(f32), conv_w.to(f32),
+            conv_b.to(f32), w_post.to(bf), b_post.to(f32))
+
+
+def _check(x, pad_mask, weights, keep=None):
     if (x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous()
             or x.data_ptr() % 16):
         raise ValueError(f"x must be a contiguous, 16-byte aligned bf16 [B, T, D] tensor, "
@@ -121,6 +142,10 @@ def _check(x, pad_mask, weights):
         raise ValueError(f"pad_mask must be a contiguous float32 [B, T] tensor on x's "
                          f"device, got {pad_mask.dtype} {tuple(pad_mask.shape)} on "
                          f"{pad_mask.device}")
+    if keep is not None and (keep.dtype != torch.bool or tuple(keep.shape) != (b, t, c)
+                             or not keep.is_contiguous() or keep.device != x.device):
+        raise ValueError(f"keep must be a contiguous bool [B, T, {c}] tensor on x's device, "
+                         f"got {keep.dtype} {tuple(keep.shape)}")
     if any(v.device != x.device for v in weights):
         raise ValueError("weights and x must be on one device")
     for name, width in (("D", d), ("C", c)):
@@ -132,25 +157,19 @@ def _check(x, pad_mask, weights):
 @functools.cache
 def _kernel():
     """The C entry point of csrc/csgu.cu, built and declared on first use."""
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.load_library("csgu").csgu_forward
     # x, mask, B, T, D, 2C, K, W_pre, b_pre, ln_w, ln_b, eps, conv_w, conv_b,
-    # W_post, b_post, h scratch, LayerNorm stats scratch, gate scratch, out, stream
-    fn.argtypes = [p, p] + [i] * 5 + [p] * 4 + [ctypes.c_float] + [p] * 9
+    # W_post, b_post, keep, 1 / keep_prob, h scratch, LayerNorm stats scratch,
+    # gate scratch, out, stream
+    fn.argtypes = [p, p] + [i] * 5 + [p] * 4 + [f] + [p] * 5 + [f] + [p] * 5
     fn.restype = ctypes.c_int
     return fn
 
 
-def fused_convolution_branch(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
-                             weights: Tuple, eps: float = 1e-5) -> torch.Tensor:
-    """The fused cgMLP branch. On a CPU tensor this is the plain version; on
-    a CUDA tensor it launches the kernel or raises.
-    `fused_convolution_branch.launches` counts kernel launches."""
-    if x.device.type == "cpu":
-        return convolution_branch_reference(x, pad_mask, weights, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    b, t, d, c2, k = _check(x, pad_mask, weights)
+def _launch(x, pad_mask, weights, eps, keep, keep_prob):
+    """One launch of the kernel on `weights` in the layout `_check` takes."""
+    b, t, d, c2, k = _check(x, pad_mask, weights, keep)
     if pad_mask is None:
         pad_mask = torch.ones(b, t, dtype=torch.float32, device=x.device)
     w_pre, b_pre, ln_w, ln_b, conv_w, conv_b, w_post, b_post = weights
@@ -163,12 +182,76 @@ def fused_convolution_branch(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
         err = fn(x.data_ptr(), pad_mask.data_ptr(), b, t, d, c2, k,
                  w_pre.data_ptr(), b_pre.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), eps,
                  conv_w.data_ptr(), conv_b.data_ptr(), w_post.data_ptr(), b_post.data_ptr(),
+                 None if keep is None else keep.data_ptr(), 1.0 / keep_prob,
                  h.data_ptr(), stats.data_ptr(), g.data_ptr(), out.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"cgMLP kernel launch failed with CUDA error {err}")
-    fused_convolution_branch.launches += 1
+    _counts.launches += 1
     return out
 
 
+class FusedConvolutionBranch(torch.autograd.Function):
+    """Forward: one kernel launch. Backward: the VJP of the plain version,
+    recomputed from the saved x, pad mask, keep-mask and `weights` (the
+    parameters as the caller holds them), whose gradients come back in
+    their own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, pad_mask, keep, eps, keep_prob, launch_weights, *weights):
+        if launch_weights is None:
+            launch_weights = kernel_weights(weights)
+        ctx.eps, ctx.keep_prob = eps, keep_prob
+        ctx.save_for_backward(x, pad_mask, keep, *weights)
+        return _launch(x, pad_mask, launch_weights, eps, keep, keep_prob)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, pad_mask, keep, *weights = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[0], ctx.needs_input_grad[6:]
+        _counts.backwards += 1
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(need_x)
+            wd = [w.detach().requires_grad_(need) for w, need in zip(weights, need_w)]
+            out = convolution_branch_reference(xd, pad_mask, kernel_weights(wd), ctx.eps,
+                                               keep, ctx.keep_prob)
+            inputs = [v for v in [xd] + wd if v.requires_grad]
+            grads = iter(torch.autograd.grad(out, inputs, grad_out))
+        gx = next(grads) if need_x else None
+        return (gx, None, None, None, None, None,
+                *(next(grads) if need else None for need in need_w))
+
+
+def kernel_call(x, pad_mask, weights, eps, keep, keep_prob, launch_weights=None):
+    """The CUDA side of `fused_convolution_branch`: the autograd Function when autograd
+    records through `x` or a weight, else one bare launch."""
+    if torch.is_grad_enabled() and (x.requires_grad or any(w.requires_grad for w in weights)):
+        return FusedConvolutionBranch.apply(x, pad_mask, keep, eps, keep_prob, launch_weights,
+                                            *weights)
+    if launch_weights is None:
+        launch_weights = kernel_weights(weights)
+    return _launch(x, pad_mask, launch_weights, eps, keep, keep_prob)
+
+
+def fused_convolution_branch(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                             weights: Tuple, eps: float = 1e-5,
+                             keep: Optional[torch.Tensor] = None, keep_prob: float = 1.0,
+                             launch_weights: Optional[Tuple] = None) -> torch.Tensor:
+    """The fused cgMLP branch. On a CPU tensor this is the plain version; on
+    a CUDA tensor it launches the kernel or raises. `weights` may be in any
+    float dtype: the launch takes `kernel_weights(weights)`, or
+    `launch_weights` when the caller has them cached; when autograd
+    records, the backward is the plain version's VJP.
+    `fused_convolution_branch.launches` counts kernel launches,
+    `fused_convolution_branch.backwards` the backward passes through them."""
+    if x.device.type == "cpu":
+        return convolution_branch_reference(x, pad_mask, weights, eps, keep, keep_prob)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return kernel_call(x, pad_mask, weights, eps, keep, keep_prob, launch_weights)
+
+
 fused_convolution_branch.launches = 0
+fused_convolution_branch.backwards = 0
+# the counters stay on the wrapper when a caller swaps the module attribute
+_counts = fused_convolution_branch

@@ -1,17 +1,20 @@
 """The fused SummaryMixing cell (full mode, nhead 1, one hidden layer per
 branch): plain PyTorch version, weight flattener and the CUDA kernel's
-wrapper.
+wrapper, an autograd Function.
 
     local  = act(act(x·W1 + b1)·W2 + b2) · pad
     summ   = act(act(x·S1 + c1)·S2 + c2) · pad
     pooled = Σ_t summ / max(Σ_t pad, 1)                (fp32)
-    out    = act(local·M1 + pooled·M2 + mb)            (concat-free merge)
+    cat    = dropout([local, pooled])                  (optional keep-mask)
+    out    = act(cat·[M1; M2] + mb)                    (concat-free merge)
 
 Source note (csrc/summary_mixing.cu):
 
 - Replaces the TPU kernel `summarymixing_tpu/ops/pallas_summary.py`,
   `_kernel` through `_pallas_forward` / `fused_summary_mixing`. The plain
-  version here is the counterpart of its `_jnp_reference`.
+  version here is the counterpart of its `_jnp_reference`, with the flax
+  cell's dropout on the concatenated features (`summary_mixing.py:306-307`)
+  added.
 - Bound on the H100: operations. At the flagship shapes (B=8, T=751,
   all widths 512) the five products over the 4129 valid frames are
   ≈ 10.8 GFLOP against ≈ 15 MB of device traffic, far above the card's
@@ -31,6 +34,17 @@ Source note (csrc/summary_mixing.cu):
   `act(local·M1 + bias)`. Intermediates are rounded to bf16 where the
   TPU kernel rounds them. The ragged T edge is masked in the kernel. The
   activation (erf or tanh GELU) is a template parameter.
+- Dropout: with a keep-mask over the concatenated `[B, T, OL + OS]`
+  features the local half is masked in (a)'s epilogue before the M1
+  product. The pooled half differs per frame, so the fold of (b) no
+  longer holds: (b) keeps `pooled / keep_prob` and the bias `mb`, and one
+  more launch on the same product core, (d) `pooled_pass`, builds each
+  tile's masked pooled rows in shared memory and adds their product with
+  M2 to the pre-activation of every frame before (c).
+- Gradient: the autograd Function's backward is the vector-Jacobian
+  product of the plain version, recomputed from the saved inputs, the
+  float32 parameters and the keep-mask, as the JAX package defines the
+  Pallas kernel's (`pallas_summary.py:153-156`).
 
 Weights use `torch.nn.Linear`'s layout, `[out, in]`; M1 and M2 are the
 column blocks of the merge layer's weight and may be strided views of it.
@@ -40,7 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -60,9 +74,13 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def summary_mixing_reference(x: torch.Tensor, pad: torch.Tensor, weights: Tuple,
-                             activation: str = "gelu_exact") -> torch.Tensor:
+                             activation: str = "gelu_exact",
+                             keep: Optional[torch.Tensor] = None,
+                             keep_prob: float = 1.0) -> torch.Tensor:
     """Plain PyTorch version of the kernel. x `[B, T, D]`; pad `[B, T, 1]`
-    float, 1 = valid; weights `(W1, b1, W2, b2, S1, c1, S2, c2, M1, M2, mb)`."""
+    float, 1 = valid; weights `(W1, b1, W2, b2, S1, c1, S2, c2, M1, M2, mb)`;
+    keep, optional, a bool `[B, T, OL + OS]` dropout keep-mask over
+    `[local, pooled]`, kept values divided by `keep_prob` in x's dtype."""
     w1, b1, w2, b2, s1, c1, s2, c2, m1, m2, mb = weights
     act = get_activation(activation)
     f32 = torch.float32
@@ -70,10 +88,17 @@ def summary_mixing_reference(x: torch.Tensor, pad: torch.Tensor, weights: Tuple,
     h = act(_mm(x, s1) + c1.to(f32))
     summ = act(_mm(h.to(x.dtype), s2) + c2.to(f32)) * padf
     count = padf.sum(dim=1, keepdim=True).clamp_min(1.0)
-    pooled = summ.sum(dim=1, keepdim=True) / count
+    pooled = (summ.sum(dim=1, keepdim=True) / count).to(x.dtype)
     h = act(_mm(x, w1) + b1.to(f32))
-    local = act(_mm(h.to(x.dtype), w2) + b2.to(f32)) * padf
-    merged = _mm(local.to(x.dtype), m1) + _mm(pooled.to(x.dtype), m2) + mb.to(f32)
+    local = (act(_mm(h.to(x.dtype), w2) + b2.to(f32)) * padf).to(x.dtype)
+    if keep is None:
+        merged = _mm(local, m1) + _mm(pooled, m2) + mb.to(f32)
+    else:
+        ol = local.shape[-1]
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        local = torch.where(keep[..., :ol], local / keep_prob, zero)
+        pooled = torch.where(keep[..., ol:], pooled / keep_prob, zero)
+        merged = _mm(local, m1) + _mm(pooled, m2) + mb.to(f32)
     return act(merged).to(x.dtype)
 
 
@@ -90,7 +115,13 @@ def params_to_weights(cell) -> Tuple:
             mg.weight[:, :local_out], mg.weight[:, local_out:], mg.bias)
 
 
-def _check(x, pad, weights, activation):
+def kernel_weights(weights: Tuple) -> Tuple:
+    """The weight tuple as the kernel takes it: every tensor in bf16 (M1
+    and M2 each a contiguous cast). Differentiable."""
+    return tuple(w.to(torch.bfloat16) for w in weights)
+
+
+def _check(x, pad, weights, activation, keep=None):
     if activation not in KERNEL_ACTIVATIONS:
         raise NotImplementedError(
             f"the SummaryMixing kernel has activations {sorted(KERNEL_ACTIVATIONS)}, "
@@ -129,35 +160,36 @@ def _check(x, pad, weights, activation):
         if width > MAX_WIDTH:
             raise ValueError(f"{name} width {width} is wider than the {MAX_WIDTH} columns "
                              "a block keeps in shared memory")
+    if keep is not None and (keep.dtype != torch.bool or tuple(keep.shape) != (b, t, ol + os_)
+                             or not keep.is_contiguous() or keep.device != x.device):
+        raise ValueError(f"keep must be a contiguous bool [B, T, {ol + os_}] tensor on x's "
+                         f"device, got {keep.dtype} {tuple(keep.shape)}")
+    if keep is not None and os_ > MAX_WIDTH:
+        raise ValueError(f"with a keep-mask the summary out width {os_} must be at most "
+                         f"{MAX_WIDTH}: the masked pooled rows stay in shared memory")
     return b, t, d, hl, ol, hs, os_, n
 
 
 @functools.cache
 def _kernel():
     """The C entry point of csrc/summary_mixing.cu, built and declared on first use."""
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.load_library("summary_mixing").sm_forward
     # x, pad, B, T, D, HL, OL, HS, OS, N, W1 b1 W2 b2 S1 c1 S2 c2 M1 M2,
-    # ldM1, mb, ldM2, partial, bias, pre, out, activation, stream
-    fn.argtypes = [p, p] + [i] * 8 + [p] * 10 + [i, p, i] + [p] * 4 + [i, p]
+    # ldM1, mb, ldM2, keep, 1 / keep_prob, partial, bias, pooled, pre, out, activation, stream
+    fn.argtypes = [p, p] + [i] * 8 + [p] * 10 + [i, p, i, p, f] + [p] * 5 + [i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def fused_summary_mixing(x: torch.Tensor, pad: torch.Tensor, weights: Tuple,
-                         activation: str = "gelu_exact") -> torch.Tensor:
-    """The fused cell. On a CPU tensor this is the plain version; on a CUDA
-    tensor it launches the kernel (bf16 `x` and weights, fp32 `pad`) or
-    raises. `fused_summary_mixing.launches` counts kernel launches."""
-    if x.device.type == "cpu":
-        return summary_mixing_reference(x, pad, weights, activation)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    b, t, d, hl, ol, hs, os_, n = _check(x, pad, weights, activation)
+def _launch(x, pad, weights, activation, keep, keep_prob):
+    """One launch of the kernel on bf16 `weights` (the layout `_check` takes)."""
+    b, t, d, hl, ol, hs, os_, n = _check(x, pad, weights, activation, keep)
     w1, b1, w2, b2, s1, c1, s2, c2, m1, m2, mb = weights
     n_tiles = -(-t // TILE)
     partial = torch.empty(b, n_tiles, os_, dtype=torch.float32, device=x.device)
     bias = torch.empty(b, n, dtype=torch.float32, device=x.device)
+    pooled = torch.empty(b, os_, dtype=x.dtype, device=x.device)
     pre = torch.empty(b, t, n, dtype=torch.float32, device=x.device)
     out = torch.empty(b, t, n, dtype=x.dtype, device=x.device)
     fn = _kernel()
@@ -166,12 +198,78 @@ def fused_summary_mixing(x: torch.Tensor, pad: torch.Tensor, weights: Tuple,
                  w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                  s1.data_ptr(), c1.data_ptr(), s2.data_ptr(), c2.data_ptr(),
                  m1.data_ptr(), m2.data_ptr(), m1.stride(0), mb.data_ptr(), m2.stride(0),
-                 partial.data_ptr(), bias.data_ptr(), pre.data_ptr(), out.data_ptr(),
-                 KERNEL_ACTIVATIONS[activation], torch.cuda.current_stream().cuda_stream)
+                 None if keep is None else keep.data_ptr(), 1.0 / keep_prob,
+                 partial.data_ptr(), bias.data_ptr(), pooled.data_ptr(), pre.data_ptr(),
+                 out.data_ptr(), KERNEL_ACTIVATIONS[activation],
+                 torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"SummaryMixing kernel launch failed with CUDA error {err}")
-    fused_summary_mixing.launches += 1
+    _counts.launches += 1
     return out
 
 
+class FusedSummaryMixing(torch.autograd.Function):
+    """Forward: one kernel launch. Backward: the VJP of the plain version,
+    recomputed from the saved x, pad, keep-mask and `weights` (the
+    parameters as the caller holds them, float32 in training), whose
+    gradients come back in their own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, pad, keep, activation, keep_prob, launch_weights, *weights):
+        if launch_weights is None:
+            launch_weights = kernel_weights(weights)
+        ctx.activation, ctx.keep_prob = activation, keep_prob
+        ctx.save_for_backward(x, pad, keep, *weights)
+        return _launch(x, pad, launch_weights, activation, keep, keep_prob)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, pad, keep, *weights = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[0], ctx.needs_input_grad[6:]
+        _counts.backwards += 1
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(need_x)
+            wd = [w.detach().requires_grad_(need) for w, need in zip(weights, need_w)]
+            out = summary_mixing_reference(xd, pad, kernel_weights(wd), ctx.activation,
+                                           keep, ctx.keep_prob)
+            inputs = [v for v in [xd] + wd if v.requires_grad]
+            grads = iter(torch.autograd.grad(out, inputs, grad_out))
+        gx = next(grads) if need_x else None
+        return (gx, None, None, None, None, None,
+                *(next(grads) if need else None for need in need_w))
+
+
+def kernel_call(x, pad, weights, activation, keep, keep_prob, launch_weights=None):
+    """The CUDA side of `fused_summary_mixing`: the autograd Function when autograd
+    records through `x` or a weight, else one bare launch."""
+    if torch.is_grad_enabled() and (x.requires_grad or any(w.requires_grad for w in weights)):
+        return FusedSummaryMixing.apply(x, pad, keep, activation, keep_prob, launch_weights,
+                                        *weights)
+    if launch_weights is None:
+        launch_weights = kernel_weights(weights)
+    return _launch(x, pad, launch_weights, activation, keep, keep_prob)
+
+
+def fused_summary_mixing(x: torch.Tensor, pad: torch.Tensor, weights: Tuple,
+                         activation: str = "gelu_exact", keep: Optional[torch.Tensor] = None,
+                         keep_prob: float = 1.0,
+                         launch_weights: Optional[Tuple] = None) -> torch.Tensor:
+    """The fused cell. On a CPU tensor this is the plain version; on a CUDA
+    tensor it launches the kernel (bf16 `x`, fp32 `pad`, optional bool
+    keep-mask) or raises. `weights` may be in any float dtype: the launch
+    takes their bf16 casts, or `launch_weights` when the caller has them
+    cached; when autograd records, the backward is the plain version's
+    VJP and returns gradients for `x` and `weights`.
+    `fused_summary_mixing.launches` counts kernel launches,
+    `fused_summary_mixing.backwards` the backward passes through them."""
+    if x.device.type == "cpu":
+        return summary_mixing_reference(x, pad, weights, activation, keep, keep_prob)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return kernel_call(x, pad, weights, activation, keep, keep_prob, launch_weights)
+
+
 fused_summary_mixing.launches = 0
+fused_summary_mixing.backwards = 0
+# the counters stay on the wrapper when a caller swaps the module attribute
+_counts = fused_summary_mixing

@@ -6,8 +6,9 @@ the SummaryMixing cell — the port of `summarymixing_tpu/ops/linear.py`.
   `[n_split, in/n_split, out/n_split]`, `bias` `[n_split, out/n_split]`.
 - `SummaryNet`: an MLP whose activation follows EVERY layer, the last one
   included. With `n_split > 1` the head axis stays unflattened until the
-  last layer. With `n_split == 1` the layers are `torch.nn.Linear`s named
-  `layer_{i}`, like the flax `Dense` layers they mirror.
+  last layer. With `n_split == 1` the layers are `Dense` layers
+  (`ops/layers.py`, a `torch.nn.Linear`) named `layer_{i}`, like the flax
+  `Dense` layers they mirror.
 
 Activations are named as in the recipes (`config/loader.py` of the JAX
 package): "gelu" is the tanh approximation, "gelu_exact" the erf form.
@@ -23,6 +24,8 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from summarymixing_tpu_torch.ops.layers import Dense
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -51,7 +54,10 @@ def uniform_fan_in_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Gene
 
 class ParallelLinear(nn.Module):
     """Input `[B, T, F]` is viewed as `[B, T, n_split, F/n_split]` (a 4-D
-    input reuses its head axis); head h is mapped by `kernel[h]`."""
+    input reuses its head axis); head h is mapped by `kernel[h]`. With a
+    `compute_dtype` it rounds as flax does (`ops/layers.py`)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_features: int, features: int, n_split: int = 1,
                  combine_out_dims: bool = True):
@@ -79,7 +85,10 @@ class ParallelLinear(nn.Module):
             raise ValueError(f"expected 3-D or 4-D input, got {x.dim()}-D")
         if x.shape[2] != self.n_split:
             raise ValueError(f"head axis {x.shape[2]} does not match n_split {self.n_split}")
-        y = torch.einsum("btmf,mfh->btmh", x, self.kernel) + self.bias
+        kernel, bias = self.kernel, self.bias
+        if self.compute_dtype is not None:
+            x, kernel, bias = (v.to(self.compute_dtype) for v in (x, kernel, bias))
+        y = torch.einsum("btmf,mfh->btmh", x, kernel) + bias
         if self.combine_out_dims:
             y = y.reshape(y.shape[0], y.shape[1], self.features)
         return y
@@ -101,7 +110,7 @@ class SummaryNet(nn.Module):
                 layer = ParallelLinear(fan_in, feats, n_split,
                                        combine_out_dims=(i == len(self.features) - 1))
             else:
-                layer = nn.Linear(fan_in, feats)
+                layer = Dense(fan_in, feats)
             self.add_module(f"layer_{i}", layer)
             fan_in = feats
 

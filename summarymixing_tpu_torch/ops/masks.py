@@ -38,3 +38,25 @@ def combine_padding(sum_mask: Optional[torch.Tensor],
     if sum_mask.dim() == 3:
         return sum_mask * pad_mask[:, None, :]
     return sum_mask[None, :, :] * pad_mask[:, None, :]
+
+
+def key_padding_mask_from_tokens(tokens: torch.Tensor, pad_idx: int = 0,
+                                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`[B, U]` int tokens -> `[B, U]` float mask, 1 where token != pad_idx."""
+    return (tokens != pad_idx).to(dtype)
+
+
+def lookahead_mask(size: int, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """`[T, T]` float mask, 1 where a target may attend (s <= t)."""
+    return torch.tril(torch.ones(size, size, dtype=dtype, device=device))
+
+
+def mask_to_additive(mask: Optional[torch.Tensor],
+                     dtype: torch.dtype = torch.float32) -> Optional[torch.Tensor]:
+    """1 = allowed mask -> additive bias: 0 where allowed, the dtype's most
+    negative finite value where masked."""
+    if mask is None:
+        return None
+    zero = torch.zeros((), dtype=dtype, device=mask.device)
+    neg = torch.full((), torch.finfo(dtype).min, dtype=dtype, device=mask.device)
+    return torch.where(mask > 0, zero, neg)

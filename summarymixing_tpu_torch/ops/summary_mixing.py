@@ -6,6 +6,8 @@ module. On a CUDA tensor it runs the fused kernel (`ops/fused_summary.py`)
 when the configuration is the one the kernel takes — no `sum_mask`, nhead
 1, one hidden layer per branch, erf or tanh GELU — and raises
 `NotImplementedError` otherwise: it never runs the plain path on the card.
+The dropout on the concatenated `[local, pooled]` features runs inside
+the kernel there, from a keep-mask the cell draws.
 The lite, fast and expdecay modes and `decode_step` are still to port
 (ROADMAP.md, "Modules still to port").
 """
@@ -18,9 +20,15 @@ import torch
 from torch import nn
 
 from summarymixing_tpu_torch.ops import _build, fused_summary
+from summarymixing_tpu_torch.ops.layers import Dropout
 from summarymixing_tpu_torch.ops.linear import SummaryNet
 
 _TODO = "see ROADMAP.md, 'Modules still to port'"
+
+
+def uses_kernel(x: torch.Tensor) -> bool:
+    """Whether a module runs its fused kernel for `x`: on the card."""
+    return x.device.type == "cuda"
 
 
 def masked_time_mean(x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
@@ -53,7 +61,8 @@ class SummaryMixing(nn.Module):
     def __init__(self, enc_dim: int, nhead: int = 1,
                  local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
                  summary_hid_dim: Sequence[int] = (512,), summary_out_dim: int = 512,
-                 activation: str = "gelu_exact", mode: str = "SummaryMixing"):
+                 activation: str = "gelu_exact", mode: str = "SummaryMixing",
+                 dropout_rate: float = 0.0):
         super().__init__()
         if mode != "SummaryMixing":
             raise NotImplementedError(f"SummaryMixing mode {mode!r} is not ported; {_TODO}")
@@ -65,6 +74,7 @@ class SummaryMixing(nn.Module):
             enc_dim, tuple(summary_hid_dim) + (summary_out_dim,), nhead, activation)
         self.summary_local_merging = SummaryNet(
             local_proj_out_dim + summary_out_dim, (summary_out_dim,), 1, activation)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor, sum_mask: Optional[torch.Tensor] = None,
                 pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -74,7 +84,7 @@ class SummaryMixing(nn.Module):
             pad_mask = torch.ones(x.shape[:2] + (1,), dtype=x.dtype, device=x.device)
         elif pad_mask.dim() == 2:
             pad_mask = pad_mask[..., None]
-        if x.device.type == "cuda":
+        if uses_kernel(x):
             return self._fused(x, sum_mask, pad_mask)
         pad_mask = pad_mask.to(x.dtype)
         local = self.local_proj(x) * pad_mask
@@ -83,7 +93,7 @@ class SummaryMixing(nn.Module):
             pooled = masked_time_mean(summary, pad_mask).expand_as(summary)
         else:
             pooled = summary_matmul(sum_mask, summary)
-        return self.summary_local_merging(torch.cat([local, pooled], dim=-1))
+        return self.summary_local_merging(self.dropout(torch.cat([local, pooled], dim=-1)))
 
     def _fused(self, x, sum_mask, pad_mask):
         if (sum_mask is not None or self.nhead != 1
@@ -93,6 +103,11 @@ class SummaryMixing(nn.Module):
                 "on CUDA only the fused cell is ported: full mode, no sum_mask, nhead 1, "
                 f"one hidden layer per branch, GELU activation; {_TODO}")
         pad = pad_mask.to(torch.float32).contiguous()
+        b, t, _ = x.shape
+        keep = self.dropout.keep_mask(
+            (b, t, self.local_proj.features[-1] + self.summary_proj.features[-1]), x.device)
+        launch = _build.cached_weights(self, lambda m: tuple(
+            w.detach() for w in fused_summary.kernel_weights(fused_summary.params_to_weights(m))))
         return fused_summary.fused_summary_mixing(
-            x.contiguous(), pad, _build.cached_weights(self, fused_summary.params_to_weights),
-            self.activation)
+            x.contiguous(), pad, fused_summary.params_to_weights(self), self.activation,
+            keep, 1.0 - self.dropout.rate, launch_weights=launch)

@@ -1,0 +1,173 @@
+"""The flagship's training step — the port of
+`summarymixing_tpu/training/trainer.py::ASRTrainer` on one device:
+
+    wav -> speed perturbation -> Fbank -> InputNormalization (statistics
+    updated while epoch + 1 < normalize_update_until_epoch) -> SpecAugment
+    -> SpeechRecognizer (CNN, encoder, attention decoder, dropout)
+    -> ctc_weight · CTC + (1 - ctc_weight) · KL-div -> backward
+    -> clip to the global norm -> AdamW with the Noam schedule, skipped on a
+    non-finite loss or gradient norm.
+
+The model's parameters are the trainable state; `init_state` returns the
+rest: optimizer state, normalization statistics, step and epoch counters,
+and the one `torch.Generator` on the model's device from which speed
+perturbation, SpecAugment and every dropout draw. Speed perturbation runs
+inside `train_step` here; the JAX recipes apply it before calling theirs
+(`recipes/train.py`). The mesh and sharding of the JAX trainer are still
+to port, as are checkpointing, gradient accumulation, `concat_original`
+and `augment_warmup_steps` (ROADMAP.md).
+
+    trainer = ASRTrainer(model, AdamW(noam_schedule(5e-4, 30000), 0.01), fbank)
+    state = trainer.init_state(seed=3407)
+    state, metrics = trainer.train_step(state, batch)   # batch: wav, wav_lens, tokens, token_lens
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from summarymixing_tpu_torch.decoding.ctc import collapse_ctc, ctc_greedy_decode
+from summarymixing_tpu_torch.frontend.augment import (
+    SpecAugmentConfig,
+    spec_augment,
+    speed_perturb_batch,
+)
+from summarymixing_tpu_torch.frontend.features import InputNormalization, NormStats
+from summarymixing_tpu_torch.losses import ctc_loss, kldiv_loss
+from summarymixing_tpu_torch.ops.layers import set_dropout_generator
+from summarymixing_tpu_torch.training.optim import AdamW, apply_safe_update
+from summarymixing_tpu_torch.utils.init import xavier_normal_overwrite
+
+
+@dataclass(frozen=True)
+class TrainerConfig:
+    ctc_weight: float = 0.3
+    label_smoothing: float = 0.1
+    blank_id: int = 0
+    pad_id: int = 0
+    bos_id: int = 1
+    eos_id: int = 2
+    augment: Optional[SpecAugmentConfig] = SpecAugmentConfig()
+    speed_perturb: bool = False
+    speeds: Sequence[int] = (95, 100, 105)
+    normalize_update_until_epoch: int = 4
+    # the JAX trainer redraws every >1-D parameter of `asr` xavier-normal
+    # after init (the reference TransformerASR's _init_params)
+    xavier_init_overwrite: bool = True
+
+
+class ASRTrainer:
+    """Joint CTC/attention training (CTC only when the model has no decoder)."""
+
+    def __init__(self, model, optimizer: AdamW, fbank, config: TrainerConfig = TrainerConfig()):
+        self.model = model
+        self.optimizer = optimizer
+        self.fbank = fbank
+        self.config = config
+        self.normalize = InputNormalization(config.normalize_update_until_epoch)
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.device = self.params[0].device
+
+    # -- state ---------------------------------------------------------------
+    def init_state(self, seed: int) -> Dict:
+        """Optimizer state, fresh normalization statistics, counters and the
+        step generator seeded with `seed`; with `xavier_init_overwrite`,
+        first redraws the `asr` parameters from that generator."""
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(seed)
+        if self.config.xavier_init_overwrite:
+            xavier_normal_overwrite(self.model.asr, generator)
+        set_dropout_generator(self.model, generator)
+        return {"opt_state": self.optimizer.init(self.params),
+                "norm_stats": NormStats.init(self.fbank.n_mels, self.device),
+                "step": 0, "epoch": 0, "generator": generator}
+
+    def _add_bos(self, tokens: torch.Tensor) -> torch.Tensor:
+        bos = torch.full((tokens.shape[0], 1), self.config.bos_id, dtype=tokens.dtype,
+                         device=tokens.device)
+        return torch.cat([bos, tokens], dim=1)
+
+    def _add_eos(self, tokens: torch.Tensor, token_lens: torch.Tensor) -> torch.Tensor:
+        b, u = tokens.shape
+        padded = torch.cat([tokens, torch.full((b, 1), self.config.pad_id, dtype=tokens.dtype,
+                                               device=tokens.device)], dim=1)
+        pos = torch.arange(u + 1, device=tokens.device)[None, :]
+        eos = torch.full_like(padded, self.config.eos_id)
+        return torch.where(pos == token_lens[:, None], eos, padded)
+
+    def _has_decoder(self) -> bool:
+        return self.model.asr.num_decoder_layers > 0
+
+    # -- steps ---------------------------------------------------------------
+    def _forward_loss(self, norm_stats: Dict, batch: Dict, train: bool, epoch: int,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Tuple[torch.Tensor, Tuple[Dict, Dict, Dict]]:
+        """Features, normalization, augmentation and the model in train mode
+        (or eval mode), and the joint loss. Returns
+        `(loss, (losses, norm_stats, model_out))`."""
+        cfg = self.config
+        with torch.no_grad():
+            feats = self.fbank(batch["wav"])
+            feat_len = self.fbank.frame_lengths(batch["wav_lens"])
+            pad_mask = (torch.arange(feats.shape[1], device=feats.device)[None, :]
+                        < feat_len[:, None]).to(feats.dtype)
+            feats, norm_stats = self.normalize(feats, norm_stats, pad_mask, epoch=epoch,
+                                               update=train)
+            if train and cfg.augment is not None:
+                feats = spec_augment(feats, pad_mask, cfg.augment, generator)
+        tokens, token_lens = batch["tokens"], batch["token_lens"]
+        tokens_bos = self._add_bos(tokens) if self._has_decoder() else None
+        self.model.train(train)
+        out = self.model(feats, feat_len, tokens_bos, pad_idx=cfg.pad_id)
+        losses = {}
+        loss = torch.zeros((), dtype=torch.float32, device=feats.device)
+        if cfg.ctc_weight > 0.0:
+            losses["ctc"] = ctc_loss(out["ctc_log_probs"], out["enc_lengths"], tokens,
+                                     token_lens, blank_id=cfg.blank_id)
+            loss = loss + cfg.ctc_weight * losses["ctc"]
+        if self._has_decoder() and cfg.ctc_weight < 1.0:
+            losses["att"] = kldiv_loss(out["seq_log_probs"], self._add_eos(tokens, token_lens),
+                                       token_lens + 1, label_smoothing=cfg.label_smoothing)
+            loss = loss + (1.0 - cfg.ctc_weight) * losses["att"]
+        losses["loss"] = loss
+        return loss, (losses, norm_stats, out)
+
+    def train_step(self, state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
+        """One optimizer step on `batch` (`wav` `[B, N]`, `wav_lens`,
+        `tokens` `[B, U]`, `token_lens`, all on the model's device)."""
+        cfg = self.config
+        generator = state["generator"]
+        if cfg.speed_perturb:
+            with torch.no_grad():
+                wav, wav_lens = speed_perturb_batch(batch["wav"], batch["wav_lens"], cfg.speeds,
+                                                    generator=generator)
+            batch = dict(batch, wav=wav, wav_lens=wav_lens)
+        for p in self.params:
+            p.grad = None
+        loss, (losses, norm_stats, _) = self._forward_loss(
+            state["norm_stats"], batch, True, state["epoch"], generator)
+        loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        opt_state, grad_norm, finite = apply_safe_update(
+            self.optimizer, self.params, grads, state["opt_state"], loss)
+        new_state = dict(state, opt_state=opt_state, step=state["step"] + 1,
+                         norm_stats=norm_stats if finite else state["norm_stats"])
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["grad_norm"] = grad_norm
+        metrics["nonfinite_skipped"] = int(not finite)
+        return new_state, metrics
+
+    @torch.no_grad()
+    def eval_step(self, state: Dict, batch: Dict):
+        """Losses in eval mode and the greedy CTC hypotheses (token ids)."""
+        _, (losses, _, out) = self._forward_loss(state["norm_stats"], batch, False,
+                                                 state["epoch"])
+        ids, keep = ctc_greedy_decode(out["ctc_log_probs"], out["enc_lengths"],
+                                      self.config.blank_id)
+        return losses, collapse_ctc(ids, keep)
+
+    def next_epoch(self, state: Dict) -> Dict:
+        return dict(state, epoch=state["epoch"] + 1)

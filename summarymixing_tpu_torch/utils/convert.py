@@ -1,13 +1,16 @@
 """Weight bridge from the JAX package: `load_jax_params` fills a port module
 from the flax params tree of its counterpart.
 
-The port's modules carry the flax tree's names, so the bridge is a tree
-walk with three layout rules:
+The port's modules carry the flax tree's names (the attention decoder's
+too: `decoder.layer_i.{self_attn,cross_attn}.{q,k,v,out}_proj`,
+`pos_ffn.{ffn_in,ffn_out}`, `norm1`-`norm3`, `seq_lin`), so the bridge is
+a tree walk with four layout rules:
 
 - `torch.nn.Linear`: the Dense `kernel` `[in, out]` becomes `weight`
   `[out, in]`;
 - `torch.nn.Conv2d`: the `kernel` `HWIO` becomes `weight` `OIHW`;
-- `torch.nn.LayerNorm`: `scale` becomes `weight`.
+- `torch.nn.LayerNorm`: `scale` becomes `weight`;
+- `torch.nn.Embedding`: `embedding` becomes `weight`.
 
 Every other parameter keeps its name and layout. The walk raises if a leaf
 of the tree is left over or a port parameter is left unfilled.
@@ -30,6 +33,8 @@ def _leaf_rules(mod: nn.Module) -> Dict[str, tuple]:
         return {"weight": ("kernel", lambda a: a.transpose(3, 2, 0, 1)), "bias": ("bias", None)}
     if isinstance(mod, nn.LayerNorm):
         return {"weight": ("scale", None), "bias": ("bias", None)}
+    if isinstance(mod, nn.Embedding):
+        return {"weight": ("embedding", None)}
     return {name: (name, None) for name, _ in mod.named_parameters(recurse=False)}
 
 

@@ -1,6 +1,9 @@
-"""Seeded random initialisation of a port model."""
+"""Seeded random initialisation of a port model, and the xavier-normal
+overwrite the JAX trainer applies before training from scratch."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -10,8 +13,9 @@ from summarymixing_tpu_torch.ops.linear import uniform_fan_in_
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter from `generator`: Linear and Conv2d weights
-    uniform(±1/sqrt(fan_in)) with zero biases, LayerNorms at (1, 0), and
-    the port's own modules through their `reset_parameters(generator)`."""
+    uniform(±1/sqrt(fan_in)) with zero biases, LayerNorms at (1, 0),
+    embeddings normal with std 1/sqrt(width), and the port's own modules
+    through their `reset_parameters(generator)`."""
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
             uniform_fan_in_(mod.weight, mod.weight[0].numel(), generator)
@@ -20,6 +24,32 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, nn.LayerNorm):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.Embedding):
+            with torch.no_grad():
+                mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5, generator=generator)
         elif hasattr(mod, "reset_parameters"):
             mod.reset_parameters(generator)
     return model
+
+
+def xavier_std(param: torch.Tensor) -> float:
+    """std of `torch.nn.init.xavier_normal_` for `param`:
+    sqrt(2 / (fan_in + fan_out)) with torch's fans (size(1)·rf and
+    size(0)·rf, rf the product of the trailing sizes). The port keeps the
+    flax tree's layouts except for transposed Linear weights, where the
+    fans swap and the std does not change, so this is the std the JAX
+    package's `utils/init.py::_torch_xavier_std` gives the same leaf."""
+    fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(param)
+    return math.sqrt(2.0 / (fan_in + fan_out))
+
+
+def xavier_normal_overwrite(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Redraw every parameter of `module` with more than one dimension
+    from normal(0, `xavier_std`), in the order of `named_parameters`; the
+    rest keep their values. The JAX trainer does this to the `asr`
+    subtree after `init` (the reference TransformerASR's `_init_params`)."""
+    with torch.no_grad():
+        for _, p in module.named_parameters():
+            if p.dim() > 1:
+                p.normal_(0.0, xavier_std(p), generator=generator)
+    return module

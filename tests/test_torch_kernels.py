@@ -257,7 +257,10 @@ def _bad_call(case):
                "cell_merge_stride_516": _cell_inputs(merge_stride=2 * 256 + 4),
                # and a 16-byte aligned start (M2 starts 1 element in)
                "cell_m2_misaligned": _cell_inputs(m2_offset=1),
-               "cell_activation_relu": (x, pad, w, "relu")}[case]
+               "cell_activation_relu": (x, pad, w, "relu"),
+               # the dropout keep-mask is bool over [local, pooled]
+               "cell_keep_float": (x, pad, w, act, torch.ones(2, 5, 512)),
+               "cell_keep_narrow": (x, pad, w, act, torch.ones(2, 5, 256, dtype=torch.bool))}[case]
         error = NotImplementedError if case == "cell_activation_relu" else ValueError
         return fused_summary._check, good, bad, error
     x, mask, w = good = _branch_inputs()
@@ -270,7 +273,8 @@ def _bad_call(case):
            "branch_x_misaligned": (torch.zeros(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape),
                                    mask, w),
            "branch_w_pre_misaligned": (x, mask, _replace(
-               w, 0, torch.zeros(w[0].numel() + 1, dtype=w[0].dtype)[1:].view(w[0].shape)))}[case]
+               w, 0, torch.zeros(w[0].numel() + 1, dtype=w[0].dtype)[1:].view(w[0].shape))),
+           "branch_keep_wide": (x, mask, w, torch.ones(2, 5, 512, dtype=torch.bool))}[case]
     error = NotImplementedError if case == "branch_conv_width_5" else ValueError
     return fused_csgu._check, good, bad, error
 
@@ -279,6 +283,7 @@ def _bad_call(case):
     "cell_x_float32", "cell_x_misaligned", "cell_pad_2d", "cell_pad_bf16",
     "cell_w1_transposed", "cell_width_96", "cell_width_384", "cell_width_768",
     "cell_merge_stride_516", "cell_m2_misaligned", "cell_activation_relu",
+    "cell_keep_float", "cell_keep_narrow", "branch_keep_wide",
     "branch_conv_width_5", "branch_units_192", "branch_b_pre_bf16", "branch_mask_3d",
     "branch_w_post_transposed", "branch_x_misaligned", "branch_w_pre_misaligned"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(case):

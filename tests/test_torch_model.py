@@ -102,7 +102,11 @@ def test_flagship_parameter_count_matches_jax():
     n_jax = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes))
     n_port = sum(p.numel() for p in tmodel.parameters())
     assert n_port == n_jax == 88_954_088
-    assert next(tmodel.parameters()).dtype == torch.bfloat16
+    # float32 parameters computing in bf16, as the flax model's
+    # param_dtype and dtype
+    assert {p.dtype for p in tmodel.parameters()} == {torch.float32}
+    assert tmodel.asr.src_proj.compute_dtype == torch.bfloat16
+    assert tmodel.asr.encoder.norm.compute_dtype == torch.bfloat16
 
 
 def test_load_jax_params_rejects_leftovers_and_gaps():
