@@ -44,7 +44,29 @@ Phases (any failure exits non-zero):
    step under torch.profiler, and one step with the kernels against the
    same step with their plain versions (same weights, batch and dropout
    masks, augmentation off): loss and per-tensor gradient differences.
-8. Peak memory, parameter counts (88,954,088 for decode, 119,304,304 with
+8. Checkpoints: three more training steps, each followed by a save through
+   `training.checkpoint.CheckpointManager` into a temporary directory;
+   `average_checkpoints` over the three must equal the float64 mean of the
+   three parameter sets taken directly.
+9. Beam evaluation (the recipe's test stage): a fresh flagship with its
+   decoder gets the averaged parameters through
+   `evaluate.restore_eval_state`; the Transformer LM at `LMConfig()` (12
+   layers, d768, vocab 5000, 92,741,000 parameters, float32) is built from
+   the seed; request 0 of phase 4 (8 utterances, T = 751) goes through
+   `evaluate.evaluate_beam`: the encoder, then the joint CTC/attention beam
+   search at beam 66 (528 rows), CTC weight 0.4, LM weight 0.6, decoder and
+   LM temperature 1.15, with the KV-cached decoder and LM. Prints latency,
+   steps, ms per step, the encoder's and the search's shares, audio-s/s,
+   tokens per row, the error rate against seeded token references (not
+   held) and peak memory; each kernel's launch counter must rise by 18.
+   Checks, each against the tolerance stated below: (a) the cached decoder
+   step against `decode_position` over the best hypotheses' prefixes and
+   (b) the cached LM step against the full causal LM, both at the search's
+   528 rows, (c) the CTC prefix
+   scorer's eos log-prob of each best hypothesis against `-ctc_loss`;
+   reported only: (d) the same request with the plain versions of both
+   kernels. Then torch.profiler over search steps 100-107.
+10. Peak memory, parameter counts (88,954,088 for decode, 119,304,304 with
    the decoder) and wall time.
 
 The line before the last holds nvidia-smi's name and power limit; the last
@@ -59,6 +81,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,6 +116,26 @@ TRAIN_GRAD_TOL = 5e-2      # per tensor ||g_kernel - g_plain|| / ||g_plain||
 # whose plain gradient norm is below this share of the global norm is
 # reported, not held to TRAIN_GRAD_TOL
 GRAD_NOISE_SHARE = 1e-6
+# beam evaluation (phase 9)
+FLAGSHIP_LM_PARAMS = 92_741_000   # LMConfig() at vocab 5000: 12 layers, d768, linear head
+N_CHECKPOINTS = 3
+# average_checkpoints against the float64 mean taken directly: one float32
+# rounding of the same float64 sums (2^-24 relative)
+AVG_TOL = 1e-7
+# (a) the cached decoder step against decode_position, both in bf16 compute,
+# on max |cached - prefix| / (1 + |prefix|): the same products over another
+# number of rows, and the masked attention of the cache against the
+# additive-bias attention of the prefix, round intermediates differently.
+# Set a few times above the reading on an H100 (PERF.md)
+DEC_STEP_TOL = 2.0 ** -7
+# (b) the cached LM step against the full forward, float32 with TF32 off,
+# on max |dlogp|: products over another number of rows, 12 layers deep.
+# Set about four times above the largest reading on an H100 (PERF.md)
+LM_STEP_TOL = 2e-5
+# (c) the prefix scorer's closed forms (cumulative sums of log-probs over
+# T <= 751 frames, float32) against torch's CTC forward on the same lattice:
+# |eos log-prob + ctc_loss| <= CTC_TOL_REL * |ctc_loss| + CTC_TOL_ABS
+CTC_TOL_REL, CTC_TOL_ABS = 1e-4, 1e-3
 
 
 def fail(msg: str) -> None:
@@ -473,12 +516,14 @@ def phase_masked_kernels(kernel_rows):
 
 def flagship_config(decoder_layers: int = 0):
     from summarymixing_tpu_torch.config.schema import (
-        AugmentConfig, FeaturesConfig, ModelConfig, RecipeConfig, TrainingConfig)
+        AugmentConfig, DecodingConfig, FeaturesConfig, ModelConfig, RecipeConfig, TrainingConfig)
 
     # recipes/LibriSpeech/branchformer_summarymixing.yaml (no YAML package is
     # needed here), with or without the attention decoder
     return RecipeConfig(
         seed=3407,
+        decoding=DecodingConfig(test_beam_size=66, lm_weight=0.60, lm_temperature=1.15,
+                                test_temperature=1.15, ctc_weight_decode=0.40),
         features=FeaturesConfig(sample_rate=16000, n_fft=512, win_length=32, n_mels=80,
                                 normalize_update_until_epoch=4),
         augment=AugmentConfig(speed_perturb=True, speeds=(95, 100, 105),
@@ -702,7 +747,7 @@ def training_batch(seed: int = 21) -> dict:
             dict(wav=wav, wav_lens=lens, tokens=tokens, token_lens=token_lens).items()}
 
 
-def phase_train(kernel_rows) -> int:
+def phase_train(kernel_rows) -> tuple:
     import dataclasses
 
     import torch
@@ -815,7 +860,307 @@ def phase_train(kernel_rows) -> int:
           f"not held to it: {noise[:6]} {'ok' if ok else 'FAILED'}")
     if not ok:
         fail("the training step with the kernels disagrees with the plain versions")
-    return n_params
+    return model, trainer, state, batch
+
+
+def phase_checkpoints(train, ckpt_dir: str) -> None:
+    """Three more training steps, a checkpoint through the port's
+    `CheckpointManager` after each, and `average_checkpoints` over them
+    against the float64 mean of the three parameter sets taken directly."""
+    import torch
+
+    from summarymixing_tpu_torch.training.checkpoint import CheckpointManager, average_checkpoints
+
+    model, trainer, state, batch = train
+    mgr = CheckpointManager(ckpt_dir, max_to_keep=N_CHECKPOINTS)
+    saved, save_s = [], 0.0
+    for _ in range(N_CHECKPOINTS):
+        state, metrics = trainer.train_step(state, batch)
+        if not np.isfinite(float(metrics["loss"])) or metrics["nonfinite_skipped"]:
+            fail(f"train step {state['step']} before a checkpoint: loss {float(metrics['loss'])}")
+        params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        saved.append(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(state["step"], {"params": params, "opt_state": state["opt_state"],
+                                 "norm_stats": state["norm_stats"], "step": state["step"],
+                                 "epoch": state["epoch"]})
+        save_s += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    avg = average_checkpoints(mgr, {"params": None, "norm_stats": None}, num=N_CHECKPOINTS)
+    avg_s = time.perf_counter() - t0
+    worst, n_el = 0.0, 0
+    for name, got in avg["params"].items():
+        mean = sum(p[name].to(torch.float64) for p in saved) / len(saved)
+        err = (got.to(torch.float64) - mean).abs()
+        bad = err > AVG_TOL * mean.abs()
+        if bool(bad.any()):
+            fail(f"average_checkpoints: {name} differs from the direct float64 mean by "
+                 f"{float(err.max()):.3e}")
+        ratio = err / mean.abs().clamp_min(torch.finfo(torch.float64).tiny)
+        worst = max(worst, float(ratio.max()))
+        n_el += got.numel()
+    moved = max(float((saved[-1][k] - saved[0][k]).abs().max()) for k in saved[0])
+    size = sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(ckpt_dir) for f in files)
+    print(f"checkpoints: {N_CHECKPOINTS} saved at steps {mgr.all_steps()} in {save_s:.2f} s "
+          f"({size / N_CHECKPOINTS / 2 ** 20:.1f} MiB each, parameters and optimizer state); "
+          f"average_checkpoints in {avg_s:.2f} s equals the direct float64 mean of {n_el:,} "
+          f"values within {worst:.3e} relative (tol {AVG_TOL:.0e}); the parameters moved by at "
+          f"most {moved:.3e} over the three steps")
+
+
+def beam_references(n: int, audio_s, seed: int = 31) -> dict:
+    """Random token ids in [3, 5000) at about 3 per second of audio, one
+    list per utterance index: references for the error-rate summary."""
+    rng = np.random.default_rng(seed)
+    return {i: [int(t) for t in rng.integers(3, 5000, max(1, round(3.0 * audio_s[i])))]
+            for i in range(n)}
+
+
+def phase_beam(kernel_rows, ckpt_dir: str) -> None:
+    """Beam-search evaluation of request 0 on the averaged checkpoints with
+    the fusion LM through `evaluate.evaluate_beam`, and checks (a)-(d)."""
+    import torch
+    import torch.nn.functional as F
+
+    from summarymixing_tpu_torch.config import LMConfig, build_lm, build_model
+    from summarymixing_tpu_torch.decoding import ctc_prefix
+    from summarymixing_tpu_torch.decoding.s2s_beam import tile_for_beam
+    from summarymixing_tpu_torch.evaluate import evaluate_beam, restore_eval_state
+    from summarymixing_tpu_torch.frontend.features import InputNormalization
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+    from summarymixing_tpu_torch.ops.masks import length_to_mask
+    from summarymixing_tpu_torch.transcribe import batch_waveforms
+
+    cfg = flagship_config(decoder_layers=6)
+    m, dec = cfg.model, cfg.decoding
+    torch.cuda.reset_peak_memory_stats()
+    model, fbank = build_model(cfg)
+    dev = next(model.parameters()).device
+    state = restore_eval_state(model, ckpt_dir, avg=N_CHECKPOINTS)
+    norm_stats = state["norm_stats"]
+    lm_cfg = LMConfig()
+    lm = build_lm(lm_cfg, m.output_neurons, seed=cfg.seed)
+    n_lm = sum(p.numel() for p in lm.parameters())
+    print(f"beam: averaged the last {N_CHECKPOINTS} checkpoints (step {state['step']}) into a "
+          f"fresh model; Transformer LM {lm_cfg.num_layers} layers d{lm_cfg.d_model} "
+          f"{lm_cfg.nhead} heads d_ffn {lm_cfg.d_ffn} head {lm_cfg.output_proj!r}, vocab "
+          f"{m.output_neurons}: {n_lm:,} float32 parameters")
+    if n_lm != FLAGSHIP_LM_PARAMS:
+        fail(f"LM parameter count {n_lm} != {FLAGSHIP_LM_PARAMS}")
+    wavs = synthetic_waveforms(N_REQUESTS * BATCH, seed=11)
+    idx, wav, wav_lens = next(iter(batch_waveforms(wavs, BATCH,
+                                                   pad_quantum=cfg.features.sample_rate // 2,
+                                                   device=dev)))
+    audio = [len(w) / cfg.features.sample_rate for w in wavs]
+    refs = beam_references(len(wavs), audio)
+    audio_s = sum(audio[i] for i in idx)
+    kernels = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
+
+    def run(label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate_beam(model, fbank, norm_stats, [(idx, wav, wav_lens)], cfg, lm=lm,
+                            references=refs)
+        torch.cuda.synchronize()
+        out["latency_s"] = time.perf_counter() - t0
+        rows = [len(out["hyps"][i]) for i in idx]
+        print(f"beam {label}: {BATCH} utterances, {audio_s:.2f} audio-s, beam {dec.test_beam_size} "
+              f"({BATCH * dec.test_beam_size} rows), max_length {out['max_length']}: latency "
+              f"{out['latency_s'] * 1e3:.1f} ms, {audio_s / out['latency_s']:.1f} audio-s/s; "
+              f"{out['steps']} steps, {out['search_s'] * 1e3 / max(out['steps'], 1):.2f} ms per "
+              f"step; encoder {out['encode_s'] * 1e3:.1f} ms "
+              f"({100 * out['encode_s'] / out['latency_s']:.1f}%), search "
+              f"{out['search_s'] * 1e3:.1f} ms ({100 * out['search_s'] / out['latency_s']:.1f}%); "
+              f"tokens per row {rows}; error rate against seeded references (not held) "
+              f"{out['summary']}")
+        return out
+
+    for fn in kernels:
+        fn.launches = 0
+    out = run("(kernels)")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rose = [fn.launches for fn in kernels]
+    print(f"beam: peak memory allocated {peak:.2f} GiB; launches summary_mixing +{rose[0]} "
+          f"csgu +{rose[1]}")
+    for name, n in zip(("summary_mixing", "csgu"), rose):
+        kernel_rows[name]["launches_by_path"]["beam"] = n
+    if rose != [m.num_encoder_layers] * 2:
+        fail(f"beam: kernel launches rose by {rose}, expected {m.num_encoder_layers} each")
+    for i in idx:
+        if not np.isfinite(out["scores"][i]):
+            fail(f"beam: utterance {i} has score {out['scores'][i]}")
+
+    # the request's encoder output, CTC lattice and best hypotheses again
+    feats, _ = InputNormalization()(fbank(wav), norm_stats)
+    feat_len = fbank.frame_lengths(wav_lens)
+    with torch.inference_mode():
+        enc, enc_lens = model.encode(feats, feat_len)
+        ctc_lp = model.ctc_head(enc)
+        hyps = [out["hyps"][i] for i in idx]
+        n_pos = min(max(len(h) for h in hyps) + 1, out["max_length"])
+        hl = torch.tensor([min(len(h), n_pos - 1) for h in hyps], device=dev)
+        tgt = torch.full((BATCH, n_pos), m.eos_index, dtype=torch.int64, device=dev)
+        tgt[:, 0] = m.bos_index
+        for r, h in enumerate(hyps):
+            tgt[r, 1:1 + int(hl[r])] = torch.tensor(h[:int(hl[r])], device=dev)
+
+        # (a) and (b) run at the search's B·beam rows, so the decoder takes
+        # the grouped cross-attention route (an utterance's beam rows against
+        # its one cross-K/V row) as in the search; row j of utterance g
+        # carries the best hypothesis of utterance (g + j) % B, so the rows
+        # of one utterance differ
+        beam = dec.test_beam_size
+        pick = (torch.arange(BATCH)[:, None] + torch.arange(beam)[None, :]) % BATCH
+        tgt_rows = tgt[pick.reshape(-1).to(dev)]
+        n_rows = tgt_rows.shape[0]
+
+        # (a) the cached decoder step against decode_position of the prefix
+        cache = model.decode_cache_init(enc, n_pos, n_rows)
+        enc_pad = length_to_mask(enc_lens, enc.shape[1])
+        enc_rows, lens_rows = tile_for_beam(enc, beam), tile_for_beam(enc_lens, beam)
+        dec_err = 0.0
+        for pos in range(n_pos):
+            lp, cache = model.decode_step_cached(tgt_rows[:, pos], pos, cache, enc_pad)
+            ref = model.decode_position(tgt_rows[:, :pos + 1], enc_rows, lens_rows, pos)
+            dec_err = max(dec_err, float(((lp - ref).abs() / (1 + ref.abs())).max()))
+        del cache, enc_rows
+        ok_a = dec_err <= DEC_STEP_TOL
+        print(f"beam check (a): cached decoder step vs decode_position over {n_rows} rows of "
+              f"the best hypotheses, {n_pos} positions (bf16 compute): max |dlogp|/(1+|logp|) "
+              f"{dec_err:.3e} (tol {DEC_STEP_TOL:.3e}) {'ok' if ok_a else 'FAILED'}")
+
+        # (b) the cached LM step against the full causal forward
+        full = torch.log_softmax(lm(tgt_rows), dim=-1)
+        lm_cache = lm.init_cache(n_rows, n_pos)
+        lm_err = 0.0
+        for pos in range(n_pos):
+            logits, lm_cache = lm.step(tgt_rows[:, pos], pos, lm_cache)
+            lm_err = max(lm_err, float((torch.log_softmax(logits, -1) - full[:, pos]).abs().max()))
+        del full, lm_cache
+        ok_b = lm_err <= LM_STEP_TOL
+        print(f"beam check (b): cached LM step vs the full causal LM over {n_rows} rows, "
+              f"{n_pos} positions (float32): max |dlogp| {lm_err:.3e} (tol {LM_STEP_TOL:.0e}) "
+              f"{'ok' if ok_b else 'FAILED'}")
+
+        # (c) the prefix scorer's eos score against -ctc_loss of each hypothesis
+        st = ctc_prefix.ctc_prefix_init(ctc_lp, enc_lens, m.blank_index)
+        for j in range(int(hl.max())):
+            tok = tgt[:, 1 + j]
+            _, psi = ctc_prefix.ctc_prefix_score_only(st, ctc_lp, enc_lens, tok[:, None],
+                                                      m.blank_index)
+            new = ctc_prefix.ctc_prefix_advance(st, ctc_lp, enc_lens, tok, psi[:, 0],
+                                                m.blank_index)
+            live = j < hl
+            st = ctc_prefix.CTCPrefixState(*(
+                torch.where(live[:, None] if a.dim() == 2 else live, a, b)
+                for a, b in zip(new, st)))
+        eos = torch.full((BATCH, 1), m.eos_index, device=dev)
+        delta, _ = ctc_prefix.ctc_prefix_score_only(st, ctc_lp, enc_lens, eos, m.blank_index,
+                                                    m.eos_index)
+        scorer = delta[:, 0] + st.psi
+        loss = F.ctc_loss(ctc_lp.transpose(0, 1), tgt[:, 1:].clamp_min(0), enc_lens, hl,
+                          blank=m.blank_index, reduction="none")
+    feasible = torch.isfinite(loss)
+    err_c = (scorer + loss).abs()
+    tol_c = CTC_TOL_REL * loss.abs() + CTC_TOL_ABS
+    ok_c = bool(feasible.any()) and bool((err_c <= tol_c)[feasible].all())
+    print(f"beam check (c): prefix scorer eos log-prob vs -ctc_loss per best hypothesis "
+          f"(tol {CTC_TOL_REL:.0e}|loss| + {CTC_TOL_ABS:.0e}): feasible rows "
+          f"{int(feasible.sum())}/{BATCH}, -ctc_loss {[round(float(-v), 3) for v in loss]}, "
+          f"scorer {[round(float(v), 3) for v in scorer]}, max |diff| on feasible rows "
+          f"{float(err_c[feasible].max()) if bool(feasible.any()) else float('nan'):.3e} "
+          f"{'ok' if ok_c else 'FAILED'}")
+
+    # (d) the same request with the plain versions of both kernels
+    with plain_kernels():
+        with torch.inference_mode():
+            enc_plain, _ = model.encode(feats, feat_len)
+        out_plain = run("(plain versions)")
+    valid = length_to_mask(enc_lens, enc.shape[1]) > 0
+    enc_diff = float((enc.float() - enc_plain.float()).abs().amax(-1)[valid].max())
+    same = sum(out["hyps"][i] == out_plain["hyps"][i] for i in idx)
+    print(f"beam check (d): kernel path vs plain path: encoder output max |diff| {enc_diff:.4f}, "
+          f"identical best-token rows {same}/{BATCH} (reported, not held)")
+    for ok, what in ((ok_a, "(a) the cached decoder step"), (ok_b, "(b) the cached LM step"),
+                     (ok_c, "(c) the CTC prefix scorer")):
+        if not ok:
+            fail(f"beam check {what} is outside its tolerance")
+    beam_profile(cfg, model, lm, enc, enc_lens, ctc_lp, out["max_length"],
+                 out["search_s"] / max(out["steps"], 1))
+
+
+class _StopSearch(Exception):
+    pass
+
+
+def beam_profile(cfg, model, lm, enc, enc_lens, ctc_lp, max_length: int, step_s: float,
+                 skip: int = 100, active: int = 8) -> None:
+    """Device time by kernel over search steps `skip` .. `skip + active - 1`
+    of the request's search (the caches as long as in the timed run) under
+    torch.profiler, with the host-clock wall of those steps; the search is
+    stopped after them. The device's idle share is given against that wall
+    (the profiler slows the host: an upper bound) and against `step_s`, the
+    unprofiled run's mean step time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from summarymixing_tpu_torch.decoding.s2s_beam import s2s_beam_search, tile_for_beam
+    from summarymixing_tpu_torch.evaluate import beam_config, make_beam_step, make_lm_fusion
+
+    lm_step, make_cache = make_lm_fusion(cfg, lm)
+    bc = beam_config(cfg, max_length, lm_step)
+    stamps = []
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=skip, warmup=1, active=active, repeat=1)) as prof:
+        step, cache, lm_cache = make_beam_step(cfg, model, enc, enc_lens, bc.beam_size, bc,
+                                               lm_step, make_cache)
+
+        # profiler step k + 1 is search step k: steps skip .. skip + active - 1 are
+        # recorded; the search stops when step skip + active starts
+        def profiled(tok, i, c):
+            prof.step()
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            if i == skip + active:
+                raise _StopSearch
+            return step(tok, i, c)
+
+        try:
+            s2s_beam_search(profiled, enc, tile_for_beam(enc_lens, bc.beam_size), ctc_lp, bc,
+                            lm_step_fn=lm_step, cache=cache, lm_cache=lm_cache)
+        except _StopSearch:
+            pass
+    if len(stamps) <= skip + active:
+        print(f"beam profile: not measured (the search ended after {len(stamps)} steps)")
+        return
+    wall_us = (stamps[skip + active] - stamps[skip]) * 1e6
+    rows = []
+    for e in prof.key_averages():
+        # the schedule's ProfilerStep ranges span whole steps on the device
+        # timeline too; they are not kernels
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("ProfilerStep"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    busy_us = sum(r[0] for r in rows)
+    if busy_us == 0:
+        print("beam profile: the profiler recorded no device time; busy share not measured")
+        return
+    busy_step_ms = busy_us / 1e3 / active
+    print(f"beam profile (steps {skip}-{skip + active - 1}): device busy {busy_us / 1e3:.3f} ms of "
+          f"{wall_us / 1e3:.3f} ms wall under the profiler, idle share "
+          f"{1 - busy_us / wall_us:.3f}; "
+          f"{busy_step_ms:.3f} ms busy per step against {step_s * 1e3:.3f} ms per unprofiled step, "
+          f"idle share {1 - busy_step_ms / (step_s * 1e3):.3f}")
+    for us, count, key in sorted(rows, reverse=True)[:16]:
+        print(f"  beam profile: {us / 1e3:8.3f} ms {100 * us / busy_us:5.1f}% x{count:<6d} "
+              f"{key[:90]}")
 
 
 def main() -> int:
@@ -843,7 +1188,12 @@ def main() -> int:
         fail(f"parameter count {n_params} != {FLAGSHIP_PARAMS}")
     del model, fbank, batches, results
     torch.cuda.empty_cache()
-    phase_train(kernel_rows)
+    train = phase_train(kernel_rows)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        phase_checkpoints(train, ckpt_dir)
+        del train
+        torch.cuda.empty_cache()
+        phase_beam(kernel_rows, ckpt_dir)
     for row in kernel_rows.values():
         row["launches"] = sum(row["launches_by_path"].values())
     print(f"wall {time.perf_counter() - wall0:.1f} s; nvidia-smi: {smi}")

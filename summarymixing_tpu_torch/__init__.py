@@ -12,13 +12,19 @@ src projection + sine positions, Branchformer layers with a full-mode
 SummaryMixing cell and a cgMLP branch, the CTC head and greedy decode) and
 the training step (`training/trainer.py::ASRTrainer`: speed perturbation,
 SpecAugment, the regularMHA attention decoder, dropout, CTC + KL-div,
-AdamW with the Noam schedule). Parameters are float32; the layers compute
-in bf16 for `precision: bf16`, as the flax modules do.
+AdamW with the Noam schedule), checkpointing with checkpoint averaging
+(`training/checkpoint.py`), and the test-time beam evaluation
+(`evaluate.py::evaluate_beam`: the KV-cached attention decoder, the
+KV-cached Transformer LM of `models/lm.py` and the joint CTC/attention
+beam search of `decoding/s2s_beam.py` with `decoding/ctc_prefix.py`).
+Parameters are float32; the layers compute in bf16 for `precision: bf16`,
+as the flax modules do.
 
 Conventions kept from the JAX package at public functions: `[B, T, C]`
 sequences, float masks with 1 = valid, NHWC order where the CNN frontend
-flattens. Entry points (`config.build_model`, `transcribe.batch_waveforms`,
-`training.trainer.ASRTrainer` on the model's device) run on `cuda` unless
-the caller passes `device="cpu"`; with no card they raise rather than fall
-back.
+flattens. Entry points (`config.build_model`, `config.build_lm`,
+`transcribe.batch_waveforms`, the checkpoint restores,
+`training.trainer.ASRTrainer` and `evaluate.evaluate_beam` on the model's
+device) run on `cuda` unless the caller passes `device="cpu"`; with no card
+they raise rather than fall back.
 """

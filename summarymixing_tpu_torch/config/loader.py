@@ -1,6 +1,7 @@
-"""YAML recipe loader, `build_model` and `build_trainer` — the port of
-`summarymixing_tpu/config/loader.py` for the Branchformer-SummaryMixing
-CTC/attention recipe, and of the trainer set-up of `recipes/train.py`.
+"""YAML recipe loader, `build_model`, `build_lm` and `build_trainer` — the
+port of `summarymixing_tpu/config/loader.py` for the Branchformer-SummaryMixing
+CTC/attention recipe and its fusion LM, and of the trainer set-up of
+`recipes/train.py`.
 `yaml` is imported inside `load_recipe`, so building a model from
 a config made in Python needs no YAML package."""
 
@@ -114,6 +115,24 @@ def build_model(cfg: RecipeConfig, device=None) -> Tuple["torch.nn.Module", "tor
     if cfg.training.precision == "bf16":
         set_compute_dtype(model, torch.bfloat16)
     return model.eval(), fbank.eval()
+
+
+def build_lm(lm_cfg: LMConfig, vocab: int, device=None, seed: int = 0) -> "torch.nn.Module":
+    """LMConfig -> the fusion LM (`models.lm.build_lm`) in eval mode on
+    `device` (the card unless `device` says otherwise), its weights drawn
+    from `seed` with a `torch.Generator` as `build_model` draws the
+    recognizer's. The LM computes in float32, as the JAX recipes build it."""
+    from summarymixing_tpu_torch.models.lm import build_lm as lm_module
+    from summarymixing_tpu_torch.utils.init import init_parameters
+
+    device = resolve_device(device)
+    with torch.device(device):
+        lm = lm_module(lm_cfg, vocab)
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        init_parameters(lm, gen)
+    return lm.eval()
 
 
 def build_trainer(cfg: RecipeConfig, model, fbank):

@@ -2,8 +2,10 @@
 `summarymixing_tpu/models/asr.py`: `_src_masks` (non-causal, no Dynamic
 Chunk Training), `_encode_inner` with the source dropout, `encode`, the
 target embedding and the regularMHA attention decoder (`_decode_inner`),
-and `forward` with or without targets. The conformer/transformer
-encoders, streaming and the decoder's KV-cached step are still to port.
+`forward` with or without targets, and the decoder's search surface:
+`decode_prefix` (the uncached oracle) and the KV-cached
+`decode_cache_init`/`decode_step_cached`. The conformer/transformer
+encoders and streaming are still to port.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ from summarymixing_tpu_torch.models.transformer import NormalizedEmbedding, Tran
 from summarymixing_tpu_torch.ops.layers import Dense, Dropout
 from summarymixing_tpu_torch.ops.masks import (
     key_padding_mask_from_tokens,
+    length_to_mask,
     lookahead_mask,
     rel_length_to_mask,
 )
-from summarymixing_tpu_torch.ops.positional import positional_encoding
+from summarymixing_tpu_torch.ops.positional import positional_encoding, positional_row
 
 _TODO = "see ROADMAP.md, 'Modules still to port'"
 
@@ -104,3 +107,26 @@ class TransformerASR(nn.Module):
     def encode(self, src: torch.Tensor, wav_len: Optional[torch.Tensor] = None) -> torch.Tensor:
         pad_mask, src_mask = self._src_masks(src.shape[1], wav_len)
         return self._encode_inner(src, pad_mask, src_mask)
+
+    # -- decoder search surface -------------------------------------------
+    def decode_prefix(self, tgt: torch.Tensor, enc_out: torch.Tensor,
+                      enc_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Decoder states `[B, U, D]` of a whole BOS-first prefix;
+        `enc_len` `[B]` absolute encoder lengths."""
+        enc_pad_mask = None if enc_len is None else length_to_mask(enc_len, enc_out.shape[1])
+        return self._decode_inner(tgt, enc_out, enc_pad_mask, None)
+
+    def decode_cache_init(self, enc_out: torch.Tensor, max_len: int,
+                          rows: Optional[int] = None) -> list:
+        """Per-layer decode caches: cross-attention K/V from the UNtiled
+        `enc_out` `[B, T, D]` once, self-attention K/V at `rows` rows (B·beam
+        under beam search)."""
+        return self.decoder.init_cache(enc_out, max_len, rows)
+
+    def decode_step_cached(self, tok_t: torch.Tensor, pos: int, cache: list,
+                           enc_pad_mask: Optional[torch.Tensor] = None):
+        """One token per row: tok_t `[N]` at position `pos` -> (hidden
+        `[N, D]`, cache); `enc_pad_mask` `[B, T]`, 1 = valid."""
+        x = self.tgt_emb(tok_t)
+        x = x + positional_row(pos, self.d_model, x.dtype, x.device)
+        return self.decoder.step(x, pos, cache, enc_pad_mask)

@@ -1,7 +1,8 @@
 """The recognizer graph — the port of
 `summarymixing_tpu/models/speech_recognizer.py`: CNN frontend ->
 `TransformerASR` -> CTC head, and the attention decoder's head
-(`seq_lin`) when the model has a decoder."""
+(`seq_lin`) when the model has a decoder, with the decoder's search steps
+(`decode_position`, `decode_cache_init`, `decode_step_cached`)."""
 
 from __future__ import annotations
 
@@ -64,3 +65,22 @@ class SpeechRecognizer(nn.Module):
 
     def ctc_head(self, enc_out: torch.Tensor) -> torch.Tensor:
         return F.log_softmax(self.ctc_lin(enc_out).to(torch.float32), dim=-1)
+
+    def decode_position(self, tgt: torch.Tensor, enc_out: torch.Tensor, enc_len: torch.Tensor,
+                        pos: int) -> torch.Tensor:
+        """Next-token log-probs `[B, V]` at position `pos` of a (padded)
+        BOS-first prefix, from the whole prefix: the uncached oracle of
+        `decode_step_cached` (causality makes positions past `pos`
+        irrelevant)."""
+        dec = self.asr.decode_prefix(tgt, enc_out, enc_len)
+        return F.log_softmax(self.seq_lin(dec[:, pos]).to(torch.float32), dim=-1)
+
+    def decode_cache_init(self, enc_out: torch.Tensor, max_len: int,
+                          rows: Optional[int] = None) -> list:
+        return self.asr.decode_cache_init(enc_out, max_len, rows)
+
+    def decode_step_cached(self, tok_t: torch.Tensor, pos: int, cache: list,
+                           enc_pad_mask: Optional[torch.Tensor] = None):
+        """KV-cached step: tok_t `[N]` -> (log-probs `[N, V]`, cache)."""
+        h, cache = self.asr.decode_step_cached(tok_t, pos, cache, enc_pad_mask)
+        return F.log_softmax(self.seq_lin(h).to(torch.float32), dim=-1), cache

@@ -1,20 +1,120 @@
-"""The attention decoder — the port of `TransformerDecoderLayer` (the
-regularMHA route), `TransformerDecoder` and `NormalizedEmbedding` from
-`summarymixing_tpu/models/transformer.py`. The KV cache and `step` of
-the JAX modules serve beam search and are still to port, as are the
-RelPosMHAXL and Summary Decoder routes.
+"""Transformer encoder and decoder — the port of `TransformerEncoderLayer`,
+`TransformerEncoder` (the regularMHA route, the causal LM's stack),
+`TransformerDecoderLayer` (the regularMHA route), `TransformerDecoder` and
+`NormalizedEmbedding` from `summarymixing_tpu/models/transformer.py`, with
+the KV-cached `init_cache`/`step` of beam search. The RelPosMHAXL and
+Summary Decoder routes, the encoder's SummaryMixing route (the flagship's
+encoder is the Branchformer), the 1-D CNN feed-forward and layerdrop are
+still to port.
+
+A cache is a list with one dict of tensors per layer. Self-attention
+caches are head-major `[rows, H, max_len, hd]` (`ops/attention.py`); the
+decoder's cross-attention K/V (`mem_k`, `mem_v`) keeps the memory's B rows
+when `rows` = B·beam, and beam search gathers only the leaves with `rows`
+rows.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
 
 from summarymixing_tpu_torch.ops.attention import MultiheadAttention, PositionalwiseFeedForward
 from summarymixing_tpu_torch.ops.layers import Dropout, LayerNorm
+
+_MHA = ("regularMHA", "vanillaMHA")
+
+
+def _self_attn_cache(rows: int, max_len: int, nhead: int, d_model: int, dtype,
+                     device) -> dict:
+    shape = (rows, nhead, max_len, d_model // nhead)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Self-attention (`self_att`) and the feed-forward block, each with a
+    LayerNorm (eps 1e-6) before it, or after it without `normalize_before`
+    (the LM's post-LN), and dropout before its residual."""
+
+    def __init__(self, d_model: int, d_ffn: int, nhead: int, dropout_rate: float = 0.0,
+                 activation: str = "gelu", normalize_before: bool = True,
+                 attention_type: str = "regularMHA"):
+        super().__init__()
+        if attention_type not in _MHA:
+            raise NotImplementedError(
+                f"encoder attention {attention_type!r} is not ported; see ROADMAP.md")
+        self.d_model, self.nhead = d_model, nhead
+        self.normalize_before = normalize_before
+        self.self_att = MultiheadAttention(d_model, nhead, dropout_rate)
+        self.pos_ffn = PositionalwiseFeedForward(d_ffn, d_model, dropout_rate, activation)
+        self.norm1 = LayerNorm(d_model, eps=1e-6)
+        self.norm2 = LayerNorm(d_model, eps=1e-6)
+        self.dropout = Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        pre = self.normalize_before
+        src1 = self.norm1(x) if pre else x
+        x = x + self.dropout(self.self_att(src1, src1, src1, attn_mask=src_mask,
+                                           pad_mask=pad_mask))
+        if not pre:
+            x = self.norm1(x)
+        src1 = self.norm2(x) if pre else x
+        x = x + self.dropout(self.pos_ffn(src1))
+        return x if pre else self.norm2(x)
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32, device=None) -> dict:
+        return _self_attn_cache(batch, max_len, self.nhead, self.d_model, dtype, device)
+
+    def step(self, x_t: torch.Tensor, pos: int, cache: dict):
+        """One causal position: x_t `[B, D]` -> (`[B, D]`, cache)."""
+        pre = self.normalize_before
+        src1 = self.norm1(x_t) if pre else x_t
+        out, k, v = self.self_att.step(src1, cache["k"], cache["v"], pos, append=True)
+        x = x_t + out
+        if not pre:
+            x = self.norm1(x)
+        src1 = self.norm2(x) if pre else x
+        x = x + self.pos_ffn(src1)
+        return (x if pre else self.norm2(x)), {"k": k, "v": v}
+
+
+class TransformerEncoder(nn.Module):
+    """`layer_0` ... `layer_{n-1}`, then a LayerNorm (eps 1e-6)."""
+
+    def __init__(self, num_layers: int, d_model: int, d_ffn: int, nhead: int,
+                 dropout_rate: float = 0.0, activation: str = "gelu",
+                 normalize_before: bool = True, attention_type: str = "regularMHA"):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", TransformerEncoderLayer(
+                d_model, d_ffn, nhead, dropout_rate, activation, normalize_before,
+                attention_type))
+        self.norm = LayerNorm(d_model, eps=1e-6)
+
+    def layers(self) -> List[TransformerEncoderLayer]:
+        return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for layer in self.layers():
+            x = layer(x, src_mask, pad_mask)
+        return self.norm(x)
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32, device=None) -> list:
+        return [layer.init_cache(batch, max_len, dtype, device) for layer in self.layers()]
+
+    def step(self, x_t: torch.Tensor, pos: int, cache: list):
+        new_cache = []
+        for layer, c in zip(self.layers(), cache):
+            x_t, c = layer.step(x_t, pos, c)
+            new_cache.append(c)
+        return self.norm(x_t), new_cache
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -26,9 +126,10 @@ class TransformerDecoderLayer(nn.Module):
                  activation: str = "gelu", normalize_before: bool = True,
                  attention_type: str = "regularMHA"):
         super().__init__()
-        if attention_type not in ("regularMHA", "vanillaMHA"):
+        if attention_type not in _MHA:
             raise NotImplementedError(
                 f"decoder attention {attention_type!r} is not ported; see ROADMAP.md")
+        self.d_model, self.nhead = d_model, nhead
         self.normalize_before = normalize_before
         self.self_attn = MultiheadAttention(d_model, nhead, dropout_rate)
         self.cross_attn = MultiheadAttention(d_model, nhead, dropout_rate)
@@ -56,6 +157,37 @@ class TransformerDecoderLayer(nn.Module):
         tgt = tgt + self.dropout(self.pos_ffn(t1))
         return tgt if pre else self.norm3(tgt)
 
+    def init_cache(self, memory: torch.Tensor, max_len: int, rows: Optional[int] = None) -> dict:
+        """The layer's decode cache: cross-attention K/V from `memory`
+        `[B, T, D]` at B rows, and zeroed self-attention K/V at `rows`
+        (B·beam in beam search; B by default) in the K/V dtype, as the JAX
+        layer makes them."""
+        mem_k, mem_v = self.cross_attn.kv(memory)
+        self_kv = _self_attn_cache(rows or memory.shape[0], max_len, self.nhead, self.d_model,
+                                   mem_k.dtype, memory.device)
+        return {"self_k": self_kv["k"], "self_v": self_kv["v"], "mem_k": mem_k, "mem_v": mem_v}
+
+    def step(self, x_t: torch.Tensor, pos: int, cache: dict,
+             memory_pad_mask: Optional[torch.Tensor] = None):
+        """One decoding position: x_t `[N, D]` -> (`[N, D]`, cache)."""
+        pre = self.normalize_before
+        t1 = self.norm1(x_t) if pre else x_t
+        out, sk, sv = self.self_attn.step(t1, cache["self_k"], cache["self_v"], pos, append=True)
+        x = x_t + out
+        if not pre:
+            x = self.norm1(x)
+        t1 = self.norm2(x) if pre else x
+        out, _, _ = self.cross_attn.step(t1, cache["mem_k"], cache["mem_v"], pos,
+                                         pad_mask=memory_pad_mask, append=False)
+        x = x + out
+        if not pre:
+            x = self.norm2(x)
+        t1 = self.norm3(x) if pre else x
+        x = x + self.pos_ffn(t1)
+        if not pre:
+            x = self.norm3(x)
+        return x, dict(cache, self_k=sk, self_v=sv)
+
 
 class TransformerDecoder(nn.Module):
     """`layer_0` ... `layer_{n-1}`, then a LayerNorm (eps 1e-6)."""
@@ -71,14 +203,28 @@ class TransformerDecoder(nn.Module):
                 attention_type))
         self.norm = LayerNorm(d_model, eps=1e-6)
 
+    def layers(self) -> List[TransformerDecoderLayer]:
+        return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 tgt_mask: Optional[torch.Tensor] = None,
                 tgt_pad_mask: Optional[torch.Tensor] = None,
                 memory_pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        for i in range(self.num_layers):
-            tgt = getattr(self, f"layer_{i}")(tgt, memory, tgt_mask, tgt_pad_mask,
-                                              memory_pad_mask)
+        for layer in self.layers():
+            tgt = layer(tgt, memory, tgt_mask, tgt_pad_mask, memory_pad_mask)
         return self.norm(tgt)
+
+    def init_cache(self, memory: torch.Tensor, max_len: int, rows: Optional[int] = None) -> list:
+        return [layer.init_cache(memory, max_len, rows) for layer in self.layers()]
+
+    def step(self, x_t: torch.Tensor, pos: int, cache: list,
+             memory_pad_mask: Optional[torch.Tensor] = None):
+        """x_t `[N, D]` at position `pos` -> (normed hidden `[N, D]`, cache)."""
+        new_cache = []
+        for layer, c in zip(self.layers(), cache):
+            x_t, c = layer.step(x_t, pos, c, memory_pad_mask)
+            new_cache.append(c)
+        return self.norm(x_t), new_cache
 
 
 class NormalizedEmbedding(nn.Module):

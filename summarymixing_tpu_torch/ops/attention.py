@@ -7,8 +7,15 @@ scores are taken in float32 from the projections' dtype, the attention
 mask and the key padding mask merge into one additive float32 bias
 (`merge_masks`, the JAX `_merge_masks`), the softmax is float32, and the
 probabilities are cast back to the values' dtype for the weighted sum,
-which accumulates in float32. The KV-cached `step` of the JAX module is
-for beam search and is still to port.
+which accumulates in float32.
+
+`MultiheadAttention.step` is the KV-cached one-position attention of beam
+search (the JAX `step` and `_step_grouped`). Its caches are laid out
+head-major, `[B, H, S, hd]` (the JAX package keeps `[B, S, H, hd]`), so
+that each product reads a cache slice without a copy; the self-attention
+step attends over `cache[:, :, :pos+1]` only, where the JAX step masks the
+positions past `pos` out of a softmax over all S: they take probability 0
+there, so the result is the same.
 """
 
 from __future__ import annotations
@@ -62,6 +69,10 @@ class MultiheadAttention(nn.Module):
         b, t, _ = x.shape
         return x.reshape(b, t, self.nhead, self.d_model // self.nhead)
 
+    def _cache_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """`[B, T, D]` -> head-major `[B, H, T, hd]`."""
+        return self._heads(x).transpose(1, 2).contiguous()
+
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None,
                 pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -77,6 +88,73 @@ class MultiheadAttention(nn.Module):
         probs = self.attn_dropout(torch.softmax(scores, dim=-1))
         ctx = _mm32("bhts,bshd->bthd", probs.to(v.dtype), v).to(v.dtype)
         return self.out_proj(ctx.reshape(b, t, self.d_model))
+
+    # -- incremental decoding ---------------------------------------------
+    def kv(self, x: torch.Tensor):
+        """K/V heads of a static memory `[B, S, D]`: `[B, H, S, hd]` each."""
+        return self._cache_heads(self.k_proj(x)), self._cache_heads(self.v_proj(x))
+
+    def step(self, x_t: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+             pad_mask: Optional[torch.Tensor] = None, append: bool = True):
+        """One-position attention. x_t `[N, D]`; caches `[B, H, S, hd]`.
+
+        With `append` (self-attention) the position's K/V are written into
+        the caches at `pos`, in place, and the query attends over positions
+        0..pos (under `pad_mask` `[N, S]`, if given). Without it
+        (cross-attention) the query attends over the whole cache, under
+        `pad_mask` `[B, S]` (1 = valid); when the caches hold B < N rows,
+        row n attends over row n // (N / B) (beam search: the encoder-side
+        K/V is never tiled by beam). Returns `(out [N, D], k_cache,
+        v_cache)`."""
+        h, hd = self.nhead, self.d_model // self.nhead
+        n = x_t.shape[0]
+        if not append and k_cache.shape[0] != n:
+            return self._step_grouped(x_t, k_cache, v_cache, pad_mask)
+        q = self.q_proj(x_t).reshape(n, h, 1, hd)
+        if append:
+            k_cache[:, :, pos] = self.k_proj(x_t).reshape(n, h, hd).to(k_cache.dtype)
+            v_cache[:, :, pos] = self.v_proj(x_t).reshape(n, h, hd).to(v_cache.dtype)
+            keys, values = k_cache[:, :, :pos + 1], v_cache[:, :, :pos + 1]
+            if pad_mask is not None:
+                pad_mask = pad_mask[:, :pos + 1]
+        else:
+            keys, values = k_cache, v_cache
+        ctx = _attend(q, keys, values, None if pad_mask is None else pad_mask[:, None, None, :],
+                      hd)
+        out = self.out_proj(ctx.to(x_t.dtype).reshape(n, self.d_model))
+        return out, k_cache, v_cache
+
+    def _step_grouped(self, x_t: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      pad_mask: Optional[torch.Tensor] = None):
+        """Cross-attention with beam-shared memory: x_t `[N, D]` (N = B·g),
+        caches `[B, H, S, hd]`; the g query rows of utterance b ride as g
+        query positions against its cache row (queries are independent in
+        cross-attention, so this is per-row attention)."""
+        h, hd = self.nhead, self.d_model // self.nhead
+        n = x_t.shape[0]
+        b = k_cache.shape[0]
+        g = n // b
+        q = self.q_proj(x_t).reshape(b, g, h, hd).transpose(1, 2)      # [B, H, g, hd]
+        if pad_mask is not None and pad_mask.shape[0] == n:   # beam-tiled mask: rows repeat
+            pad_mask = pad_mask[::g]
+        mask = None if pad_mask is None else pad_mask[:, None, None, :]
+        ctx = _attend(q, k_cache, v_cache, mask, hd)                       # [B, H, g, hd]
+        out = self.out_proj(ctx.to(x_t.dtype).transpose(1, 2).reshape(n, self.d_model))
+        return out, k_cache, v_cache
+
+
+def _attend(q: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
+            pad_mask: Optional[torch.Tensor], head_dim: int) -> torch.Tensor:
+    """softmax(q·kᵀ / sqrt(hd)) · v over head-major `[.., S, hd]` operands,
+    scores and accumulation in float32, the probabilities cast to the
+    values' dtype first (the JAX step's `preferred_element_type`); masked
+    positions (`pad_mask` 0) get float32's most negative value."""
+    f32 = torch.float32
+    scores = torch.matmul(q.to(f32), keys.to(f32).transpose(-1, -2)) / math.sqrt(head_dim)
+    if pad_mask is not None:
+        scores = torch.where(pad_mask > 0, scores, torch.finfo(f32).min)
+    probs = torch.softmax(scores, dim=-1).to(values.dtype)
+    return torch.matmul(probs.to(f32), values.to(f32))
 
 
 class PositionalwiseFeedForward(nn.Module):

@@ -13,9 +13,10 @@ rest: optimizer state, normalization statistics, step and epoch counters,
 and the one `torch.Generator` on the model's device from which speed
 perturbation, SpecAugment and every dropout draw. Speed perturbation runs
 inside `train_step` here; the JAX recipes apply it before calling theirs
-(`recipes/train.py`). The mesh and sharding of the JAX trainer are still
-to port, as are checkpointing, gradient accumulation, `concat_original`
-and `augment_warmup_steps` (ROADMAP.md).
+(`recipes/train.py`). Checkpoints are `training/checkpoint.py`'s. The
+mesh and sharding of the JAX trainer are still to port, as are
+preemption, gradient accumulation, `concat_original` and
+`augment_warmup_steps` (ROADMAP.md).
 
     trainer = ASRTrainer(model, AdamW(noam_schedule(5e-4, 30000), 0.01), fbank)
     state = trainer.init_state(seed=3407)

@@ -3,8 +3,10 @@ from the flax params tree of its counterpart.
 
 The port's modules carry the flax tree's names (the attention decoder's
 too: `decoder.layer_i.{self_attn,cross_attn}.{q,k,v,out}_proj`,
-`pos_ffn.{ffn_in,ffn_out}`, `norm1`-`norm3`, `seq_lin`), so the bridge is
-a tree walk with four layout rules:
+`pos_ffn.{ffn_in,ffn_out}`, `norm1`-`norm3`, `seq_lin`; and the
+Transformer LM's: `emb.emb`, `encoder.layer_i.{self_att,pos_ffn,norm1,
+norm2}`, `encoder.norm`, `out`, with `out_proj` and `out_norm` for the
+"sb" head), so the bridge is a tree walk with four layout rules:
 
 - `torch.nn.Linear`: the Dense `kernel` `[in, out]` becomes `weight`
   `[out, in]`;
