@@ -66,7 +66,27 @@ Phases (any failure exits non-zero):
    scorer's eos log-prob of each best hypothesis against `-ctc_loss`;
    reported only: (d) the same request with the plain versions of both
    kernels. Then torch.profiler over search steps 100-107.
-10. Peak memory, parameter counts (88,954,088 for decode, 119,304,304 with
+10. Transducer inference (the streaming Conformer-SummaryMixing
+   transducer recipe, `recipes/LibriSpeech/conformer_summarymixing_transducer.yaml`,
+   built in Python: 12 layers, d512, SummaryMixing-fast with nhead 4, d_ffn
+   2048, kernel 31, tanh-GELU, bf16 compute; a 1-layer LSTM predictor of
+   512, a sum joint of 640, vocabulary 1000; 79,254,832 parameters from seed
+   3407). The 32 utterances of phase 4 in 4 requests of 8 go through
+   `transcribe.transducer_greedy_transcribe` (each shape warmed up once):
+   latency and audio-s/s per request. Request 0 goes through
+   `evaluate.streaming_decode` (chunks of 16 encoder frames, 640 ms of
+   audio, with 4 chunks of left context): median and max ms per chunk; and
+   through `streaming.run_stream` on raw audio: ms per step. Held: (a) in
+   float32 with TF32 off, chunk-by-chunk `encode_streaming` against the
+   offline encode under `DynChunkTrainConfig(16, 4)` on the same CNN output,
+   within STREAM_TOL over the valid frames. Reported, not held: (a) in
+   bf16, the rows where `run_stream` and `streaming_decode` give the same
+   tokens (in bf16 and in float32), and the bf16 offline encoder against
+   the float32 one. Peak
+   memory, and device time by kernel of request 0's greedy decode under
+   torch.profiler. No hand-written kernel lies on this path: both launch
+   counters must stay at 0 through the phase.
+11. Peak memory, parameter counts (88,954,088 for decode, 119,304,304 with
    the decoder) and wall time.
 
 The line before the last holds nvidia-smi's name and power limit; the last
@@ -136,6 +156,16 @@ LM_STEP_TOL = 2e-5
 # T <= 751 frames, float32) against torch's CTC forward on the same lattice:
 # |eos log-prob + ctc_loss| <= CTC_TOL_REL * |ctc_loss| + CTC_TOL_ABS
 CTC_TOL_REL, CTC_TOL_ABS = 1e-4, 1e-3
+# transducer inference (phase 10)
+TRANSDUCER_PARAMS = 79_254_832   # 73,581,896 recognizer + 5,672,936 transducer
+STREAM_CHUNK, STREAM_LEFT = 16, 4   # recipes/evaluate.py --chunk-size, --left-context
+# (a) chunk-by-chunk encode_streaming against the offline DCT encode, float32
+# with TF32 off, on max |stream - offline| / (1 + |offline|) over the valid
+# frames: the same arithmetic, but the pooled summary is a masked mean over
+# the 80 frames of [left context | chunk] in one path and a [T, T] masked
+# product in the other, and the DCConv's taps are summed in another order:
+# float32 rounding (2^-24) over sums of up to 80 terms, 12 layers deep
+STREAM_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -562,11 +592,23 @@ def synthetic_waveforms(n: int, seed: int, sample_rate: int = 16000):
     return wavs
 
 
+def seeded_norm_stats(seed: int = 7) -> dict:
+    """InputNormalization statistics of 80 mels on the card, from a seed:
+    means around -10 dB, standard deviations 4-8 dB."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    count = torch.tensor(1.0e5, device="cuda")
+    std = 4.0 + 4.0 * torch.rand(80, generator=g, device="cuda")
+    return {"count": count, "mean": -10.0 + 5.0 * torch.randn(80, generator=g, device="cuda"),
+            "m2": std ** 2 * (count - 1.0)}
+
+
 def phase_main_path(kernel_rows):
     import torch
 
     from summarymixing_tpu_torch.config import build_model
-    from summarymixing_tpu_torch.frontend.features import NormStats
     from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
     from summarymixing_tpu_torch.transcribe import batch_waveforms, greedy_ctc_decode
 
@@ -575,13 +617,7 @@ def phase_main_path(kernel_rows):
     torch.cuda.reset_peak_memory_stats()
     model, fbank = build_model(cfg)
     n_params = sum(p.numel() for p in model.parameters())
-    g = torch.Generator(device="cuda")
-    g.manual_seed(7)
-    count = torch.tensor(1.0e5, device="cuda")
-    std = 4.0 + 4.0 * torch.rand(80, generator=g, device="cuda")
-    stats = {"count": count,
-             "mean": -10.0 + 5.0 * torch.randn(80, generator=g, device="cuda"),
-             "m2": std ** 2 * (count - 1.0)}
+    stats = seeded_norm_stats()
     wavs = synthetic_waveforms(N_REQUESTS * BATCH, seed=11)
     batches = list(batch_waveforms(wavs, BATCH, pad_quantum=cfg.features.sample_rate // 2))
     if len(batches) != N_REQUESTS:
@@ -1163,6 +1199,214 @@ def beam_profile(cfg, model, lm, enc, enc_lens, ctc_lp, max_length: int, step_s:
               f"{key[:90]}")
 
 
+def transducer_config():
+    """recipes/LibriSpeech/conformer_summarymixing_transducer.yaml as the
+    port's `load_recipe` reads it (the card has no YAML package)."""
+    from summarymixing_tpu_torch.config.schema import (
+        AugmentConfig, DecodingConfig, FeaturesConfig, ModelConfig, RecipeConfig,
+        TrainingConfig, TransducerConfig)
+
+    return RecipeConfig(
+        name="librispeech_conformer_summarymixing_transducer", seed=3407,
+        tokenizer_type="sentencepiece", token_type="unigram",
+        features=FeaturesConfig(sample_rate=16000, n_fft=512, win_length=32, n_mels=80),
+        augment=AugmentConfig(speed_perturb=True, speeds=(95, 100, 105),
+                              time_drop_length_low=15, time_drop_length_high=25,
+                              time_drop_count=5, freq_drop_length_low=25,
+                              freq_drop_length_high=35, freq_drop_count=2, time_warp_window=5,
+                              drop_replace="zeros", min_augmentations=3, max_augmentations=3),
+        model=ModelConfig(
+            attention_type="SummaryMixing", mode="SummaryMixing-fast", encoder_module="conformer",
+            d_model=512, nhead=4, num_encoder_layers=12, num_decoder_layers=0, d_ffn=2048,
+            transformer_dropout=0.15, activation="gelu", csgu_kernel_size=31,
+            local_proj_hid_dim=(512,), local_proj_out_dim=512, summary_hid_dim=(512,),
+            causal=False, input_size=640, output_neurons=1000, blank_index=0, bos_index=0,
+            eos_index=0, pad_index=0),
+        transducer=TransducerConfig(joint_dim=640, dec_dim=512, dec_emb_dropout=0.2,
+                                    dec_dropout=0.1, chunkwise_prob=0.6, chunk_size_min=8,
+                                    chunk_size_max=32, limited_left_context_prob=0.75,
+                                    left_context_chunks_min=2, left_context_chunks_max=32),
+        training=TrainingConfig(number_of_epochs=100, optimizer_step_limit=210000, batch_size=8,
+                                grad_accumulation_factor=4, precision="bf16", ctc_weight=0.3,
+                                number_of_ctc_epochs=60, ce_weight=0.0, lr_adam=0.0008,
+                                adam_eps=1.0e-8, weight_decay=0.01, max_grad_norm=5.0,
+                                scheduler="warm_exp_decay", n_warmup_steps=25000,
+                                decay_factor=0.05, dynamic_batching=True, max_batch_length=150.0,
+                                max_batch_length_val=50.0, num_buckets=200, max_batch_ex=256,
+                                avg_checkpoints=10),
+        decoding=DecodingConfig(beam_size=10, nbest=1, state_beam=2.3, expand_beam=2.3,
+                                lm_weight=0.50))
+
+
+def max_rel(got, want, valid) -> float:
+    """max |got - want| / (1 + |want|) over the frames where `valid` `[B, T]`."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / (1.0 + w.abs())).amax(-1)[valid].max())
+
+
+def phase_transducer(kernel_rows) -> None:
+    """The transducer recipe's inference: offline greedy over 4 requests,
+    chunked streaming and the raw-audio pipeline over request 0, check (a)
+    and the reports listed in the module docstring."""
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model
+    from summarymixing_tpu_torch.evaluate import streaming_decode
+    from summarymixing_tpu_torch.frontend.features import InputNormalization
+    from summarymixing_tpu_torch.models.asr import DynChunkTrainConfig
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+    from summarymixing_tpu_torch.ops.layers import set_compute_dtype
+    from summarymixing_tpu_torch.ops.masks import length_to_mask
+    from summarymixing_tpu_torch.streaming import make_streaming_infer_fns, run_stream
+    from summarymixing_tpu_torch.transcribe import batch_waveforms, transducer_greedy_transcribe
+
+    cfg = transducer_config()
+    sr, vocab = cfg.features.sample_rate, cfg.model.output_neurons
+    kernels = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    model, fbank, td = build_model(cfg)
+    n_model = sum(p.numel() for p in model.parameters())
+    n_td = sum(p.numel() for p in td.parameters())
+    print(f"transducer: Conformer {cfg.model.num_encoder_layers} layers d{cfg.model.d_model} "
+          f"{cfg.model.mode} nhead {cfg.model.nhead}, vocabulary {vocab}: {n_model:,} + {n_td:,} "
+          f"= {n_model + n_td:,} float32 parameters, encoder compute bf16, transducer float32")
+    if n_model + n_td != TRANSDUCER_PARAMS:
+        fail(f"transducer parameter count {n_model + n_td} != {TRANSDUCER_PARAMS}")
+    stats = seeded_norm_stats()
+    wavs = synthetic_waveforms(N_REQUESTS * BATCH, seed=11)
+    batches = list(batch_waveforms(wavs, BATCH, pad_quantum=sr // 2))
+
+    def transcribe(wav, lens):
+        return transducer_greedy_transcribe(model, td, fbank, stats, wav, lens,
+                                            blank_id=cfg.model.blank_index)
+
+    for _, wav, lens in batches:   # warm-up: library kernels pick algorithms per shape
+        transcribe(wav, lens)
+    total_dt = total_audio = 0.0
+    for r, (idx, wav, lens) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hyps, out = transcribe(wav, lens)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        enc, n = out["enc_out"], [len(h) for h in hyps]
+        if not torch.isfinite(enc).all() or enc.shape[0] != BATCH:
+            fail(f"transducer request {r}: encoder output of shape {tuple(enc.shape)} not finite")
+        if any(t <= 0 or t >= vocab for h in hyps for t in h) or max(n) > out["tokens"].shape[1]:
+            fail(f"transducer request {r}: token ids outside [1, {vocab}) or too many")
+        audio_s = float(lens.sum()) / sr
+        total_dt, total_audio = total_dt + dt, total_audio + audio_s
+        print(f"transducer greedy request {r}: {BATCH} utterances, {audio_s:.2f} audio-s, "
+              f"encoder frames {enc.shape[1]}, latency {dt * 1e3:.2f} ms, "
+              f"{audio_s / dt:.1f} audio-s/s, tokens per row {n}")
+    print(f"transducer greedy: {N_REQUESTS} requests, {total_audio:.2f} audio-s in "
+          f"{total_dt * 1e3:.2f} ms ({total_audio / total_dt:.1f} audio-s/s, real-time factor "
+          f"{total_dt / total_audio:.5f})")
+
+    _, wav, lens = batches[0]
+    chunk_ms = 1e3 * STREAM_CHUNK * 4 * fbank.hop_length / sr
+    streaming_decode(model, td, fbank, stats, wav, lens, STREAM_CHUNK, STREAM_LEFT)   # warm-up
+    times = []
+    toks_c, lens_c = streaming_decode(model, td, fbank, stats, wav, lens, STREAM_CHUNK,
+                                      STREAM_LEFT, chunk_times=times)
+    ms = sorted(1e3 * t for t in times)
+    print(f"transducer streaming_decode (request 0, chunks of {STREAM_CHUNK} frames = "
+          f"{chunk_ms:.0f} ms of audio, left context {STREAM_LEFT} chunks): {len(ms)} chunks, "
+          f"median {ms[len(ms) // 2]:.2f} ms, max {ms[-1]:.2f} ms per chunk of {BATCH} streams "
+          f"(median real-time factor {ms[len(ms) // 2] / chunk_ms:.4f})")
+
+    init_fn, step_fn, info = make_streaming_infer_fns(
+        model, td, fbank, InputNormalization(), stats, chunk_frames=STREAM_CHUNK,
+        left_context_chunks=STREAM_LEFT, blank_id=cfg.model.blank_index)
+    step_times = []
+
+    def timed_step(carry, chunk, n_valid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(carry, chunk, n_valid)
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+        return out
+
+    def agreement(toks_c, lens_c, toks_r, lens_r) -> str:
+        """Rows where run_stream's tokens equal streaming_decode's: whole,
+        and over the shorter row's length (streaming_decode's buffer holds 2
+        tokens per encoder frame of the stream, run_stream's 3 per frame of
+        each chunk, so the shorter may be cut)."""
+        hyp_c = [toks_c[i, :int(lens_c[i])].tolist() for i in range(BATCH)]
+        hyp_r = [toks_r[i, :int(lens_r[i])].tolist() for i in range(BATCH)]
+        same = sum(a == b for a, b in zip(hyp_c, hyp_r))
+        prefix = sum(a[:len(b)] == b[:len(a)] for a, b in zip(hyp_c, hyp_r))
+        return (f"rows with the same tokens as streaming_decode {same}/{BATCH}, the same over "
+                f"the shorter row's length {prefix}/{BATCH}; tokens per row run_stream "
+                f"{[len(h) for h in hyp_r]}, streaming_decode {[len(h) for h in hyp_c]}")
+
+    run_stream(init_fn, step_fn, wav, lens, info["chunk_samples"])   # warm-up
+    toks_r, lens_r = run_stream(init_fn, timed_step, wav, lens, info["chunk_samples"])
+    ms = sorted(1e3 * t for t in step_times)
+    print(f"transducer run_stream (request 0, raw audio in chunks of {info['chunk_samples']} "
+          f"samples, {len(ms)} steps with the two flush steps): median {ms[len(ms) // 2]:.2f} ms, "
+          f"max {ms[-1]:.2f} ms per step; bf16: {agreement(toks_c, lens_c, toks_r, lens_r)} "
+          "(reported, not held: the streamed top-dB clamp takes a running peak)")
+
+    # (a): chunk by chunk against the offline Dynamic Chunk Training encode
+    def stream_vs_offline():
+        with torch.inference_mode():
+            feats, _ = InputNormalization()(fbank(wav), stats)
+            src = model.frontend(feats)
+            enc_lens = model.subsampled_length(fbank.frame_lengths(lens))
+            t_enc = src.shape[1]
+            n_chunks = -(-t_enc // STREAM_CHUNK)
+            src = torch.nn.functional.pad(src, (0, 0, 0, n_chunks * STREAM_CHUNK - t_enc))
+            dct = DynChunkTrainConfig(STREAM_CHUNK, STREAM_LEFT)
+            offline = model.asr.encode(src, dynchunktrain=dct)
+            state = model.streaming_init(BATCH, dct)
+            outs = []
+            for c in range(n_chunks):
+                out, state = model.encode_streaming_chunk(
+                    src[:, c * STREAM_CHUNK:(c + 1) * STREAM_CHUNK], state)
+                outs.append(out)
+            valid = length_to_mask(enc_lens, offline.shape[1]) > 0
+            return max_rel(torch.cat(outs, dim=1), offline, valid)
+
+    set_compute_dtype(model, None)
+    err_fp32 = stream_vs_offline()
+    agree32 = agreement(
+        *streaming_decode(model, td, fbank, stats, wav, lens, STREAM_CHUNK, STREAM_LEFT),
+        *run_stream(init_fn, step_fn, wav, lens, info["chunk_samples"]))
+    print(f"transducer run_stream vs streaming_decode in float32 (TF32 off): {agree32} "
+          "(reported, not held)")
+    with torch.inference_mode():
+        feats, _ = InputNormalization()(fbank(wav), stats)
+        enc32, enc_lens = model.encode(feats, fbank.frame_lengths(lens))
+    set_compute_dtype(model, torch.bfloat16)
+    err_bf16 = stream_vs_offline()
+    with torch.inference_mode():
+        enc16, _ = model.encode(feats, fbank.frame_lengths(lens))
+    err_enc = max_rel(enc16, enc32, length_to_mask(enc_lens, enc32.shape[1]) > 0)
+    ok = err_fp32 <= STREAM_TOL
+    print(f"transducer check (a): encode_streaming chunk by chunk vs offline encode with "
+          f"DynChunkTrainConfig({STREAM_CHUNK}, {STREAM_LEFT}), request 0, valid frames, max "
+          f"|diff|/(1+|offline|): float32 (TF32 off) {err_fp32:.3e} (tol {STREAM_TOL:.0e}) "
+          f"{'ok' if ok else 'FAILED'}; bf16 {err_bf16:.3e} (reported); offline encoder bf16 vs "
+          f"float32 {err_enc:.3e} (reported)")
+    if not ok:
+        fail("transducer check (a): chunked streaming disagrees with the offline DCT encode")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"transducer: peak memory allocated {peak:.2f} GiB")
+    _, wav0, lens0 = batches[0]
+    device_profile(lambda: transcribe(wav0, lens0), "transducer greedy request 0", top=16)
+    rose = [fn.launches for fn in kernels]
+    print(f"transducer: launches summary_mixing +{rose[0]} csgu +{rose[1]} (no hand-written "
+          "kernel on this path)")
+    if rose != [0, 0]:
+        fail(f"transducer: a hand-written kernel was launched on the transducer path: {rose}")
+    for name in ("summary_mixing", "csgu"):
+        kernel_rows[name]["launches_by_path"]["transducer"] = 0
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     try:
@@ -1194,6 +1438,8 @@ def main() -> int:
         del train
         torch.cuda.empty_cache()
         phase_beam(kernel_rows, ckpt_dir)
+    torch.cuda.empty_cache()
+    phase_transducer(kernel_rows)
     for row in kernel_rows.values():
         row["launches"] = sum(row["launches_by_path"].values())
     print(f"wall {time.perf_counter() - wall0:.1f} s; nvidia-smi: {smi}")

@@ -17,14 +17,21 @@ AdamW with the Noam schedule), checkpointing with checkpoint averaging
 (`evaluate.py::evaluate_beam`: the KV-cached attention decoder, the
 KV-cached Transformer LM of `models/lm.py` and the joint CTC/attention
 beam search of `decoding/s2s_beam.py` with `decoding/ctc_prefix.py`).
-Parameters are float32; the layers compute in bf16 for `precision: bf16`,
-as the flax modules do.
+For the streaming Conformer-SummaryMixing transducer recipes: the
+Conformer encoder with the fast-mode cell (`models/conformer.py`), the
+transducer (`models/transducer.py`) and its greedy decode, offline
+(`transcribe.transducer_greedy_transcribe`), by encoder chunks
+(`evaluate.streaming_decode`) and from raw audio (`streaming.py`); no
+hand-written kernel lies on that path, as no Pallas kernel does in the
+JAX package. Parameters are float32; the layers compute in bf16 for
+`precision: bf16`, as the flax modules do.
 
 Conventions kept from the JAX package at public functions: `[B, T, C]`
 sequences, float masks with 1 = valid, NHWC order where the CNN frontend
 flattens. Entry points (`config.build_model`, `config.build_lm`,
-`transcribe.batch_waveforms`, the checkpoint restores,
-`training.trainer.ASRTrainer` and `evaluate.evaluate_beam` on the model's
-device) run on `cuda` unless the caller passes `device="cpu"`; with no card
-they raise rather than fall back.
+`transcribe.batch_waveforms`, the checkpoint restores, and on the model's
+device `training.trainer.ASRTrainer`, `evaluate.evaluate_beam`,
+`evaluate.streaming_decode` and `streaming.make_streaming_infer_fns`) run
+on `cuda` unless the caller passes `device="cpu"`; with no card they raise
+rather than fall back.
 """

@@ -1,14 +1,14 @@
 """YAML recipe loader, `build_model`, `build_lm` and `build_trainer` — the
 port of `summarymixing_tpu/config/loader.py` for the Branchformer-SummaryMixing
-CTC/attention recipe and its fusion LM, and of the trainer set-up of
-`recipes/train.py`.
+CTC/attention recipe and its fusion LM, the Conformer-SummaryMixing
+transducer recipes, and of the trainer set-up of `recipes/train.py`.
 `yaml` is imported inside `load_recipe`, so building a model from
 a config made in Python needs no YAML package."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -68,23 +68,26 @@ def load_recipe(path: str, overrides: Optional[dict] = None) -> RecipeConfig:
     return RecipeConfig(**kwargs)
 
 
-def build_model(cfg: RecipeConfig, device=None) -> Tuple["torch.nn.Module", "torch.nn.Module"]:
-    """RecipeConfig -> (SpeechRecognizer, Fbank) in eval mode on `device`
-    (the card unless `device` says otherwise). Weights are drawn from
-    `cfg.seed` with a `torch.Generator`; on the `meta` device nothing is
-    drawn. Parameters stay float32, as the JAX package keeps them;
-    `training.precision == "bf16"` makes the layers compute in bfloat16
-    (`ops.layers.set_compute_dtype`), as the flax modules' `dtype` does.
-    The Fbank stays float32."""
+def build_model(cfg: RecipeConfig, device=None) -> tuple:
+    """RecipeConfig -> (SpeechRecognizer, Fbank), and with a `transducer`
+    section (SpeechRecognizer, Fbank, TransducerModel), in eval mode on
+    `device` (the card unless `device` says otherwise). Weights are drawn
+    from `cfg.seed` with one `torch.Generator`, the recognizer's first; on
+    the `meta` device nothing is drawn. Parameters stay float32, as the JAX
+    package keeps them; `training.precision == "bf16"` makes the
+    recognizer's layers compute in bfloat16 (`ops.layers.set_compute_dtype`),
+    as the flax modules' `dtype` does. The Fbank and the transducer stay
+    float32 (the flax transducer has no `dtype`). The recipe's `activation`
+    serves every layer: the Conformer's, the SummaryMixing cell's, the
+    feed-forward blocks' and the joint's."""
     from summarymixing_tpu_torch.frontend.features import Fbank
     from summarymixing_tpu_torch.models.asr import TransformerASR
     from summarymixing_tpu_torch.models.speech_recognizer import SpeechRecognizer
+    from summarymixing_tpu_torch.models.transducer import TransducerModel
     from summarymixing_tpu_torch.ops.layers import set_compute_dtype
     from summarymixing_tpu_torch.utils.init import init_parameters
 
     device = resolve_device(device)
-    if cfg.transducer is not None:
-        raise NotImplementedError("the transducer is not ported; see ROADMAP.md")
     m = cfg.model
     with torch.device(device):
         asr = TransformerASR(
@@ -99,7 +102,8 @@ def build_model(cfg: RecipeConfig, device=None) -> Tuple["torch.nn.Module", "tor
             local_proj_hid_dim=tuple(m.local_proj_hid_dim),
             local_proj_out_dim=m.local_proj_out_dim,
             summary_hid_dim=tuple(m.summary_hid_dim), summary_out_dim=m.summary_out_dim,
-            mode=m.mode, branchformer_activation=m.activation)
+            mode=m.mode, branchformer_activation=m.activation,
+            conformer_activation=m.activation, max_length=m.max_length)
         model = SpeechRecognizer(asr, m.output_neurons,
                                  frontend_channels=tuple(m.frontend_channels),
                                  frontend_strides=tuple(m.frontend_strides),
@@ -108,13 +112,24 @@ def build_model(cfg: RecipeConfig, device=None) -> Tuple["torch.nn.Module", "tor
         fbank = Fbank(sample_rate=f.sample_rate, n_fft=f.n_fft,
                       win_length_ms=float(f.win_length), hop_length_ms=float(f.hop_length),
                       n_mels=f.n_mels)
+        transducer = None
+        if cfg.transducer is not None:
+            t = cfg.transducer
+            transducer = TransducerModel(
+                m.output_neurons, enc_dim=m.d_model, dec_dim=t.dec_dim, joint_dim=t.joint_dim,
+                joint_type=t.joint, blank_id=m.blank_index, activation=m.activation,
+                emb_dropout=t.dec_emb_dropout, dec_dropout=t.dec_dropout)
     if device.type != "meta":
         gen = torch.Generator(device=device)
         gen.manual_seed(cfg.seed)
         init_parameters(model, gen)
+        if transducer is not None:
+            init_parameters(transducer, gen)
     if cfg.training.precision == "bf16":
         set_compute_dtype(model, torch.bfloat16)
-    return model.eval(), fbank.eval()
+    if transducer is None:
+        return model.eval(), fbank.eval()
+    return model.eval(), fbank.eval(), transducer.eval()
 
 
 def build_lm(lm_cfg: LMConfig, vocab: int, device=None, seed: int = 0) -> "torch.nn.Module":

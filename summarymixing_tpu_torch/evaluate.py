@@ -1,6 +1,7 @@
-"""Beam-search evaluation of the port: the attention-recipe branch of the
-JAX package's `recipes/evaluate.py --beam` and the evaluation helpers of
-`recipes/train.py`.
+"""Evaluation of the port: the attention-recipe branch of the JAX
+package's `recipes/evaluate.py --beam` with the evaluation helpers of
+`recipes/train.py`, and the transducer's chunked streaming decode (its
+`--streaming` branch, `streaming_decode`).
 
     model, fbank = build_model(cfg)                          # on the card
     state = restore_eval_state(model, "results/save", avg=10)
@@ -30,7 +31,9 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import torch
 
 from summarymixing_tpu_torch.decoding.s2s_beam import S2SBeamConfig, s2s_beam_search, tile_for_beam
+from summarymixing_tpu_torch.decoding.transducer_search import transducer_greedy_decode
 from summarymixing_tpu_torch.frontend.features import InputNormalization
+from summarymixing_tpu_torch.models.asr import DynChunkTrainConfig
 from summarymixing_tpu_torch.ops.masks import length_to_mask
 from summarymixing_tpu_torch.training.checkpoint import CheckpointManager, average_checkpoints
 from summarymixing_tpu_torch.training.metrics import ErrorRateStats
@@ -224,3 +227,40 @@ def evaluate_beam(model, fbank, norm_stats: Mapping, batches: Sequence, cfg, lm=
         summary = stats.summarize()
     return {"hyps": hyps, "scores": scores, "summary": summary, "max_length": lmax,
             "steps": steps, "encode_s": encode_s, "search_s": search_s}
+
+
+@torch.inference_mode()
+def streaming_decode(model, transducer, fbank, norm_stats: Mapping, wav: torch.Tensor,
+                     wav_lens: torch.Tensor, chunk_size: int = 16, left_context: int = 4,
+                     blank_id: int = 0, chunk_times: Optional[List[float]] = None):
+    """Chunked streaming decode of one batch (the JAX `recipes/evaluate.py
+    --streaming`): Fbank, normalisation and the CNN over the whole batch
+    once, then per chunk of `chunk_size` encoder frames
+    `encode_streaming_chunk` with `left_context` chunks of carried context,
+    and the transducer's greedy decode with its carry threaded across
+    chunks. Returns (tokens `[B, 2T']`, lengths `[B]`) on the device. With
+    `chunk_times`, each chunk's wall time (ending in a device
+    synchronisation) is appended to it."""
+    feats, _ = InputNormalization()(fbank(wav), norm_stats)
+    src = model.frontend(feats)
+    enc_lens = model.subsampled_length(fbank.frame_lengths(wav_lens))
+    b, t_enc = src.shape[0], src.shape[1]
+    state = model.streaming_init(b, DynChunkTrainConfig(chunk_size, left_context))
+    n_chunks = -(-t_enc // chunk_size)
+    src = torch.nn.functional.pad(src, (0, 0, 0, n_chunks * chunk_size - t_enc))
+    carry = toks = lens = None
+    for c in range(n_chunks):
+        if chunk_times is not None:
+            _sync(wav.device)
+            t0 = time.perf_counter()
+        enc_c, state = model.encode_streaming_chunk(src[:, c * chunk_size:(c + 1) * chunk_size],
+                                                    state)
+        valid = torch.clamp(enc_lens - c * chunk_size, 0, chunk_size)
+        toks, lens, carry = transducer_greedy_decode(
+            transducer.encode_proj(enc_c), valid, transducer.predictor_init,
+            transducer.predictor_step, transducer.joint_step, blank_id=blank_id,
+            max_tokens=2 * t_enc, carry=carry, return_carry=True)
+        if chunk_times is not None:
+            _sync(wav.device)
+            chunk_times.append(time.perf_counter() - t0)
+    return toks, lens

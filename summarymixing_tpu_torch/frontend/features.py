@@ -3,7 +3,9 @@
 
 Fbank: centered framing with zero padding, ONE float32 matmul of the frames
 against the hamming-windowed DFT basis, power spectrum, HTK-mel filterbank,
-10·log10 with an 80 dB cap below each utterance's peak. The basis and the
+10·log10 with an 80 dB cap below each utterance's peak. The pieces
+(`stft_magnitude`, `log_mel`, `clamp_top_db`) are public for the chunked
+frontend of `streaming.py`, which clamps against a running peak. The basis and the
 filterbank are built in numpy float64 and rounded to float32 exactly as
 the JAX package builds them. The JAX Fbank's other options (f_min, f_max,
 top_db, power) keep their defaults here, the values the recipes use.
@@ -94,11 +96,22 @@ class Fbank(nn.Module):
         f = self.n_fft // 2 + 1
         return y[..., :f] ** 2 + y[..., f:] ** 2
 
+    def log_mel(self, spec: torch.Tensor) -> torch.Tensor:
+        """Power spectrum `[B, T, n_fft//2 + 1]` -> 10·log10 of the mel
+        energies `[B, T, n_mels]`, before the top-dB clamp."""
+        mel = torch.matmul(spec, self.mel_fb)
+        return 10.0 * torch.log10(mel.clamp_min(1e-10))
+
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        mel = torch.matmul(self.stft_magnitude(wav), self.mel_fb)
-        db = 10.0 * torch.log10(mel.clamp_min(1e-10))
-        cap = db.amax(dim=(1, 2), keepdim=True) - TOP_DB
-        return torch.maximum(db, cap)
+        db = self.log_mel(self.stft_magnitude(wav))
+        return clamp_top_db(db, db.amax(dim=(1, 2)))
+
+
+def clamp_top_db(db: torch.Tensor, db_max: torch.Tensor) -> torch.Tensor:
+    """Floor log-mel `db` `[B, T, n_mels]` at `TOP_DB` below each row's
+    reference `db_max` `[B]`: the utterance's peak offline, the running
+    peak of a stream (`streaming.py`)."""
+    return torch.maximum(db, (db_max - TOP_DB)[:, None, None])
 
 
 class NormStats:

@@ -1,24 +1,29 @@
-"""`TransformerASR` with the Branchformer encoder — the port of
-`summarymixing_tpu/models/asr.py`: `_src_masks` (non-causal, no Dynamic
-Chunk Training), `_encode_inner` with the source dropout, `encode`, the
-target embedding and the regularMHA attention decoder (`_decode_inner`),
-`forward` with or without targets, and the decoder's search surface:
-`decode_prefix` (the uncached oracle) and the KV-cached
-`decode_cache_init`/`decode_step_cached`. The conformer/transformer
-encoders and streaming are still to port.
+"""`TransformerASR` with the Branchformer or Conformer encoder — the port
+of `summarymixing_tpu/models/asr.py`: `_src_masks` (non-causal, with the
+Dynamic Chunk Training mask for the Conformer), `_encode_inner` with the
+source dropout, `encode`, the target embedding and the regularMHA
+attention decoder (`_decode_inner`), `forward` with or without targets,
+the decoder's search surface (`decode_prefix`, the uncached oracle, and
+the KV-cached `decode_cache_init`/`decode_step_cached`), and the
+Conformer's chunked streaming (`DynChunkTrainConfig`, `ASRStreamingState`,
+`init_streaming_state`, `encode_streaming`). The transformer encoder and
+the causal encoder are still to port.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from summarymixing_tpu_torch.models.branchformer import BranchformerEncoder
+from summarymixing_tpu_torch.models.conformer import ConformerEncoder, ConformerStreamingState
 from summarymixing_tpu_torch.models.transformer import NormalizedEmbedding, TransformerDecoder
 from summarymixing_tpu_torch.ops.layers import Dense, Dropout
 from summarymixing_tpu_torch.ops.masks import (
+    chunked_context_mask,
     key_padding_mask_from_tokens,
     length_to_mask,
     lookahead_mask,
@@ -27,6 +32,31 @@ from summarymixing_tpu_torch.ops.masks import (
 from summarymixing_tpu_torch.ops.positional import positional_encoding, positional_row
 
 _TODO = "see ROADMAP.md, 'Modules still to port'"
+
+
+@dataclass(frozen=True)
+class DynChunkTrainConfig:
+    """Dynamic Chunk Training: chunks of `chunk_size` encoder frames, and a
+    left context of `left_context_size` chunks (None = unlimited)."""
+
+    chunk_size: int
+    left_context_size: Optional[int] = None
+
+    def left_context_size_frames(self) -> int:
+        if self.left_context_size is None:
+            raise ValueError("infinite left context has no frame count")
+        return self.left_context_size * self.chunk_size
+
+
+@dataclass
+class ASRStreamingState:
+    """The carried state of chunked encoding: the Conformer's per-layer
+    buffers, each row's absolute position of its next frame, and the chunk
+    size the state was built for."""
+
+    encoder: ConformerStreamingState
+    frame_offset: torch.Tensor   # [B] int
+    chunk_size: int
 
 
 class TransformerASR(nn.Module):
@@ -41,9 +71,10 @@ class TransformerASR(nn.Module):
                  gate_activation: Optional[str] = None, use_linear_after_conv: bool = False,
                  local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
                  summary_hid_dim: Sequence[int] = (1024,), summary_out_dim: int = 1024,
-                 mode: str = "SummaryMixing", branchformer_activation: str = "gelu_exact"):
+                 mode: str = "SummaryMixing", branchformer_activation: str = "gelu_exact",
+                 conformer_activation: str = "swish", max_length: int = 2500):
         super().__init__()
-        if encoder_module != "branchformer":
+        if encoder_module not in ("branchformer", "conformer"):
             raise NotImplementedError(f"encoder {encoder_module!r} is not ported; {_TODO}")
         if causal:
             raise NotImplementedError(f"the causal encoder is not ported; {_TODO}")
@@ -52,27 +83,44 @@ class TransformerASR(nn.Module):
         self.num_decoder_layers = num_decoder_layers
         self.positional_encoding = positional_encoding
         self.attention_type = attention_type
+        self.encoder_module = encoder_module
+        self.max_length = max_length
         self.src_proj = Dense(input_size, d_model)
         self.src_dropout = Dropout(dropout_rate)
-        self.encoder = BranchformerEncoder(
-            num_encoder_layers, d_model, nhead, kernel_size=kernel_size,
-            attention_type=attention_type, csgu_linear_units=csgu_linear_units,
-            gate_activation=gate_activation, use_linear_after_conv=use_linear_after_conv,
-            local_proj_hid_dim=local_proj_hid_dim, local_proj_out_dim=local_proj_out_dim,
-            summary_hid_dim=summary_hid_dim, summary_out_dim=summary_out_dim, mode=mode,
-            activation=branchformer_activation, dropout_rate=dropout_rate)
+        if encoder_module == "conformer":
+            self.encoder = ConformerEncoder(
+                num_encoder_layers, d_model, d_ffn, nhead, kernel_size=kernel_size,
+                dropout_rate=dropout_rate, attention_type=attention_type,
+                local_proj_hid_dim=local_proj_hid_dim, local_proj_out_dim=local_proj_out_dim,
+                summary_hid_dim=summary_hid_dim, mode=mode, activation=conformer_activation)
+        else:
+            self.encoder = BranchformerEncoder(
+                num_encoder_layers, d_model, nhead, kernel_size=kernel_size,
+                attention_type=attention_type, csgu_linear_units=csgu_linear_units,
+                gate_activation=gate_activation, use_linear_after_conv=use_linear_after_conv,
+                local_proj_hid_dim=local_proj_hid_dim, local_proj_out_dim=local_proj_out_dim,
+                summary_hid_dim=summary_hid_dim, summary_out_dim=summary_out_dim, mode=mode,
+                activation=branchformer_activation, dropout_rate=dropout_rate)
         if num_decoder_layers > 0:
             self.tgt_emb = NormalizedEmbedding(d_model, tgt_vocab)
             self.decoder = TransformerDecoder(
                 num_decoder_layers, d_model, d_ffn, nhead, dropout_rate, activation,
                 normalize_before, decoder_attention_type)
 
-    def _src_masks(self, t: int, wav_len: Optional[torch.Tensor]):
+    def _src_masks(self, t: int, wav_len: Optional[torch.Tensor],
+                   dynchunktrain: Optional[DynChunkTrainConfig], device):
         pad_mask = None if wav_len is None else rel_length_to_mask(wav_len, t)
-        return pad_mask, None
+        src_mask = None
+        if dynchunktrain is not None:
+            if self.encoder_module != "conformer":
+                raise ValueError("Dynamic Chunk Training requires encoder_module='conformer', "
+                                 f"got {self.encoder_module!r}")
+            src_mask = chunked_context_mask(t, dynchunktrain.chunk_size,
+                                            dynchunktrain.left_context_size, device=device)
+        return pad_mask, src_mask
 
     def _encode_inner(self, src: torch.Tensor, pad_mask: Optional[torch.Tensor],
-                      src_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                      src_mask: Optional[torch.Tensor], chunk_size=None) -> torch.Tensor:
         if src.dim() == 4:
             b, t, f, c = src.shape
             src = src.reshape(b, t, f * c)
@@ -80,6 +128,8 @@ class TransformerASR(nn.Module):
         src = self.src_dropout(self.src_proj(src))
         if self.positional_encoding == "fixed_abs_sine" and self.attention_type != "hypermixing":
             src = src + positional_encoding(t, self.d_model, src.dtype, src.device)
+        if self.encoder_module == "conformer":
+            return self.encoder(src, src_mask, pad_mask, chunk_size)
         return self.encoder(src, src_mask, pad_mask)
 
     def _decode_inner(self, tgt: torch.Tensor, enc_out: torch.Tensor,
@@ -97,16 +147,18 @@ class TransformerASR(nn.Module):
         """src `[B, T, F]` (or `[B, T, F, C]`); tgt `[B, U]` int tokens (BOS
         first); wav_len `[B]` relative lengths. Returns `(enc_out, dec_out)`,
         `dec_out` None without targets or decoder."""
-        pad_mask, src_mask = self._src_masks(src.shape[1], wav_len)
+        pad_mask, src_mask = self._src_masks(src.shape[1], wav_len, None, src.device)
         enc_out = self._encode_inner(src, pad_mask, src_mask)
         if tgt is None or self.num_decoder_layers == 0:
             return enc_out, None
         tgt_pad_mask = key_padding_mask_from_tokens(tgt, pad_idx)
         return enc_out, self._decode_inner(tgt, enc_out, pad_mask, tgt_pad_mask)
 
-    def encode(self, src: torch.Tensor, wav_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-        pad_mask, src_mask = self._src_masks(src.shape[1], wav_len)
-        return self._encode_inner(src, pad_mask, src_mask)
+    def encode(self, src: torch.Tensor, wav_len: Optional[torch.Tensor] = None,
+               dynchunktrain: Optional[DynChunkTrainConfig] = None) -> torch.Tensor:
+        pad_mask, src_mask = self._src_masks(src.shape[1], wav_len, dynchunktrain, src.device)
+        chunk = None if dynchunktrain is None else dynchunktrain.chunk_size
+        return self._encode_inner(src, pad_mask, src_mask, chunk)
 
     # -- decoder search surface -------------------------------------------
     def decode_prefix(self, tgt: torch.Tensor, enc_out: torch.Tensor,
@@ -130,3 +182,43 @@ class TransformerASR(nn.Module):
         x = self.tgt_emb(tok_t)
         x = x + positional_row(pos, self.d_model, x.dtype, x.device)
         return self.decoder.step(x, pos, cache, enc_pad_mask)
+
+    # -- chunked streaming (the Conformer encoder) ---------------------------
+    def init_streaming_state(self, batch: int, dynchunk: DynChunkTrainConfig,
+                             dtype: torch.dtype = torch.float32, device=None) -> ASRStreamingState:
+        """A blank state for chunks of `dynchunk.chunk_size` frames with a
+        left context of `dynchunk.left_context_size` chunks, on the model's
+        device unless `device` says otherwise."""
+        if self.encoder_module != "conformer":
+            raise ValueError("streaming requires encoder_module='conformer'")
+        device = self.src_proj.weight.device if device is None else device
+        left = dynchunk.left_context_size_frames()
+        return ASRStreamingState(
+            encoder=self.encoder.init_streaming_state(batch, left, dtype, device),
+            frame_offset=torch.zeros(batch, dtype=torch.int32, device=device),
+            chunk_size=int(dynchunk.chunk_size))
+
+    def encode_streaming(self, src: torch.Tensor, state: ASRStreamingState
+                         ) -> Tuple[torch.Tensor, ASRStreamingState]:
+        """Encode one chunk `[B, C, F]` -> (`[B, C, D]`, next state). Positions
+        are absolute from each row's `frame_offset`, clamped to the last
+        window `[max_length - C, max_length)` of the sine table. The chunk
+        length must be the state's `chunk_size`: any other breaks the
+        equivalence with the Dynamic Chunk Training encoder."""
+        if src.dim() == 4:
+            b, t, f, c = src.shape
+            src = src.reshape(b, t, f * c)
+        chunk = src.shape[1]
+        if chunk != state.chunk_size:
+            raise ValueError(f"chunk length {chunk} != streaming state's chunk_size "
+                             f"{state.chunk_size}: mixer context windows and DCConv "
+                             "boundaries would no longer match DCT training")
+        src = self.src_proj(src)
+        if (self.positional_encoding == "fixed_abs_sine"
+                and self.attention_type not in ("hypermixing", "RelPosMHAXL")):
+            start = torch.clamp(state.frame_offset, 0, self.max_length - chunk)
+            pos = start[:, None] + torch.arange(chunk, device=src.device)[None, :]
+            src = src + positional_row(pos, self.d_model, src.dtype)
+        out, enc_state = self.encoder.streaming_step(src, state.encoder)
+        return out, ASRStreamingState(encoder=enc_state, frame_offset=state.frame_offset + chunk,
+                                      chunk_size=state.chunk_size)

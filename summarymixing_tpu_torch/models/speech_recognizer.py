@@ -2,7 +2,9 @@
 `summarymixing_tpu/models/speech_recognizer.py`: CNN frontend ->
 `TransformerASR` -> CTC head, and the attention decoder's head
 (`seq_lin`) when the model has a decoder, with the decoder's search steps
-(`decode_position`, `decode_cache_init`, `decode_step_cached`)."""
+(`decode_position`, `decode_cache_init`, `decode_step_cached`) and the
+Conformer's chunked streaming (`frontend`, `streaming_init`,
+`encode_streaming_chunk`)."""
 
 from __future__ import annotations
 
@@ -12,7 +14,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from summarymixing_tpu_torch.models.asr import TransformerASR
+from summarymixing_tpu_torch.models.asr import (
+    ASRStreamingState,
+    DynChunkTrainConfig,
+    TransformerASR,
+)
 from summarymixing_tpu_torch.ops.convolution import ConvolutionFrontEnd
 from summarymixing_tpu_torch.ops.layers import Dense
 
@@ -56,12 +62,28 @@ class SpeechRecognizer(nn.Module):
                 "ctc_log_probs": self.ctc_head(enc_out),
                 "dec_out": dec_out, "seq_log_probs": seq_log_probs}
 
-    def encode(self, feats: torch.Tensor,
-               feat_lengths: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def encode(self, feats: torch.Tensor, feat_lengths: torch.Tensor,
+               dynchunktrain: Optional[DynChunkTrainConfig] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.cnn(feats)
         out_len = self.subsampled_length(feat_lengths)
         wav_len_rel = out_len.to(torch.float32) / x.shape[1]
-        return self.asr.encode(x, wav_len_rel), out_len
+        return self.asr.encode(x, wav_len_rel, dynchunktrain), out_len
+
+    # -- chunked streaming ---------------------------------------------------
+    def frontend(self, feats: torch.Tensor, input_frame_offset=None) -> torch.Tensor:
+        """The CNN alone: `[B, T, F]` -> `[B, T/4, F']` encoder input;
+        `input_frame_offset` makes a chunk's stream-start zero padding exact
+        (`ops.convolution.ConvolutionFrontEnd`)."""
+        return self.cnn(feats, input_frame_offset)
+
+    def streaming_init(self, batch: int, dynchunk: DynChunkTrainConfig,
+                       dtype: torch.dtype = torch.float32) -> ASRStreamingState:
+        return self.asr.init_streaming_state(batch, dynchunk, dtype)
+
+    def encode_streaming_chunk(self, src_chunk: torch.Tensor, state: ASRStreamingState):
+        """One chunk of CNN output frames -> (encoder chunk, next state)."""
+        return self.asr.encode_streaming(src_chunk, state)
 
     def ctc_head(self, enc_out: torch.Tensor) -> torch.Tensor:
         return F.log_softmax(self.ctc_lin(enc_out).to(torch.float32), dim=-1)

@@ -1,14 +1,19 @@
 """Convolution blocks — the port of `depthwise_conv1d`,
-`ConvolutionalSpatialGatingUnit`, `ConvolutionBranch` and
-`ConvolutionFrontEnd` from `summarymixing_tpu/ops/convolution.py`.
+`ConvolutionalSpatialGatingUnit`, `ConvolutionBranch`, `_dcconv_depthwise`,
+`ConvolutionModule` and `ConvolutionFrontEnd` from
+`summarymixing_tpu/ops/convolution.py`.
 
 `ConvolutionBranch` runs the plain path on the CPU and the fused cgMLP
 kernel (`ops/fused_csgu.py`) on a CUDA tensor; on the card it takes the
 recipe configuration (tanh-GELU, identity gate, no linear after the conv)
 and raises `NotImplementedError` for any other. The CSGU's dropout runs
 inside the kernel there, from a keep-mask the branch draws.
-`ConvolutionModule` and its Dynamic Chunk Convolution are still to port
-(ROADMAP.md).
+
+`ConvolutionModule` (the Conformer's) is plain PyTorch on every device, as
+the JAX module is plain `jnp`: its depthwise conv is SAME, causal, or the
+Dynamic Chunk Convolution, whose future taps are gated by `t % chunk`. Its
+kernel is kept as `[C, 1, K]`, the layout of `torch.nn.functional.conv1d`
+with C groups (the flax `[K, C]` is transposed by `utils.convert`).
 """
 
 from __future__ import annotations
@@ -31,11 +36,34 @@ def depthwise_conv1d(x: torch.Tensor, kernel: torch.Tensor,
                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x `[B, T, C]`, kernel `[K, C]` -> `[B, T, C]`, SAME zero padding
     ((K-1)//2 frames before, the rest after); tap 0 reads frame t - (K-1)//2."""
-    k, c = kernel.shape
+    k = kernel.shape[0]
     left = (k - 1) // 2
-    xt = F.pad(x.transpose(1, 2), (left, k - 1 - left))
-    out = F.conv1d(xt, kernel.t()[:, None, :].to(x.dtype), None, groups=c).transpose(1, 2)
+    out = _depthwise(x, kernel.t()[:, None, :].to(x.dtype), left, k - 1 - left)
     return out if bias is None else out + bias.to(x.dtype)
+
+
+def _depthwise(x: torch.Tensor, weight: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """x `[B, T, C]`, weight `[C, 1, K]` -> `[B, T + left + right - K + 1, C]`,
+    zero padding of `left` frames before and `right` after."""
+    xt = F.pad(x.transpose(1, 2), (left, right))
+    return F.conv1d(xt, weight, None, groups=x.shape[-1]).transpose(1, 2)
+
+
+def _dcconv_depthwise(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                      chunk_size) -> torch.Tensor:
+    """Dynamic Chunk Convolution: a depthwise conv (weight `[C, 1, K]`, K =
+    2·pad + 1) whose taps past the end of each output frame's chunk are
+    zero. The past and centre taps run as one left-padded conv; future tap o
+    reads frame t + o where t % chunk < chunk - o."""
+    pad = (weight.shape[-1] - 1) // 2
+    t_len = x.shape[1]
+    out = _depthwise(x, weight[:, :, :pad + 1], pad, 0) + bias
+    pos_in_chunk = torch.arange(t_len, device=x.device) % chunk_size
+    for o in range(1, pad + 1):
+        shifted = F.pad(x, (0, 0, 0, o))[:, o:o + t_len]
+        gate = (pos_in_chunk < chunk_size - o).to(x.dtype)[None, :, None]
+        out = out + weight[:, 0, pad + o] * shifted * gate
+    return out
 
 
 class ConvolutionalSpatialGatingUnit(nn.Module):
@@ -111,6 +139,68 @@ class ConvolutionBranch(nn.Module):
         return self.post_channel_proj(x)
 
 
+class ConvolutionModule(nn.Module):
+    """Conformer convolution module: LayerNorm (eps 1e-5) -> `bottleneck` to
+    2C -> GLU -> zero the padded frames -> depthwise conv (SAME, causal, or
+    DCConv given `chunk_size`) -> `after_norm` -> activation ->
+    `pointwise_out` -> dropout -> times the pad mask."""
+
+    def __init__(self, input_size: int, kernel_size: int = 31, activation: str = "swish",
+                 dropout_rate: float = 0.0, causal: bool = False):
+        super().__init__()
+        c = input_size
+        self.causal = causal
+        self._act = get_activation(activation)
+        self.layer_norm = LayerNorm(c, eps=1e-5)
+        self.bottleneck = Dense(c, 2 * c)
+        self.conv_kernel = nn.Parameter(torch.empty(c, 1, kernel_size))
+        self.conv_bias = nn.Parameter(torch.empty(c))
+        self.after_norm = LayerNorm(c, eps=1e-5)
+        self.pointwise_out = Dense(c, c)
+        self.dropout = Dropout(dropout_rate)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """He-normal taps (fan-in K, as flax's `he_normal` on `[K, C]`), zero bias."""
+        with torch.no_grad():
+            k = self.conv_kernel.shape[-1]
+            self.conv_kernel.normal_(0.0, (2.0 / k) ** 0.5, generator=generator)
+            self.conv_bias.zero_()
+
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+                chunk_size=None) -> torch.Tensor:
+        """x `[B, T, C]`; pad_mask `[B, T]` float, 1 = valid; `chunk_size`
+        (frames) turns on the Dynamic Chunk Convolution."""
+        a, b = self.bottleneck(self.layer_norm(x)).chunk(2, dim=-1)
+        out = a * torch.sigmoid(b)
+        if pad_mask is not None:
+            out = out * pad_mask[..., None].to(out.dtype)
+        weight, bias = self.conv_kernel.to(out.dtype), self.conv_bias.to(out.dtype)
+        k = weight.shape[-1]
+        if chunk_size is not None:
+            if self.causal:
+                raise ValueError("DCConv is incompatible with causal convolution")
+            out = _dcconv_depthwise(out, weight, bias, chunk_size)
+        elif self.causal:
+            out = _depthwise(out, weight, k - 1, 0) + bias
+        else:
+            out = _depthwise(out, weight, (k - 1) // 2, k - 1 - (k - 1) // 2) + bias
+        out = self.dropout(self.pointwise_out(self._act(self.after_norm(out))))
+        if pad_mask is not None:
+            out = out * pad_mask[..., None].to(out.dtype)
+        return out
+
+
+def _mask_start(x: torch.Tensor, offset, time_dim: int) -> torch.Tensor:
+    """Zero the frames of `x` before global frame 0, frame 0 of `x` being
+    global frame `offset` (an int or a `[B]` tensor, per row, may be
+    negative); `time_dim` is 1 (NHWC) or 2 (NCHW)."""
+    off = torch.as_tensor(offset, device=x.device).reshape(-1, 1)
+    keep = (off + torch.arange(x.shape[time_dim], device=x.device)[None, :]) >= 0
+    shape = [keep.shape[0], 1, 1, 1]
+    shape[time_dim] = x.shape[time_dim]
+    return x * keep.reshape(shape).to(x.dtype)
+
+
 class ConvolutionFrontEnd(nn.Module):
     """2-D convolutional subsampling over `[B, T, F]` features: blocks of
     (Conv2d stride s×s, symmetric k//2 padding -> LayerNorm over channels ->
@@ -130,12 +220,24 @@ class ConvolutionFrontEnd(nn.Module):
         self.num_blocks = len(self.strides)
         self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, input_frame_offset=None) -> torch.Tensor:
+        """`input_frame_offset` (int or `[B]`, may be negative) marks x's
+        frame 0 as global frame `input_frame_offset` of a longer stream:
+        frames before global frame 0 are zeroed at the input and after
+        every block, which reproduces the offline stack's zero padding at
+        the stream start (the chunked streaming frontend, `streaming.py`).
+        It must be divisible by the product of the strides."""
         x = x.to(self.conv_0.compute_dtype or self.conv_0.weight.dtype)[:, None]  # [B, 1, T, F]
+        offset = input_frame_offset
+        if offset is not None:
+            x = _mask_start(x, offset, time_dim=2)
         for i in range(self.num_blocks):
             x = getattr(self, f"conv_{i}")(x)
             x = getattr(self, f"norm_{i}")(x.permute(0, 2, 3, 1))  # NHWC
             x = self.dropout(F.leaky_relu(x, 0.01))
+            if offset is not None:
+                offset = offset // self.strides[i]
+                x = _mask_start(x, offset, time_dim=1)
             if i + 1 < self.num_blocks:
                 x = x.permute(0, 3, 1, 2)
         b, t, f, c = x.shape

@@ -11,9 +11,9 @@ the SummaryMixing cell — the port of `summarymixing_tpu/ops/linear.py`.
   `Dense` layers they mirror.
 
 Activations are named as in the recipes (`config/loader.py` of the JAX
-package): "gelu" is the tanh approximation, "gelu_exact" the erf form.
-These two are the ones the recipes use; the others of the JAX loader are
-not ported.
+package): "gelu" is the tanh approximation, "gelu_exact" the erf form,
+"swish" SiLU (the Conformer's default). The recipes use the first two;
+the other activations of the JAX loader are not ported.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-ACTIVATIONS = {"gelu": gelu_tanh, "gelu_exact": gelu_exact}
+ACTIVATIONS = {"gelu": gelu_tanh, "gelu_exact": gelu_exact, "swish": F.silu}
 
 
 def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:

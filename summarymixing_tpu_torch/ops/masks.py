@@ -29,6 +29,20 @@ def rel_length_to_mask(rel_lens: torch.Tensor, max_len: int,
     return length_to_mask(abs_len, max_len, dtype)
 
 
+def chunked_context_mask(size: int, chunk_size: int, left_context_chunks: Optional[int] = None,
+                         dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """Dynamic Chunk Training mask `[T, T]`, 1 = allowed: frame t sees the
+    frames s < (t//chunk + 1)·chunk (up to the end of its own chunk) and,
+    with a limited left context, s >= (t//chunk - left_context_chunks)·chunk."""
+    t_idx = torch.arange(size, device=device)
+    chunk_of = t_idx // chunk_size
+    allowed = t_idx[None, :] < ((chunk_of + 1) * chunk_size)[:, None]
+    if left_context_chunks is not None:
+        lower = (chunk_of - left_context_chunks) * chunk_size
+        allowed = allowed & (t_idx[None, :] >= lower[:, None])
+    return allowed.to(dtype)
+
+
 def combine_padding(sum_mask: Optional[torch.Tensor],
                     pad_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """Embed a `[B, T]` padding mask into a `[T, T]` (or `[B, T, T]`) summary

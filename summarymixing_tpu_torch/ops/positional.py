@@ -1,7 +1,8 @@
 """Absolute sinusoidal positional encoding — the port of the `sinusoid_table`
 and `positional_encoding` functions of `summarymixing_tpu/ops/positional.py`,
-and `positional_row`, the table's row at one position (the JAX package
-slices that row out of a `max_length` table in its cached decode steps).
+with `positional_row`, the table's rows at given positions (the JAX
+package gathers those rows from a `max_length` table in its cached decode
+steps and its streaming encoder).
 """
 
 from __future__ import annotations
@@ -18,11 +19,13 @@ def sinusoid_table(length: int, dim: int, dtype: torch.dtype = torch.float32,
                       dtype)
 
 
-def positional_row(pos: int, dim: int, dtype: torch.dtype = torch.float32,
+def positional_row(pos, dim: int, dtype: torch.dtype = torch.float32,
                    device=None) -> torch.Tensor:
-    """`[dim]`: row `pos` of `sinusoid_table`, the same arithmetic."""
-    return _sinusoids(torch.full((1, 1), float(pos), dtype=torch.float32, device=device), dim,
-                      dtype)[0]
+    """`[*shape(pos), dim]`: the rows of `sinusoid_table` at the integer
+    position(s) `pos` (an int or a tensor), the same arithmetic."""
+    pos = torch.as_tensor(pos, device=device)
+    rows = _sinusoids(pos.reshape(-1, 1).to(torch.float32), dim, dtype)
+    return rows.reshape(*pos.shape, dim)
 
 
 def _sinusoids(pos: torch.Tensor, dim: int, dtype: torch.dtype) -> torch.Tensor:

@@ -1,14 +1,22 @@
 """The SummaryMixing cell — the port of `summarymixing_tpu/ops/summary_mixing.py`,
-full mode only.
+full and fast modes.
 
-On the CPU the cell runs the plain PyTorch path that mirrors the flax
-module. On a CUDA tensor it runs the fused kernel (`ops/fused_summary.py`)
-when the configuration is the one the kernel takes — no `sum_mask`, nhead
-1, one hidden layer per branch, erf or tanh GELU — and raises
-`NotImplementedError` otherwise: it never runs the plain path on the card.
-The dropout on the concatenated `[local, pooled]` features runs inside
-the kernel there, from a keep-mask the cell draws.
-The lite, fast and expdecay modes and `decode_step` are still to port
+Full mode: on the CPU the cell runs the plain PyTorch path that mirrors
+the flax module. On a CUDA tensor it runs the fused kernel
+(`ops/fused_summary.py`) when the configuration is the one the kernel
+takes — no `sum_mask`, nhead 1, one hidden layer per branch, erf or tanh
+GELU — and raises `NotImplementedError` otherwise: it never runs the plain
+path on the card. The dropout on the concatenated `[local, pooled]`
+features runs inside the kernel there, from a keep-mask the cell draws.
+
+Fast mode (the streaming Conformer transducer's): one `global_proj`
+`SummaryNet((2·local_proj_out_dim,))` with no head split, pad-masked and
+split into local and summary halves; the summary half pooled by the masked
+time mean, or by `summary_matmul` given a `sum_mask`; then the merge. The
+JAX package has no TPU kernel for it, so it runs this PyTorch code on the
+card too.
+
+The lite and expdecay modes and `decode_step` are still to port
 (ROADMAP.md, "Modules still to port").
 """
 
@@ -55,8 +63,9 @@ def summary_matmul(sum_mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 class SummaryMixing(nn.Module):
-    """Full-mode SummaryMixing: ``cell(x, sum_mask=None, pad_mask=None)`` with
-    x `[B, T, enc_dim]`; returns `[B, T, summary_out_dim]`."""
+    """Full- or fast-mode SummaryMixing: ``cell(x, sum_mask=None,
+    pad_mask=None)`` with x `[B, T, enc_dim]`; returns `[B, T,
+    summary_out_dim]`."""
 
     def __init__(self, enc_dim: int, nhead: int = 1,
                  local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
@@ -64,16 +73,23 @@ class SummaryMixing(nn.Module):
                  activation: str = "gelu_exact", mode: str = "SummaryMixing",
                  dropout_rate: float = 0.0):
         super().__init__()
-        if mode != "SummaryMixing":
+        if mode not in ("SummaryMixing", "SummaryMixing-fast"):
             raise NotImplementedError(f"SummaryMixing mode {mode!r} is not ported; {_TODO}")
+        self.mode = mode
         self.nhead = nhead
         self.activation = activation
-        self.local_proj = SummaryNet(
-            enc_dim, tuple(local_proj_hid_dim) + (local_proj_out_dim,), nhead, activation)
-        self.summary_proj = SummaryNet(
-            enc_dim, tuple(summary_hid_dim) + (summary_out_dim,), nhead, activation)
-        self.summary_local_merging = SummaryNet(
-            local_proj_out_dim + summary_out_dim, (summary_out_dim,), 1, activation)
+        if mode == "SummaryMixing-fast":
+            # one projection to [local | summary], no head split (the JAX
+            # module's global_proj, whatever nhead says)
+            self.global_proj = SummaryNet(enc_dim, (2 * local_proj_out_dim,), 1, activation)
+            merged = 2 * local_proj_out_dim
+        else:
+            self.local_proj = SummaryNet(
+                enc_dim, tuple(local_proj_hid_dim) + (local_proj_out_dim,), nhead, activation)
+            self.summary_proj = SummaryNet(
+                enc_dim, tuple(summary_hid_dim) + (summary_out_dim,), nhead, activation)
+            merged = local_proj_out_dim + summary_out_dim
+        self.summary_local_merging = SummaryNet(merged, (summary_out_dim,), 1, activation)
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor, sum_mask: Optional[torch.Tensor] = None,
@@ -84,11 +100,14 @@ class SummaryMixing(nn.Module):
             pad_mask = torch.ones(x.shape[:2] + (1,), dtype=x.dtype, device=x.device)
         elif pad_mask.dim() == 2:
             pad_mask = pad_mask[..., None]
-        if uses_kernel(x):
+        if self.mode == "SummaryMixing" and uses_kernel(x):
             return self._fused(x, sum_mask, pad_mask)
         pad_mask = pad_mask.to(x.dtype)
-        local = self.local_proj(x) * pad_mask
-        summary = self.summary_proj(x) * pad_mask
+        if self.mode == "SummaryMixing-fast":
+            local, summary = (self.global_proj(x) * pad_mask).chunk(2, dim=-1)
+        else:
+            local = self.local_proj(x) * pad_mask
+            summary = self.summary_proj(x) * pad_mask
         if sum_mask is None:
             pooled = masked_time_mean(summary, pad_mask).expand_as(summary)
         else:

@@ -1,14 +1,20 @@
-"""Greedy CTC decode entry point of the port: waveforms in, token ids out.
+"""Greedy decode entry points of the port: waveforms in, token ids out.
 
 The counterpart of the JAX package's `recipes/transcribe.py` batching and
-of `ASRTrainer.eval_step` (`training/trainer.py`): Fbank -> frame lengths
--> InputNormalization with frozen statistics -> `SpeechRecognizer` ->
-greedy CTC -> collapse. Token ids are not turned into text here: the
-tokenizer is not ported yet.
+of its two branches: `greedy_ctc_decode` (the attention recipes,
+`ASRTrainer.eval_step`: Fbank -> frame lengths -> InputNormalization with
+frozen statistics -> `SpeechRecognizer` -> greedy CTC -> collapse) and
+`transducer_greedy_transcribe` (the transducer recipes: the same encoder
+input, the Conformer encoder, `proj_enc`, then the transducer's greedy
+decode). Token ids are not turned into text here: the tokenizer is not
+ported yet.
 
     model, fbank = build_model(cfg)                 # on the card
     for idx, wav, lens in batch_waveforms(wavs, 8, 8000):
         hyps, out = greedy_ctc_decode(model, fbank, norm_stats, wav, lens)
+
+    model, fbank, transducer = build_model(transducer_cfg)
+    hyps, out = transducer_greedy_transcribe(model, transducer, fbank, norm_stats, wav, lens)
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import numpy as np
 import torch
 
 from summarymixing_tpu_torch.decoding.ctc import collapse_ctc, ctc_greedy_decode
+from summarymixing_tpu_torch.decoding.transducer_search import transducer_greedy_decode
 from summarymixing_tpu_torch.frontend.features import InputNormalization
 from summarymixing_tpu_torch.utils.device import resolve_device
 
@@ -55,3 +62,21 @@ def greedy_ctc_decode(model, fbank, norm_stats: dict, wav: torch.Tensor,
     out = model(feats, feat_len)
     ids, keep = ctc_greedy_decode(out["ctc_log_probs"], out["enc_lengths"])
     return collapse_ctc(ids, keep), out
+
+
+@torch.inference_mode()
+def transducer_greedy_transcribe(model, transducer, fbank, norm_stats: dict, wav: torch.Tensor,
+                                 wav_lens: torch.Tensor,
+                                 blank_id: int = 0) -> Tuple[List[List[int]], dict]:
+    """Decode one batch with a transducer: Fbank -> normalisation -> the
+    encoder (offline, full context) -> `proj_enc` -> greedy decode. Returns
+    the token ids per row (one host read) and a dict with `enc_out`,
+    `enc_lengths`, `tokens` `[B, 2T']` and `lengths`."""
+    feats, _ = InputNormalization()(fbank(wav), norm_stats)
+    enc_out, enc_lens = model.encode(feats, fbank.frame_lengths(wav_lens))
+    tokens, lens = transducer_greedy_decode(
+        transducer.encode_proj(enc_out), enc_lens, transducer.predictor_init,
+        transducer.predictor_step, transducer.joint_step, blank_id=blank_id)
+    toks, n = tokens.cpu(), lens.cpu()
+    hyps = [toks[i, :int(n[i])].tolist() for i in range(toks.shape[0])]
+    return hyps, {"enc_out": enc_out, "enc_lengths": enc_lens, "tokens": tokens, "lengths": lens}
