@@ -88,6 +88,32 @@ Phases (any failure exits non-zero):
    counters must stay at 0 through the phase.
 11. Peak memory, parameter counts (88,954,088 for decode, 119,304,304 with
    the decoder) and wall time.
+12. Runners, synthetic recipe: `recipes/make_synthetic_corpus.py --hard`
+   writes a corpus of 400 utterances (320/40/40) and 2,000 LM sentences in a
+   subprocess; the port's runners, called in this process, train
+   `recipes/Synthetic/hard_synthetic.yaml` (d128, float32) for 30 steps with
+   the test stage, train its Transformer LM for 30 steps, and evaluate the
+   test split greedy, with `--beam` and with `--beam --lm-ckpt`, all with
+   `--avg 2`. Neither kernel takes this configuration: every cell and cgMLP
+   branch must run the plain path, counted in `plain_calls` (above 0), with
+   no launch. Prints each stage's WER, step times, seconds and peak memory.
+13. Runners, flagship recipe: `recipes/LibriSpeech/branchformer_summarymixing.yaml`
+   at full width and depth (its unigram tokenizer trained on the corpus)
+   trains for 4 steps through the train runner (batches of 60 s in 2
+   buckets: the recipe's 500 s batches hold no full batch of this corpus),
+   with greedy validation, then the evaluate runner decodes one batch of 8
+   dev utterances greedily. Each kernel's launches must rise by 18 per
+   forward (train steps and validation batches), its backward by 18 per
+   step, and `plain_calls` must stay 0. Prints steps, ms per step, the
+   tokenizer's piece count and peak memory.
+   In both runner phases the counts that the train and evaluate runners
+   report in their summaries must equal the wrappers' counters.
+
+`plain_calls` (cells or cgMLP branches on the card whose configuration the
+kernel does not take, run on the plain path) is set to 0 at phase 4 and
+must still be 0 after phases 4, 7 and 9: the flagship takes both kernels
+everywhere. The kernels line reports `launches` and `plain_calls` summed
+over phases 4, 7, 9, 10, 12 and 13, and each by phase.
 
 The line before the last holds nvidia-smi's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. No JAX is imported here.
@@ -166,11 +192,34 @@ STREAM_CHUNK, STREAM_LEFT = 16, 4   # recipes/evaluate.py --chunk-size, --left-c
 # product in the other, and the DCConv's taps are summed in another order:
 # float32 rounding (2^-24) over sums of up to 80 terms, 12 layers deep
 STREAM_TOL = 1e-4
+# runner phases (12-13): the JAX package's synthetic-corpus protocol at a
+# smaller training budget (benchmarks/RESULTS.md used --n 400 --lm-text 20000)
+RUNNER_CORPUS_N, RUNNER_LM_TEXT = 400, 2000
+SYNTH_RECIPE = "recipes/Synthetic/hard_synthetic.yaml"
+FLAGSHIP_RECIPE = "recipes/LibriSpeech/branchformer_summarymixing.yaml"
+RUNNER_SYNTH_STEPS, RUNNER_LM_STEPS = 30, 30
+# the flagship's 500 s batches and 200 buckets hold no full batch of this
+# corpus (320 utterances of 1.5-5 s): 2 buckets of 60 s
+RUNNER_FLAGSHIP_STEPS, RUNNER_FLAGSHIP_BUCKETS, RUNNER_FLAGSHIP_BATCH_S = 4, 2, 60.0
+RUNNER_FLAGSHIP_EVAL_UTTS = 8
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def hold_no_plain_calls(phase: str) -> dict:
+    """Fail unless both wrappers' plain-call counters are 0: every cell and
+    cgMLP branch of the flagship takes its kernel. Returns the counters as
+    read, by kernel."""
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+
+    plain = {"summary_mixing": fused_summary.fused_summary_mixing.plain_calls,
+             "csgu": fused_csgu.fused_convolution_branch.plain_calls}
+    if any(plain.values()):
+        fail(f"{phase}: the flagship ran {plain} cells/branches on the plain path")
+    return plain
 
 
 def nvidia_smi() -> str:
@@ -628,7 +677,9 @@ def phase_main_path(kernel_rows):
     torch.cuda.synchronize()
     kernels = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
     for fn in kernels:
-        fn.launches = 0
+        # plain_calls is set to 0 here once: the flagship phases 4-9 must
+        # all leave it there (checked in each of phases 4, 7 and 9)
+        fn.launches, fn.plain_calls = 0, 0
     results = []
     for r, (idx, wav, lens) in enumerate(batches):
         before = [fn.launches for fn in kernels]
@@ -655,8 +706,10 @@ def phase_main_path(kernel_rows):
                  "the kernels were checked at")
         results.append((dt, audio_s, out, hyps))
     launches = {"summary_mixing": kernels[0].launches, "csgu": kernels[1].launches}
+    plain = hold_no_plain_calls("decode")
     for name, n in launches.items():
         kernel_rows[name]["launches_by_path"] = {"decode": n}
+        kernel_rows[name]["plain_calls_by_path"] = {"decode": plain[name]}
         if n == 0:
             fail(f"kernel {name} was never launched on the main path")
     total_dt = sum(r[0] for r in results)
@@ -845,8 +898,10 @@ def phase_train(kernel_rows) -> tuple:
         if rose != [(n_layers, n_layers)] * 2:
             fail(f"train step {step}: kernel forward/backward counts rose by {rose}, expected "
                  f"{n_layers} each")
+    plain = hold_no_plain_calls("train")
     for name, fn in zip(("summary_mixing", "csgu"), kernels):
         kernel_rows[name]["launches_by_path"]["train"] = fn.launches
+        kernel_rows[name]["plain_calls_by_path"]["train"] = plain[name]
         kernel_rows[name]["backwards_in_train"] = fn.backwards
         if fn.launches == 0 or fn.backwards == 0:
             fail(f"kernel {name} was never launched or never differentiated in training")
@@ -1020,8 +1075,10 @@ def phase_beam(kernel_rows, ckpt_dir: str) -> None:
     rose = [fn.launches for fn in kernels]
     print(f"beam: peak memory allocated {peak:.2f} GiB; launches summary_mixing +{rose[0]} "
           f"csgu +{rose[1]}")
+    plain = hold_no_plain_calls("beam (and every flagship phase since the decode)")
     for name, n in zip(("summary_mixing", "csgu"), rose):
         kernel_rows[name]["launches_by_path"]["beam"] = n
+        kernel_rows[name]["plain_calls_by_path"]["beam"] = plain[name]
     if rose != [m.num_encoder_layers] * 2:
         fail(f"beam: kernel launches rose by {rose}, expected {m.num_encoder_layers} each")
     for i in idx:
@@ -1264,7 +1321,7 @@ def phase_transducer(kernel_rows) -> None:
     sr, vocab = cfg.features.sample_rate, cfg.model.output_neurons
     kernels = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
     for fn in kernels:
-        fn.launches = 0
+        fn.launches, fn.plain_calls = 0, 0
     torch.cuda.reset_peak_memory_stats()
     model, fbank, td = build_model(cfg)
     n_model = sum(p.numel() for p in model.parameters())
@@ -1399,12 +1456,183 @@ def phase_transducer(kernel_rows) -> None:
     _, wav0, lens0 = batches[0]
     device_profile(lambda: transcribe(wav0, lens0), "transducer greedy request 0", top=16)
     rose = [fn.launches for fn in kernels]
+    plain = [fn.plain_calls for fn in kernels]
     print(f"transducer: launches summary_mixing +{rose[0]} csgu +{rose[1]} (no hand-written "
-          "kernel on this path)")
+          f"kernel on this path); plain calls summary_mixing +{plain[0]} (fast-mode cells) "
+          f"csgu +{plain[1]}")
     if rose != [0, 0]:
         fail(f"transducer: a hand-written kernel was launched on the transducer path: {rose}")
-    for name in ("summary_mixing", "csgu"):
+    for name, n in zip(("summary_mixing", "csgu"), plain):
         kernel_rows[name]["launches_by_path"]["transducer"] = 0
+        kernel_rows[name]["plain_calls_by_path"]["transducer"] = n
+
+
+def make_corpus(here: str, root: str) -> dict:
+    """Write the --hard synthetic corpus with `recipes/make_synthetic_corpus.py`
+    (numpy and `wave` only) in a subprocess; return its manifests' paths."""
+    cmd = [sys.executable, os.path.join(here, "recipes", "make_synthetic_corpus.py"), root,
+           "--hard", "--n", str(RUNNER_CORPUS_N), "--lm-text", str(RUNNER_LM_TEXT),
+           "--seed", "0"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"make_synthetic_corpus.py failed: {out.stderr.strip()[-2000:]}")
+    paths = {split: os.path.join(root, f"manifest_{split}.csv")
+             for split in ("train", "dev", "test")}
+    paths["lm_text"] = os.path.join(root, "lm_text.txt")
+    print(f"runner corpus: {out.stdout.strip().splitlines()[0]}; written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def run_stage(label: str, fn, argv: list) -> tuple:
+    """Run one runner's `main(argv)` in this process with both wrappers'
+    counters at 0 and the peak-memory counter reset; returns its result,
+    the wrappers' (launches, plain calls, backwards) and the seconds and
+    peak GiB it took."""
+    import torch
+
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+
+    kernels = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
+    for k in kernels:
+        k.launches, k.plain_calls, k.backwards = 0, 0, 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {name: (k.launches, k.plain_calls, k.backwards)
+              for name, k in zip(("summary_mixing", "csgu"), kernels)}
+    reported = {name: (c["launches"], c["plain_calls"])
+                for name, c in result.get("kernels", {}).items()}
+    if reported and reported != {name: c[:2] for name, c in counts.items()}:
+        fail(f"runner {label} reported (launches, plain calls) {reported}, the wrappers "
+             f"counted {counts}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"runner {label}: {seconds:.1f} s, peak memory {peak:.2f} GiB, "
+          f"(launches, plain calls, backwards) {counts}")
+    return result, counts, seconds, peak
+
+
+def step_ms(step_s: list) -> str:
+    ms = np.asarray(step_s[1:] or step_s) * 1e3
+    return (f"{len(step_s)} steps, median {np.median(ms):.2f} ms per step, min {ms.min():.2f}, "
+            f"max {ms.max():.2f} (the first step left out)")
+
+
+def check_eval(label: str, summary: dict, n_utts: int) -> None:
+    if summary["utterances"] != n_utts or not np.isfinite(summary["WER"]):
+        fail(f"runner {label}: {summary['utterances']} utterances scored of {n_utts}, "
+             f"WER {summary['WER']}")
+
+
+def phase_runner_synthetic(kernel_rows, here: str, corpus: dict, root: str) -> None:
+    """The three runners on recipes/Synthetic/hard_synthetic.yaml (d128,
+    float32): neither kernel takes it, so every cell and cgMLP branch runs
+    the plain path, counted."""
+    from summarymixing_tpu_torch.data.dataio import read_manifest_csv
+    from summarymixing_tpu_torch.recipes import evaluate, train, train_lm
+
+    recipe = os.path.join(here, SYNTH_RECIPE)
+    run, lm_run = os.path.join(root, "synthetic"), os.path.join(root, "synthetic_lm")
+    n_test = len(read_manifest_csv(corpus["test"]))
+    res, counts, secs, peak = run_stage("synthetic train", train.main, [
+        recipe, "--train-manifest", corpus["train"], "--valid-manifest", corpus["dev"],
+        "--test-manifest", corpus["test"], "--output", run, "--steps", str(RUNNER_SYNTH_STEPS)])
+    print(f"runner synthetic train: {step_ms(res['step_s'])}; {res['epochs']} epochs; valid "
+          f"{res['valid']}; test (beam {res['test']})")
+    if res["steps"] != RUNNER_SYNTH_STEPS or not np.isfinite(res["valid"]["loss"]):
+        fail(f"runner synthetic train: {res['steps']} steps, valid {res['valid']}")
+    plain_total = {name: c[1] for name, c in counts.items()}
+    if any(c[0] for c in counts.values()) or not all(plain_total.values()):
+        fail(f"runner synthetic train: launches/plain calls {counts}; the d128 float32 recipe "
+             "must run the plain path on the card, counted")
+    res, counts, secs, peak = run_stage("synthetic train_lm", train_lm.main, [
+        recipe, "--text", corpus["lm_text"], "--tokenizer-dir", run, "--output", lm_run,
+        "--steps", str(RUNNER_LM_STEPS)])
+    print(f"runner synthetic train_lm: {step_ms(res['step_s'])}; loss {res['loss']:.4f}; "
+          f"{res['params']:,} parameters")
+    if res["steps"] != RUNNER_LM_STEPS or not np.isfinite(res["loss"]):
+        fail(f"runner synthetic train_lm: {res['steps']} steps, loss {res['loss']}")
+    for label, extra in (("greedy", []), ("beam", ["--beam"]),
+                         ("beam + LM", ["--beam", "--lm-ckpt", lm_run])):
+        out_dir = os.path.join(root, "eval_" + label.replace(" + ", "_"))
+        summary, counts_e, secs, peak = run_stage(f"synthetic evaluate {label}", evaluate.main, [
+            recipe, "--test-manifest", corpus["test"], "--ckpt", os.path.join(run, "save"),
+            "--avg", "2", "--output", out_dir] + extra)
+        check_eval(f"synthetic evaluate {label}", summary, n_test)
+        if not os.path.exists(os.path.join(out_dir, "wer_details.txt")):
+            fail(f"runner synthetic evaluate {label}: no wer_details.txt")
+        print(f"runner synthetic evaluate {label}: WER {summary['WER']:.2f} over "
+              f"{summary['utterances']} utterances, decode {summary['decode']}, "
+              f"{secs * 1e3:.1f} ms")
+        for name, c in counts_e.items():
+            plain_total[name] += c[1]
+            if c[0]:
+                fail(f"runner synthetic evaluate {label}: {name} launched {c[0]} times")
+    for name, n in plain_total.items():
+        kernel_rows[name]["launches_by_path"]["runner_synthetic"] = 0
+        kernel_rows[name]["plain_calls_by_path"]["runner_synthetic"] = n
+
+
+def phase_runner_flagship(kernel_rows, here: str, corpus: dict, root: str) -> None:
+    """recipes/LibriSpeech/branchformer_summarymixing.yaml at full width and
+    depth through the train runner for a few steps on the synthetic corpus
+    (its own unigram tokenizer of up to 5000 pieces), then the evaluate
+    runner, greedy, on one batch: both kernels at the bucketed batches'
+    shapes, no plain call."""
+    import csv
+
+    from summarymixing_tpu_torch.config import load_recipe
+    from summarymixing_tpu_torch.data.batching import DynamicBucketBatcher
+    from summarymixing_tpu_torch.data.dataio import read_manifest_csv
+    from summarymixing_tpu_torch.recipes import common, evaluate, train
+
+    recipe = os.path.join(here, FLAGSHIP_RECIPE)
+    run = os.path.join(root, "flagship")
+    overrides = ["--set", f"training.max_batch_length={RUNNER_FLAGSHIP_BATCH_S}"]
+    cfg = load_recipe(recipe, overrides=common.parse_overrides(
+        [f"training.max_batch_length={RUNNER_FLAGSHIP_BATCH_S}",
+         f"training.num_buckets={RUNNER_FLAGSHIP_BUCKETS}"]))
+    n_layers = cfg.model.num_encoder_layers
+    dev = read_manifest_csv(corpus["dev"])
+    lengths, buckets = common.build_buckets(dev, cfg, valid=True)
+    n_valid = DynamicBucketBatcher(lengths, buckets, shuffle=False, drop_last=False).num_batches()
+    res, counts, secs, peak = run_stage("flagship train", train.main, [
+        recipe, "--train-manifest", corpus["train"], "--valid-manifest", corpus["dev"],
+        "--output", run, "--steps", str(RUNNER_FLAGSHIP_STEPS),
+        "--num-buckets", str(RUNNER_FLAGSHIP_BUCKETS)] + overrides)
+    print(f"runner flagship train: {step_ms(res['step_s'])}; tokenizer {res['tokenizer_size']} "
+          f"pieces; valid {res['valid']} over {n_valid} batches; peak memory {peak:.2f} GiB")
+    want = {name: (n_layers * (RUNNER_FLAGSHIP_STEPS + n_valid), 0,
+                   n_layers * RUNNER_FLAGSHIP_STEPS) for name in counts}
+    if res["steps"] != RUNNER_FLAGSHIP_STEPS or counts != want:
+        fail(f"runner flagship train: {res['steps']} steps, (launches, plain calls, backwards) "
+             f"{counts}, expected {want}")
+    one = os.path.join(root, "one_batch.csv")
+    with open(corpus["dev"], newline="") as f:
+        rows = list(csv.DictReader(f))[:RUNNER_FLAGSHIP_EVAL_UTTS]
+    with open(one, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    summary, counts_e, secs, peak_e = run_stage("flagship evaluate greedy", evaluate.main, [
+        recipe, "--test-manifest", one, "--ckpt", os.path.join(run, "save")] + overrides
+        + ["--set", "training.num_buckets=1"])
+    check_eval("flagship evaluate greedy", summary, len(rows))
+    print(f"runner flagship evaluate greedy: one batch of {len(rows)} utterances, WER "
+          f"{summary['WER']:.2f} (a few steps of training), {secs * 1e3:.1f} ms")
+    want_e = {name: (n_layers, 0, 0) for name in counts_e}
+    if counts_e != want_e:
+        fail(f"runner flagship evaluate: (launches, plain calls, backwards) {counts_e}, "
+             f"expected {want_e}")
+    for name in counts:
+        kernel_rows[name]["launches_by_path"]["runner_flagship"] = (counts[name][0]
+                                                                    + counts_e[name][0])
+        kernel_rows[name]["plain_calls_by_path"]["runner_flagship"] = (counts[name][1]
+                                                                       + counts_e[name][1])
 
 
 def main() -> int:
@@ -1440,8 +1668,14 @@ def main() -> int:
         phase_beam(kernel_rows, ckpt_dir)
     torch.cuda.empty_cache()
     phase_transducer(kernel_rows)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_") as root:
+        corpus = make_corpus(here, os.path.join(root, "corpus"))
+        phase_runner_synthetic(kernel_rows, here, corpus, root)
+        phase_runner_flagship(kernel_rows, here, corpus, root)
     for row in kernel_rows.values():
         row["launches"] = sum(row["launches_by_path"].values())
+        row["plain_calls"] = sum(row["plain_calls_by_path"].values())
     print(f"wall {time.perf_counter() - wall0:.1f} s; nvidia-smi: {smi}")
     print(json.dumps({"kernels": [kernel_rows["summary_mixing"], kernel_rows["csgu"]]}))
     print(f"nvidia-smi: {smi}")

@@ -23,8 +23,12 @@ transducer (`models/transducer.py`) and its greedy decode, offline
 (`transcribe.transducer_greedy_transcribe`), by encoder chunks
 (`evaluate.streaming_decode`) and from raw audio (`streaming.py`); no
 hand-written kernel lies on that path, as no Pallas kernel does in the
-JAX package. Parameters are float32; the layers compute in bf16 for
-`precision: bf16`, as the flax modules do.
+JAX package. The recipes' run loop (`recipes/`: the `train`, `train_lm`
+and `evaluate` runners over `data/`'s manifests, bucketed batches and
+tokenizers, recipes read by `config/yaml_lite.py`). Parameters are
+float32; the layers compute in bf16 for `precision: bf16`, as the flax
+modules do. On the card a configuration a kernel does not take runs the
+plain PyTorch path, counted in the wrapper's `plain_calls`.
 
 Conventions kept from the JAX package at public functions: `[B, T, C]`
 sequences, float masks with 1 = valid, NHWC order where the CNN frontend

@@ -2,8 +2,8 @@
 port of `summarymixing_tpu/config/loader.py` for the Branchformer-SummaryMixing
 CTC/attention recipe and its fusion LM, the Conformer-SummaryMixing
 transducer recipes, and of the trainer set-up of `recipes/train.py`.
-`yaml` is imported inside `load_recipe`, so building a model from
-a config made in Python needs no YAML package."""
+Recipes are read by `config/yaml_lite.py`, the port's own reader of the
+YAML subset they are written in, so no YAML package is needed."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from summarymixing_tpu_torch.config import yaml_lite
 from summarymixing_tpu_torch.config.schema import (
     AugmentConfig,
     DecodingConfig,
@@ -46,11 +47,10 @@ def _build_section(cls, data: dict):
 
 
 def load_recipe(path: str, overrides: Optional[dict] = None) -> RecipeConfig:
-    """Read a YAML recipe; `overrides` maps dotted paths to values."""
-    import yaml
-
+    """Read a YAML recipe (`yaml_lite.load`, which gives what
+    `yaml.safe_load` gives); `overrides` maps dotted paths to values."""
     with open(path) as f:
-        data = yaml.safe_load(f) or {}
+        data = yaml_lite.load(f.read()) or {}
     for dotted, value in (overrides or {}).items():
         parts = dotted.split(".")
         node = data
@@ -164,6 +164,10 @@ def build_trainer(cfg: RecipeConfig, model, fbank):
     if t.scheduler != "noam" or t.stage_one_epochs or t.grad_accumulation_factor > 1:
         raise NotImplementedError("the port trains with AdamW + Noam and no gradient "
                                   "accumulation; see ROADMAP.md")
+    if a.concat_original or a.augment_warmup_steps > 0:
+        raise NotImplementedError(
+            f"augment.concat_original ({a.concat_original}) and augment.augment_warmup_steps "
+            f"({a.augment_warmup_steps}) are not ported; see ROADMAP.md queue 1 item 5")
     augment = None
     if a.fea_augment:
         augment = SpecAugmentConfig(

@@ -15,8 +15,9 @@ encoder and the CTC head -> a joint CTC/attention beam search
 and `test_temperature`, with the KV-cached decoder step and, given an LM,
 its KV-cached step fused at `lm_weight` after a log-softmax at
 `lm_temperature`. Batches wider than `decoding.max_beam_rows` // beam
-utterances are searched in slices. Token ids are scored as words: the
-tokenizer is not ported yet. Blank-skip compaction
+utterances are searched in slices. `evaluate_beam` scores token ids as
+words; the runners (`recipes/evaluate.py`, `recipes/train.py`) score text
+through the run's tokenizer. Blank-skip compaction
 (`decoding.ctc_blank_skip` > 0) is not ported.
 """
 
@@ -96,16 +97,19 @@ def make_lm_fusion(cfg, lm):
     return lm_step, make_cache
 
 
-def beam_config(cfg, max_length: int, lm_step=None) -> S2SBeamConfig:
+def beam_config(cfg, max_length: int, lm_step=None, beam_size: Optional[int] = None,
+                temperature: Optional[float] = None) -> S2SBeamConfig:
     """The search's settings from the recipe's `decoding` and `model`
     sections: beam `test_beam_size`, CTC weight `ctc_weight_decode`,
-    decoder temperature `test_temperature`, and `lm_weight` when an LM step
-    (`make_lm_fusion`) is fused, 0 otherwise."""
+    decoder temperature `test_temperature` (the test stage; `beam_size`
+    and `temperature` replace them, for the valid stage), and `lm_weight`
+    when an LM step (`make_lm_fusion`) is fused, 0 otherwise."""
     dec, m = cfg.decoding, cfg.model
-    return S2SBeamConfig(beam_size=dec.test_beam_size, ctc_weight=dec.ctc_weight_decode,
-                         lm_weight=dec.lm_weight if lm_step else 0.0, blank_id=m.blank_index,
-                         bos_id=m.bos_index, eos_id=m.eos_index, max_length=max_length,
-                         temperature=dec.test_temperature)
+    return S2SBeamConfig(
+        beam_size=dec.test_beam_size if beam_size is None else beam_size,
+        ctc_weight=dec.ctc_weight_decode, lm_weight=dec.lm_weight if lm_step else 0.0,
+        blank_id=m.blank_index, bos_id=m.bos_index, eos_id=m.eos_index, max_length=max_length,
+        temperature=dec.test_temperature if temperature is None else temperature)
 
 
 def make_beam_step(cfg, model, enc_out: torch.Tensor, enc_lens: torch.Tensor, beam: int,
@@ -163,9 +167,15 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def evaluate_beam(model, fbank, norm_stats: Mapping, batches: Sequence, cfg, lm=None,
-                  references: Optional[Mapping[int, Sequence[int]]] = None) -> Dict:
+                  references: Optional[Mapping[int, Sequence[int]]] = None,
+                  beam_size: Optional[int] = None, temperature: Optional[float] = None,
+                  max_length: Optional[int] = None) -> Dict:
     """Beam-search `batches` of `(indices, wav [B, N], wav_lens [B])` (as
-    `transcribe.batch_waveforms` yields them) and score them.
+    `transcribe.batch_waveforms` yields them) and score them. The search
+    runs at `beam_config(cfg, ...)`: the test stage's beam and temperature
+    unless `beam_size` and `temperature` say otherwise, and a decode-length
+    cap of `max_length`, by default `static_decode_length` of the longest
+    waveform.
 
     Returns a dict: `hyps` (utterance index -> token ids, without bos and
     eos), `scores` (index -> length-normalised score), `summary`
@@ -178,11 +188,13 @@ def evaluate_beam(model, fbank, norm_stats: Mapping, batches: Sequence, cfg, lm=
     if dec.ctc_blank_skip > 0.0:
         raise NotImplementedError("ctc_blank_skip (compact_blank_frames) is not ported; "
                                   "see ROADMAP.md")
-    beam = dec.test_beam_size
-    max_samples = max(int(lens.max()) for _, _, lens in batches)
-    lmax = static_decode_length(cfg, max_samples, fbank)
+    lmax = max_length
+    if lmax is None:
+        max_samples = max(int(lens.max()) for _, _, lens in batches)
+        lmax = static_decode_length(cfg, max_samples, fbank)
     lm_step, lm_make_cache = make_lm_fusion(cfg, lm)
-    bc = beam_config(cfg, lmax, lm_step)
+    bc = beam_config(cfg, lmax, lm_step, beam_size, temperature)
+    beam = bc.beam_size
     normalize = InputNormalization()
     hyps: Dict[int, List[int]] = {}
     scores: Dict[int, float] = {}

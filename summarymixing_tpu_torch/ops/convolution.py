@@ -3,11 +3,13 @@
 `ConvolutionModule` and `ConvolutionFrontEnd` from
 `summarymixing_tpu/ops/convolution.py`.
 
-`ConvolutionBranch` runs the plain path on the CPU and the fused cgMLP
-kernel (`ops/fused_csgu.py`) on a CUDA tensor; on the card it takes the
-recipe configuration (tanh-GELU, identity gate, no linear after the conv)
-and raises `NotImplementedError` for any other. The CSGU's dropout runs
-inside the kernel there, from a keep-mask the branch draws.
+`ConvolutionBranch` runs the plain path on the CPU. On a CUDA tensor it
+runs the fused cgMLP kernel (`ops/fused_csgu.py`) when `fused_csgu.takes`
+the configuration (tanh-GELU, identity gate, no linear after the conv,
+conv width 15 or 31, bf16, widths the kernel tiles), and otherwise the
+same plain path as the CPU, counted in
+`fused_convolution_branch.plain_calls`. The CSGU's dropout runs inside the
+kernel, from a keep-mask the branch draws.
 
 `ConvolutionModule` (the Conformer's) is plain PyTorch on every device, as
 the JAX module is plain `jnp`: its depthwise conv is SAME, causal, or the
@@ -28,8 +30,6 @@ from summarymixing_tpu_torch.ops import _build, fused_csgu
 from summarymixing_tpu_torch.ops.layers import Conv2d, Dense, Dropout, LayerNorm
 from summarymixing_tpu_torch.ops.linear import get_activation
 from summarymixing_tpu_torch.ops.summary_mixing import uses_kernel
-
-_TODO = "see ROADMAP.md, 'Modules still to port'"
 
 
 def depthwise_conv1d(x: torch.Tensor, kernel: torch.Tensor,
@@ -119,24 +119,28 @@ class ConvolutionBranch(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if uses_kernel(x):
-            if (self.activation != "gelu" or self.csgu.gate_activation is not None
-                    or self.csgu.use_linear_after_conv):
-                raise NotImplementedError(
-                    "on CUDA only the fused cgMLP branch is ported: tanh-GELU, identity "
-                    f"gate, no linear after the conv; {_TODO}")
-            if pad_mask is not None:
-                pad_mask = pad_mask.to(torch.float32).contiguous()
-            b, t, _ = x.shape
-            drop = self.csgu.dropout
-            keep = drop.keep_mask((b, t, self.csgu.conv_bias.shape[0]), x.device)
-            launch = _build.cached_weights(self, lambda m: tuple(
-                w.detach() for w in fused_csgu.kernel_weights(fused_csgu.branch_weights(m))))
-            return fused_csgu.fused_convolution_branch(
-                x.contiguous(), pad_mask, fused_csgu.branch_weights(self), self.csgu.norm.eps,
-                keep, 1.0 - drop.rate, launch_weights=launch)
+            if fused_csgu.takes(d=x.shape[-1], units=self.pre_channel_proj.out_features,
+                                kernel_size=self.csgu.conv_kernel.shape[0],
+                                activation=self.activation, dtype=x.dtype,
+                                gate_activation=self.csgu.gate_activation,
+                                use_linear_after_conv=self.csgu.use_linear_after_conv):
+                return self._fused(x, pad_mask)
+            fused_csgu.count_plain_call()
         x = get_activation(self.activation)(self.pre_channel_proj(x))
         x = self.csgu(x, pad_mask=pad_mask)
         return self.post_channel_proj(x)
+
+    def _fused(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        if pad_mask is not None:
+            pad_mask = pad_mask.to(torch.float32).contiguous()
+        b, t, _ = x.shape
+        drop = self.csgu.dropout
+        keep = drop.keep_mask((b, t, self.csgu.conv_bias.shape[0]), x.device)
+        launch = _build.cached_weights(self, lambda m: tuple(
+            w.detach() for w in fused_csgu.kernel_weights(fused_csgu.branch_weights(m))))
+        return fused_csgu.fused_convolution_branch(
+            x.contiguous(), pad_mask, fused_csgu.branch_weights(self), self.csgu.norm.eps,
+            keep, 1.0 - drop.rate, launch_weights=launch)
 
 
 class ConvolutionModule(nn.Module):

@@ -111,9 +111,46 @@ def kernel_weights(weights: Tuple) -> Tuple:
             conv_b.to(f32), w_post.to(bf), b_post.to(f32))
 
 
+def refusal(*, d: int, units: int, kernel_size: int, activation: str, dtype: torch.dtype,
+            gate_activation: Optional[str] = None,
+            use_linear_after_conv: bool = False) -> Optional[Tuple[type, str]]:
+    """Why the kernel does not take a cgMLP branch of this configuration,
+    as `(exception type, message)`, or None when it takes it: `d` the model
+    width, `units` the pre-projection's width (2C), `kernel_size` the conv
+    width. The one statement of the kernel's limits: `takes` and the
+    launch's `_check` both read it."""
+    if activation != "gelu" or gate_activation is not None or use_linear_after_conv:
+        return NotImplementedError, (
+            "the cgMLP kernel computes tanh-GELU with an identity gate and no linear after "
+            f"the conv, not activation {activation!r}, gate {gate_activation!r}, linear "
+            f"after conv {use_linear_after_conv}")
+    if kernel_size not in KERNEL_SIZES:
+        return NotImplementedError, (f"the cgMLP kernel is built for conv widths "
+                                     f"{KERNEL_SIZES}, not {kernel_size}")
+    if dtype != torch.bfloat16:
+        return ValueError, f"the cgMLP kernel computes in bf16, not {dtype}"
+    for name, width in (("D", d), ("C", units // 2)):
+        if width % WIDTH_MULTIPLE:
+            return ValueError, f"{name} width {width} is not a multiple of {WIDTH_MULTIPLE}"
+    return None
+
+
+def takes(**config) -> bool:
+    """Whether the kernel takes a cgMLP branch of this configuration
+    (`refusal`'s keywords). On the card a configuration it does not take
+    runs the plain PyTorch path, counted by `count_plain_call`."""
+    return refusal(**config) is None
+
+
+def count_plain_call() -> None:
+    """Count one call on a CUDA tensor that ran the plain path because the
+    kernel does not take its configuration:
+    `fused_convolution_branch.plain_calls`."""
+    _counts.plain_calls += 1
+
+
 def _check(x, pad_mask, weights, keep=None):
-    if (x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous()
-            or x.data_ptr() % 16):
+    if x.dim() != 3 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"x must be a contiguous, 16-byte aligned bf16 [B, T, D] tensor, "
                          f"got {x.dtype} {tuple(x.shape)}")
     b, t, d = x.shape
@@ -121,9 +158,9 @@ def _check(x, pad_mask, weights, keep=None):
     c2 = w_pre.shape[0]
     c = c2 // 2
     k = conv_w.shape[0]
-    if k not in KERNEL_SIZES:
-        raise NotImplementedError(f"the cgMLP kernel is built for conv widths "
-                                  f"{KERNEL_SIZES}, not {k}")
+    refused = refusal(d=d, units=c2, kernel_size=k, activation="gelu", dtype=x.dtype)
+    if refused is not None:
+        raise refused[0](refused[1])
     for name, w, shape in (("W_pre", w_pre, (c2, d)), ("W_post", w_post, (d, c))):
         if (w.dtype != torch.bfloat16 or tuple(w.shape) != shape or not w.is_contiguous()
                 or w.data_ptr() % 16):
@@ -148,9 +185,6 @@ def _check(x, pad_mask, weights, keep=None):
                          f"got {keep.dtype} {tuple(keep.shape)}")
     if any(v.device != x.device for v in weights):
         raise ValueError("weights and x must be on one device")
-    for name, width in (("D", d), ("C", c)):
-        if width % WIDTH_MULTIPLE:
-            raise ValueError(f"{name} width {width} is not a multiple of {WIDTH_MULTIPLE}")
     return b, t, d, c2, k
 
 
@@ -243,7 +277,9 @@ def fused_convolution_branch(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
     `launch_weights` when the caller has them cached; when autograd
     records, the backward is the plain version's VJP.
     `fused_convolution_branch.launches` counts kernel launches,
-    `fused_convolution_branch.backwards` the backward passes through them."""
+    `fused_convolution_branch.backwards` the backward passes through them
+    and `fused_convolution_branch.plain_calls` the branches on the card
+    whose configuration the kernel does not take (`takes`)."""
     if x.device.type == "cpu":
         return convolution_branch_reference(x, pad_mask, weights, eps, keep, keep_prob)
     if x.device.type != "cuda":
@@ -253,5 +289,6 @@ def fused_convolution_branch(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
 
 fused_convolution_branch.launches = 0
 fused_convolution_branch.backwards = 0
+fused_convolution_branch.plain_calls = 0
 # the counters stay on the wrapper when a caller swaps the module attribute
 _counts = fused_convolution_branch

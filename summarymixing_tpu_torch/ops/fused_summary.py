@@ -54,7 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -121,13 +121,63 @@ def kernel_weights(weights: Tuple) -> Tuple:
     return tuple(w.to(torch.bfloat16) for w in weights)
 
 
-def _check(x, pad, weights, activation, keep=None):
+def refusal(*, d: int, local_dims: Sequence[int], summary_dims: Sequence[int], n: int,
+            activation: str, dtype: torch.dtype, mode: str = "SummaryMixing",
+            sum_mask: bool = False, nhead: int = 1,
+            keep: bool = False) -> Optional[Tuple[type, str]]:
+    """Why the kernel does not take a cell of this configuration, as
+    `(exception type, message)`, or None when it takes it. `local_dims` and
+    `summary_dims` are each branch's widths, hidden layers then output; `n`
+    the merge's output width; `keep` whether a dropout keep-mask comes with
+    the launch (the cell decides its route without it, so a configuration
+    taken in evaluation is taken in training, where `_check` raises for a
+    keep-mask wider than the kernel holds). The one statement of the
+    kernel's limits: `takes` and the launch's `_check` both read it."""
+    if mode != "SummaryMixing" or sum_mask or nhead != 1:
+        return NotImplementedError, (
+            f"the SummaryMixing kernel computes full mode with no sum_mask at nhead 1, not "
+            f"mode {mode!r}, sum_mask {sum_mask}, nhead {nhead}")
+    if len(local_dims) != 2 or len(summary_dims) != 2:
+        return NotImplementedError, (
+            "the SummaryMixing kernel has one hidden layer per branch, not "
+            f"{len(local_dims) - 1} and {len(summary_dims) - 1}")
     if activation not in KERNEL_ACTIVATIONS:
-        raise NotImplementedError(
+        return NotImplementedError, (
             f"the SummaryMixing kernel has activations {sorted(KERNEL_ACTIVATIONS)}, "
             f"not {activation!r}")
-    if (x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous()
-            or x.data_ptr() % 16):
+    if dtype != torch.bfloat16:
+        return ValueError, f"the SummaryMixing kernel computes in bf16, not {dtype}"
+    (hl, ol), (hs, os_) = local_dims, summary_dims
+    for name, width in (("D", d), ("local hidden", hl), ("local out", ol),
+                        ("summary hidden", hs), ("summary out", os_), ("out", n)):
+        if width % WIDTH_MULTIPLE:
+            return ValueError, f"{name} width {width} is not a multiple of {WIDTH_MULTIPLE}"
+    for name, width in (("D", d), ("local hidden", hl), ("local out", ol),
+                        ("summary hidden", hs)):
+        if width > MAX_WIDTH:
+            return ValueError, (f"{name} width {width} is wider than the {MAX_WIDTH} columns "
+                                "a block keeps in shared memory")
+    if keep and os_ > MAX_WIDTH:
+        return ValueError, (f"with a keep-mask the summary out width {os_} must be at most "
+                            f"{MAX_WIDTH}: the masked pooled rows stay in shared memory")
+    return None
+
+
+def takes(**config) -> bool:
+    """Whether the kernel takes a cell of this configuration (`refusal`'s
+    keywords). On the card a configuration it does not take runs the plain
+    PyTorch path, counted by `count_plain_call`."""
+    return refusal(**config) is None
+
+
+def count_plain_call() -> None:
+    """Count one call on a CUDA tensor that ran the plain path because the
+    kernel does not take its configuration: `fused_summary_mixing.plain_calls`."""
+    _counts.plain_calls += 1
+
+
+def _check(x, pad, weights, activation, keep=None):
+    if x.dim() != 3 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"x must be a contiguous, 16-byte aligned bf16 [B, T, D] tensor, "
                          f"got {x.dtype} {tuple(x.shape)}")
     b, t, d = x.shape
@@ -137,6 +187,10 @@ def _check(x, pad, weights, activation, keep=None):
                          f"got {pad.dtype} {tuple(pad.shape)} on {pad.device}")
     w1, b1, w2, b2, s1, c1, s2, c2, m1, m2, mb = weights
     hl, ol, hs, os_, n = w1.shape[0], w2.shape[0], s1.shape[0], s2.shape[0], m1.shape[0]
+    refused = refusal(d=d, local_dims=(hl, ol), summary_dims=(hs, os_), n=n,
+                      activation=activation, dtype=x.dtype, keep=keep is not None)
+    if refused is not None:
+        raise refused[0](refused[1])
     want = {"W1": (w1, (hl, d)), "W2": (w2, (ol, hl)), "S1": (s1, (hs, d)),
             "S2": (s2, (os_, hs)), "M1": (m1, (n, ol)), "M2": (m2, (n, os_))}
     for name, (w, shape) in want.items():
@@ -151,22 +205,10 @@ def _check(x, pad, weights, activation, keep=None):
         if (v.dtype != torch.bfloat16 or tuple(v.shape) != (size,)
                 or not v.is_contiguous() or v.device != x.device):
             raise ValueError(f"{name} must be a contiguous bf16 [{size}] vector")
-    for name, width in (("D", d), ("local hidden", hl), ("local out", ol),
-                        ("summary hidden", hs), ("summary out", os_), ("out", n)):
-        if width % WIDTH_MULTIPLE:
-            raise ValueError(f"{name} width {width} is not a multiple of {WIDTH_MULTIPLE}")
-    for name, width in (("D", d), ("local hidden", hl), ("local out", ol),
-                        ("summary hidden", hs)):
-        if width > MAX_WIDTH:
-            raise ValueError(f"{name} width {width} is wider than the {MAX_WIDTH} columns "
-                             "a block keeps in shared memory")
     if keep is not None and (keep.dtype != torch.bool or tuple(keep.shape) != (b, t, ol + os_)
                              or not keep.is_contiguous() or keep.device != x.device):
         raise ValueError(f"keep must be a contiguous bool [B, T, {ol + os_}] tensor on x's "
                          f"device, got {keep.dtype} {tuple(keep.shape)}")
-    if keep is not None and os_ > MAX_WIDTH:
-        raise ValueError(f"with a keep-mask the summary out width {os_} must be at most "
-                         f"{MAX_WIDTH}: the masked pooled rows stay in shared memory")
     return b, t, d, hl, ol, hs, os_, n
 
 
@@ -261,7 +303,9 @@ def fused_summary_mixing(x: torch.Tensor, pad: torch.Tensor, weights: Tuple,
     cached; when autograd records, the backward is the plain version's
     VJP and returns gradients for `x` and `weights`.
     `fused_summary_mixing.launches` counts kernel launches,
-    `fused_summary_mixing.backwards` the backward passes through them."""
+    `fused_summary_mixing.backwards` the backward passes through them and
+    `fused_summary_mixing.plain_calls` the cells on the card whose
+    configuration the kernel does not take (`takes`)."""
     if x.device.type == "cpu":
         return summary_mixing_reference(x, pad, weights, activation, keep, keep_prob)
     if x.device.type != "cuda":
@@ -271,5 +315,6 @@ def fused_summary_mixing(x: torch.Tensor, pad: torch.Tensor, weights: Tuple,
 
 fused_summary_mixing.launches = 0
 fused_summary_mixing.backwards = 0
+fused_summary_mixing.plain_calls = 0
 # the counters stay on the wrapper when a caller swaps the module attribute
 _counts = fused_summary_mixing

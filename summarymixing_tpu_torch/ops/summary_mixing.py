@@ -3,18 +3,22 @@ full and fast modes.
 
 Full mode: on the CPU the cell runs the plain PyTorch path that mirrors
 the flax module. On a CUDA tensor it runs the fused kernel
-(`ops/fused_summary.py`) when the configuration is the one the kernel
-takes — no `sum_mask`, nhead 1, one hidden layer per branch, erf or tanh
-GELU — and raises `NotImplementedError` otherwise: it never runs the plain
-path on the card. The dropout on the concatenated `[local, pooled]`
-features runs inside the kernel there, from a keep-mask the cell draws.
+(`ops/fused_summary.py`) when `fused_summary.takes` the configuration (no
+`sum_mask`, nhead 1, one hidden layer per branch, erf or tanh GELU, bf16,
+widths the kernel tiles), and otherwise the same plain path as the CPU,
+as the flax module computes every configuration; such a call is counted
+in `fused_summary_mixing.plain_calls`. The decision is made from the
+configuration before any launch, the same in training and evaluation: a
+configuration the kernel takes runs the kernel or raises. The dropout on
+the concatenated `[local, pooled]` features runs inside the kernel there,
+from a keep-mask the cell draws.
 
 Fast mode (the streaming Conformer transducer's): one `global_proj`
 `SummaryNet((2·local_proj_out_dim,))` with no head split, pad-masked and
 split into local and summary halves; the summary half pooled by the masked
 time mean, or by `summary_matmul` given a `sum_mask`; then the merge. The
 JAX package has no TPU kernel for it, so it runs this PyTorch code on the
-card too.
+card too (counted as a plain call there).
 
 The lite and expdecay modes and `decode_step` are still to port
 (ROADMAP.md, "Modules still to port").
@@ -35,7 +39,9 @@ _TODO = "see ROADMAP.md, 'Modules still to port'"
 
 
 def uses_kernel(x: torch.Tensor) -> bool:
-    """Whether a module runs its fused kernel for `x`: on the card."""
+    """Whether a module takes its kernel route for `x`: on the card. The
+    route then launches the kernel for a configuration it takes and runs
+    the plain path, counted, for any other."""
     return x.device.type == "cuda"
 
 
@@ -100,8 +106,10 @@ class SummaryMixing(nn.Module):
             pad_mask = torch.ones(x.shape[:2] + (1,), dtype=x.dtype, device=x.device)
         elif pad_mask.dim() == 2:
             pad_mask = pad_mask[..., None]
-        if self.mode == "SummaryMixing" and uses_kernel(x):
-            return self._fused(x, sum_mask, pad_mask)
+        if uses_kernel(x):
+            if fused_summary.takes(**self._kernel_config(x, sum_mask)):
+                return self._fused(x, pad_mask)
+            fused_summary.count_plain_call()
         pad_mask = pad_mask.to(x.dtype)
         if self.mode == "SummaryMixing-fast":
             local, summary = (self.global_proj(x) * pad_mask).chunk(2, dim=-1)
@@ -114,13 +122,20 @@ class SummaryMixing(nn.Module):
             pooled = summary_matmul(sum_mask, summary)
         return self.summary_local_merging(self.dropout(torch.cat([local, pooled], dim=-1)))
 
-    def _fused(self, x, sum_mask, pad_mask):
-        if (sum_mask is not None or self.nhead != 1
-                or len(self.local_proj.features) != 2 or len(self.summary_proj.features) != 2
-                or self.activation not in fused_summary.KERNEL_ACTIVATIONS):
-            raise NotImplementedError(
-                "on CUDA only the fused cell is ported: full mode, no sum_mask, nhead 1, "
-                f"one hidden layer per branch, GELU activation; {_TODO}")
+    def _kernel_config(self, x: torch.Tensor, sum_mask) -> dict:
+        """This call's configuration in `fused_summary.refusal`'s keywords
+        (fast mode has no branches of its own: the mode refuses it). The
+        dropout keep-mask is not part of it: whether training or not, a
+        configuration the kernel takes launches it, and the launch raises
+        for a keep-mask wider than the kernel holds."""
+        full = self.mode == "SummaryMixing"
+        return dict(mode=self.mode, sum_mask=sum_mask is not None, nhead=self.nhead,
+                    d=x.shape[-1], local_dims=self.local_proj.features if full else (),
+                    summary_dims=self.summary_proj.features if full else (),
+                    n=self.summary_local_merging.features[-1], activation=self.activation,
+                    dtype=x.dtype)
+
+    def _fused(self, x, pad_mask):
         pad = pad_mask.to(torch.float32).contiguous()
         b, t, _ = x.shape
         keep = self.dropout.keep_mask(

@@ -17,14 +17,18 @@ and containers of them, nothing else.
     avg = average_checkpoints(mgr, {"params": None, "norm_stats": None}, num=10)
     model.load_state_dict(avg["params"])
 
-Interval-minutes gating and the multi-process save of the JAX manager are
-not ported (one process saves when its caller says so).
+`interval_minutes` gates saves in time, as the JAX manager's does (the
+recipes' `ckpt_interval_minutes`): `should_save()` says whether that many
+minutes have passed since the last save (or since the manager was made);
+the caller then saves. The multi-process save of the JAX manager is not
+ported: one process saves.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import time
 from typing import Any, Dict, List, Mapping, Optional
 
 import torch
@@ -36,14 +40,26 @@ _EXT = ".pt"
 
 class CheckpointManager:
     """Step-numbered checkpoints of a state dict in `directory`, the last
-    `max_to_keep` kept."""
+    `max_to_keep` kept, with an optional save interval in minutes."""
 
-    def __init__(self, directory: str, max_to_keep: int = 10):
+    def __init__(self, directory: str, max_to_keep: int = 10,
+                 interval_minutes: Optional[float] = None):
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be at least 1, got {max_to_keep}")
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.interval_minutes = interval_minutes
+        # the first interval counts from construction: a fresh or resumed
+        # run does not save at its first step
+        self._last_save = time.time()
         os.makedirs(self.directory, exist_ok=True)
+
+    def should_save(self) -> bool:
+        """True without an interval, else whether `interval_minutes` have
+        passed since the last save."""
+        if self.interval_minutes is None:
+            return True
+        return time.time() - self._last_save >= self.interval_minutes * 60
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
@@ -63,6 +79,7 @@ class CheckpointManager:
         os.replace(tmp, final)
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._path(old))
+        self._last_save = time.time()
 
     def all_steps(self) -> List[int]:
         """The steps on disk, ascending."""

@@ -6,8 +6,8 @@ of its two branches: `greedy_ctc_decode` (the attention recipes,
 frozen statistics -> `SpeechRecognizer` -> greedy CTC -> collapse) and
 `transducer_greedy_transcribe` (the transducer recipes: the same encoder
 input, the Conformer encoder, `proj_enc`, then the transducer's greedy
-decode). Token ids are not turned into text here: the tokenizer is not
-ported yet.
+decode). Token ids are not turned into text here; the runners of
+`recipes/` do that with the run's tokenizer (`data/tokenizer.py`).
 
     model, fbank = build_model(cfg)                 # on the card
     for idx, wav, lens in batch_waveforms(wavs, 8, 8000):

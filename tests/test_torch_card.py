@@ -218,3 +218,35 @@ def test_train_step_fills_every_grad_on_card():
     assert [(fn.launches - a, fn.backwards - b) for fn, (a, b) in zip(
         (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch), counts)] \
         == [(2, 2), (2, 2)]
+
+
+@pytest.mark.gpu
+def test_configuration_kernels_do_not_take_runs_plain_path_on_card():
+    """A d128 float32 Branchformer layer (the hard synthetic recipe's):
+    neither kernel takes float32, so on the card the cell and the cgMLP
+    branch run their plain PyTorch paths, counted in `plain_calls` with no
+    launch, and the layer equals the same layer on the CPU within 1e-5 of
+    max |card - cpu| / (1 + |cpu|) (float32 with TF32 off, another order of
+    sums)."""
+    import copy
+
+    from summarymixing_tpu_torch.models.branchformer import BranchformerEncoderLayer
+    from summarymixing_tpu_torch.utils.init import init_parameters
+
+    _setup(8, [8])   # skips without a card; TF32 off
+    layer = BranchformerEncoderLayer(
+        128, 1, kernel_size=15, csgu_linear_units=256, local_proj_hid_dim=(128,),
+        local_proj_out_dim=128, summary_hid_dim=(128,), summary_out_dim=128,
+        activation="gelu").eval()
+    init_parameters(layer, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 45, 128, generator=g)
+    mask = (torch.arange(45)[None, :] < torch.tensor([45, 30, 7])[:, None]).float()
+    counters = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
+    before = [(fn.launches, fn.plain_calls) for fn in counters]
+    with torch.no_grad():
+        want = layer(x, pad_mask=mask)
+        got = copy.deepcopy(layer).cuda()(x.cuda(), pad_mask=mask.cuda())
+    assert [(fn.launches - a, fn.plain_calls - b) for fn, (a, b) in zip(counters, before)] \
+        == [(0, 1), (0, 1)]
+    assert _max_rel_err(got.cpu(), want) <= 1e-5
