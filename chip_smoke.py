@@ -71,8 +71,9 @@ Phases (any failure exits non-zero):
    built in Python: 12 layers, d512, SummaryMixing-fast with nhead 4, d_ffn
    2048, kernel 31, tanh-GELU, bf16 compute; a 1-layer LSTM predictor of
    512, a sum joint of 640, vocabulary 1000; 79,254,832 parameters from seed
-   3407). The 32 utterances of phase 4 in 4 requests of 8 go through
-   `transcribe.transducer_greedy_transcribe` (each shape warmed up once):
+   3407). The first 2 of phase 4's 4 requests of 8 (the 16 longest of the 32
+   utterances) go through `transcribe.transducer_greedy_transcribe` (each
+   shape warmed up once):
    latency and audio-s/s per request. Request 0 goes through
    `evaluate.streaming_decode` (chunks of 16 encoder frames, 640 ms of
    audio, with 4 chunks of left context): median and max ms per chunk; and
@@ -108,12 +109,42 @@ Phases (any failure exits non-zero):
    tokenizer's piece count and peak memory.
    In both runner phases the counts that the train and evaluate runners
    report in their summaries must equal the wrappers' counters.
+14. Transducer training at full width: the transducer recipe as written
+   (bf16 encoder compute, dropout, SpecAugment, speed perturbation, Dynamic
+   Chunk Training, gradient accumulation 4, the warm-up + exponential
+   decay) on request 0 (T = 751) with 40-120 random target tokens per
+   utterance: 8 micro steps through `TransducerTrainer.train_step`, ms per
+   micro step and peak memory. Held: every loss finite; the parameters bit
+   for bit the same after micro steps 1-7 (the update of micro step 4 fires
+   at the warm-up's rate 0: the optimizer's count and moments move, the
+   parameters do not) and changed after 8, the inner count rising at 4 and
+   8 only; `transducer_loss_chunked` (chunks of 64) against
+   `transducer_loss` on the card at that shape (value and the gradients of
+   both projections and the joint), each timed on its second call; the
+   card's float32 lattice against float64 on the CPU on a small random
+   lattice. Device time by kernel over one more micro step.
+15. Transducer beam at full width: request 0 through the batched beam
+   search (beam 10, state and expand beam 2.3), with the RNNLM at
+   `LMConfig(model_type="rnn")` (emb 128, 2 x 2048 LSTM, dnn 512) fused at
+   0.5: wall ms, the encoder/search split, rounds per second, peak memory,
+   and device time by kernel over the first 40 frames. Held: on the first 40 frames of each row the
+   batched search (every expansion within the expand beam kept) gives the
+   sequential `transducer_beam_search`'s tokens, with and without the LM.
+16. Runners, synthetic transducer recipe
+   (`recipes/Synthetic/hard_synthetic_transducer.yaml`, d128, float32) on
+   phase 12's corpus: `train` for 30 steps with the beam test stage,
+   `train_lm --model-type rnn` for 30 steps, and `evaluate` greedy,
+   `--beam`, `--beam --lm-ckpt`, `--streaming` and `--streaming-full` at
+   chunks of 8 with 4 of left context: finite losses, a WER and a
+   `wer_details.txt` from each, no launch, the fast cells counted in
+   `plain_calls`.
+Neither kernel lies on phases 14-16: both launch counters must stay 0.
 
 `plain_calls` (cells or cgMLP branches on the card whose configuration the
 kernel does not take, run on the plain path) is set to 0 at phase 4 and
 must still be 0 after phases 4, 7 and 9: the flagship takes both kernels
 everywhere. The kernels line reports `launches` and `plain_calls` summed
-over phases 4, 7, 9, 10, 12 and 13, and each by phase.
+over phases 4, 7, 9, 10 and 12-16, and each by phase.
 
 The line before the last holds nvidia-smi's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. No JAX is imported here.
@@ -184,6 +215,7 @@ LM_STEP_TOL = 2e-5
 CTC_TOL_REL, CTC_TOL_ABS = 1e-4, 1e-3
 # transducer inference (phase 10)
 TRANSDUCER_PARAMS = 79_254_832   # 73,581,896 recognizer + 5,672,936 transducer
+TRANSDUCER_REQUESTS = 2   # of phase 4's 4 requests, decoded greedily (the longest first)
 STREAM_CHUNK, STREAM_LEFT = 16, 4   # recipes/evaluate.py --chunk-size, --left-context
 # (a) chunk-by-chunk encode_streaming against the offline DCT encode, float32
 # with TF32 off, on max |stream - offline| / (1 + |offline|) over the valid
@@ -202,6 +234,20 @@ RUNNER_SYNTH_STEPS, RUNNER_LM_STEPS = 30, 30
 # corpus (320 utterances of 1.5-5 s): 2 buckets of 60 s
 RUNNER_FLAGSHIP_STEPS, RUNNER_FLAGSHIP_BUCKETS, RUNNER_FLAGSHIP_BATCH_S = 4, 2, 60.0
 RUNNER_FLAGSHIP_EVAL_UTTS = 8
+# transducer training at full width (phase 14)
+TD_MICRO_STEPS = 8
+TD_TOKENS = (40, 120)     # random target tokens per utterance
+TD_JOINT_CHUNK = 64
+# the chunked joint against the whole joint, float32 with TF32 off: the same
+# products over chunks of T, one log-sum-exp each
+TD_CHUNK_LOSS_TOL, TD_CHUNK_GRAD_TOL = 1e-5, 1e-4
+# float32 on the card against float64 on the CPU over a 40-step lattice
+TD_LATTICE_TOL, TD_LATTICE_GRAD_TOL = 1e-5, 1e-4
+# transducer beam (phase 15): frames of each row the sequential oracle runs
+TD_BEAM_CHECK_FRAMES = 40
+# transducer runners (phase 16)
+TRANSDUCER_SYNTH_RECIPE = "recipes/Synthetic/hard_synthetic_transducer.yaml"
+RUNNER_STREAM_CHUNK, RUNNER_STREAM_LEFT = 8, 4
 
 
 def fail(msg: str) -> None:
@@ -1339,10 +1385,10 @@ def phase_transducer(kernel_rows) -> None:
         return transducer_greedy_transcribe(model, td, fbank, stats, wav, lens,
                                             blank_id=cfg.model.blank_index)
 
-    for _, wav, lens in batches:   # warm-up: library kernels pick algorithms per shape
+    for _, wav, lens in batches[:TRANSDUCER_REQUESTS]:   # warm-up: library kernels pick algorithms per shape
         transcribe(wav, lens)
     total_dt = total_audio = 0.0
-    for r, (idx, wav, lens) in enumerate(batches):
+    for r, (idx, wav, lens) in enumerate(batches[:TRANSDUCER_REQUESTS]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         hyps, out = transcribe(wav, lens)
@@ -1358,7 +1404,7 @@ def phase_transducer(kernel_rows) -> None:
         print(f"transducer greedy request {r}: {BATCH} utterances, {audio_s:.2f} audio-s, "
               f"encoder frames {enc.shape[1]}, latency {dt * 1e3:.2f} ms, "
               f"{audio_s / dt:.1f} audio-s/s, tokens per row {n}")
-    print(f"transducer greedy: {N_REQUESTS} requests, {total_audio:.2f} audio-s in "
+    print(f"transducer greedy: {TRANSDUCER_REQUESTS} requests, {total_audio:.2f} audio-s in "
           f"{total_dt * 1e3:.2f} ms ({total_audio / total_dt:.1f} audio-s/s, real-time factor "
           f"{total_dt / total_audio:.5f})")
 
@@ -1465,6 +1511,345 @@ def phase_transducer(kernel_rows) -> None:
     for name, n in zip(("summary_mixing", "csgu"), plain):
         kernel_rows[name]["launches_by_path"]["transducer"] = 0
         kernel_rows[name]["plain_calls_by_path"]["transducer"] = n
+
+
+def request0(sample_rate: int) -> tuple:
+    """Request 0 of phases 4 and 10 (the 8 longest of the 32 synthetic
+    utterances, T = 751 encoder frames): `(wav [8, N], wav_lens [8])`."""
+    from summarymixing_tpu_torch.transcribe import batch_waveforms
+
+    _, wav, lens = next(iter(batch_waveforms(synthetic_waveforms(N_REQUESTS * BATCH, seed=11),
+                                             BATCH, pad_quantum=sample_rate // 2)))
+    return wav, lens
+
+
+def transducer_batch(wav, lens, vocab: int, seed: int = 41) -> dict:
+    """Request 0's waveforms with random token ids in [1, vocab), 40-120 per
+    utterance, padded with 0."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    token_lens = rng.integers(TD_TOKENS[0], TD_TOKENS[1] + 1, wav.shape[0]).astype(np.int32)
+    tokens = np.zeros((wav.shape[0], int(token_lens.max())), np.int32)
+    for i, u in enumerate(token_lens):
+        tokens[i, :u] = rng.integers(1, vocab, u)
+    return {"wav": wav, "wav_lens": lens, "tokens": torch.from_numpy(tokens).cuda(),
+            "token_lens": torch.from_numpy(token_lens).cuda()}
+
+
+def rel_l2(got, want) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm((got - want).double())
+                 / torch.linalg.vector_norm(want.double()))
+
+
+def phase_transducer_train(kernel_rows) -> None:
+    """The transducer recipe's training at full width (bf16 encoder,
+    dropout, SpecAugment, speed perturbation, DCT, accumulation 4) on
+    request 0 with random targets: 8 micro steps through
+    `TransducerTrainer.train_step`, the accumulation held bit for bit, the
+    chunked joint against the whole joint, and the card's lattice against
+    float64 on the CPU."""
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model, build_transducer_trainer
+    from summarymixing_tpu_torch.losses.transducer import (
+        transducer_loss,
+        transducer_loss_chunked,
+    )
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+
+    cfg = transducer_config()
+    kernels = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
+    for fn in kernels:
+        fn.launches, fn.plain_calls = 0, 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, fbank, td = build_model(cfg)
+    trainer = build_transducer_trainer(cfg, model, fbank, td)
+    state = trainer.init_state(cfg.seed)
+    wav, lens = request0(cfg.features.sample_rate)
+    batch = transducer_batch(wav, lens, cfg.model.output_neurons)
+    k = cfg.training.grad_accumulation_factor
+    print(f"transducer train: recipe {cfg.name}, bf16 encoder compute, dropout "
+          f"{cfg.model.transformer_dropout}, speed perturbation and SpecAugment on, DCT "
+          f"(chunkwise p {cfg.transducer.chunkwise_prob}), accumulation {k}, "
+          f"{cfg.training.scheduler}; batch {BATCH} utterances, "
+          f"{float(lens.sum()) / cfg.features.sample_rate:.2f} audio-s, target tokens "
+          f"{batch['token_lens'].tolist()}")
+    inner = lambda st: st["opt_state"]["inner"]   # noqa: E731
+    times = []
+    for i in range(1, TD_MICRO_STEPS + 1):
+        before = [p.detach().clone() for p in trainer.params]
+        count0 = int(inner(state)["count"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        same = all(torch.equal(p, q) for p, q in zip(trainer.params, before))
+        fired = i % k == 0
+        loss = float(metrics["loss"])
+        print(f"transducer train micro step {i}: {times[-1] * 1e3:.1f} ms, loss {loss:.4f} "
+              f"(rnnt {float(metrics['transducer']):.4f}, ctc {float(metrics['ctc']):.4f}), "
+              f"micro grad norm {float(metrics['grad_norm']):.4f}, mini_step "
+              f"{state['opt_state']['mini_step']}, inner count {int(inner(state)['count'])}, "
+              f"parameters {'unchanged' if same else 'changed'}")
+        if not np.isfinite(loss) or metrics["nonfinite_skipped"]:
+            fail(f"transducer train micro step {i}: loss {loss}")
+        if int(inner(state)["count"]) != count0 + fired:
+            fail(f"transducer train micro step {i}: the inner optimizer stepped "
+                 f"{int(inner(state)['count']) - count0} times, expected {int(fired)}")
+        # the warm-up's rate at count 0 is 0: the first update moves the
+        # moments and the count, not the parameters
+        if same != (not fired or i == k):
+            fail(f"transducer train micro step {i}: parameters "
+                 f"{'unchanged' if same else 'changed'}; they must change only when the "
+                 f"accumulated update fires with a positive rate (micro steps {2 * k}, ...)")
+    ms = np.asarray(times[1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"transducer train: {TD_MICRO_STEPS} micro steps, median {np.median(ms):.1f} ms, min "
+          f"{ms.min():.1f}, max {ms.max():.1f} ms per micro step (the first left out); peak "
+          f"memory allocated {peak:.2f} GiB; accumulation held: parameters bit for bit the "
+          f"same after micro steps 1-{k - 1}, {k} (rate 0 at count 0) and {k + 1}-{2 * k - 1}, "
+          f"changed after {2 * k}")
+    rose = [fn.launches for fn in kernels]
+    plain = [fn.plain_calls for fn in kernels]
+    if rose != [0, 0]:
+        fail(f"transducer train: a hand-written kernel was launched: {rose}")
+    # one more micro step (not counted above) under the profiler
+    device_profile(lambda: trainer.train_step(state, batch), "transducer train micro step",
+                   top=16)
+    for name, n in zip(("summary_mixing", "csgu"), plain):
+        kernel_rows[name]["launches_by_path"]["transducer_train"] = 0
+        kernel_rows[name]["plain_calls_by_path"]["transducer_train"] = n
+
+    # the chunked joint against the whole joint, in float32 with TF32 off
+    with torch.no_grad():
+        _, (_, _, (enc_out, enc_lens)) = trainer._forward_loss(state["norm_stats"], batch,
+                                                               False, 0)
+    tokens, token_lens = batch["tokens"], batch["token_lens"]
+    results = []
+    for chunked in (False, False, True, True):   # each timed on its second call
+        e = td.encode_proj(enc_out).detach().requires_grad_(True)
+        with torch.no_grad():
+            d0 = td.predictor(trainer._add_blank_bos(tokens))
+        d = d0.detach().requires_grad_(True)
+        td.zero_grad()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if chunked:
+            loss = transducer_loss_chunked(e, d, td.joint, tokens, enc_lens, token_lens,
+                                           chunk_size=TD_JOINT_CHUNK)
+        else:
+            loss = transducer_loss(td.joint(e, d), tokens, enc_lens, token_lens)
+        loss.backward()
+        torch.cuda.synchronize()
+        results.append((float(loss.detach()), e.grad, d.grad,
+                        td.joint.transducer_lin.weight.grad.clone(),
+                        time.perf_counter() - t0))
+    (lw, *gw, tw), (lc, *gc, tc) = results[1], results[3]
+    loss_rel = abs(lc - lw) / abs(lw)
+    grad_rel = max(rel_l2(a, b) for a, b in zip(gc, gw))
+    ok = loss_rel <= TD_CHUNK_LOSS_TOL and grad_rel <= TD_CHUNK_GRAD_TOL
+    print(f"transducer train check: transducer_loss_chunked (chunks of {TD_JOINT_CHUNK}) vs "
+          f"transducer_loss at B={BATCH}, T={enc_out.shape[1]}, U+1={tokens.shape[1] + 1}, "
+          f"V={cfg.model.output_neurons}: loss {lc:.6f} vs {lw:.6f}, rel {loss_rel:.3e} (tol "
+          f"{TD_CHUNK_LOSS_TOL:.0e}); gradients (enc_proj, dec_proj, joint) max rel L2 "
+          f"{grad_rel:.3e} (tol {TD_CHUNK_GRAD_TOL:.0e}) {'ok' if ok else 'FAILED'}; forward + "
+          f"backward {tw * 1e3:.1f} ms whole, {tc * 1e3:.1f} ms chunked")
+    if not ok:
+        fail("transducer train: the chunked joint's loss disagrees with the whole joint's")
+
+    # a small random lattice on the card against float64 on the CPU
+    g = torch.Generator().manual_seed(5)
+    logits = 2.0 * torch.randn(3, 40, 12, 30, generator=g)
+    targets = torch.randint(1, 30, (3, 11), generator=g)
+    il, tl = torch.tensor([40, 33, 17]), torch.tensor([11, 7, 0])
+    x64 = logits.double().requires_grad_(True)
+    want = transducer_loss(x64, targets, il, tl, reduction="none")
+    want.sum().backward()
+    x32 = logits.cuda().requires_grad_(True)
+    got = transducer_loss(x32, targets.cuda(), il.cuda(), tl.cuda(), reduction="none")
+    got.sum().backward()
+    l_err = float(((got.detach().double().cpu() - want.detach()).abs()
+                   / want.detach().abs()).max())
+    g_err = rel_l2(x32.grad.cpu().double(), x64.grad)
+    ok = l_err <= TD_LATTICE_TOL and g_err <= TD_LATTICE_GRAD_TOL
+    print(f"transducer train check: a random lattice (B=3, T=40, U+1=12, V=30) on the card in "
+          f"float32 vs the CPU in float64: loss max rel {l_err:.3e} (tol {TD_LATTICE_TOL:.0e}), "
+          f"gradient rel L2 {g_err:.3e} (tol {TD_LATTICE_GRAD_TOL:.0e}) "
+          f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("transducer train: the card's lattice disagrees with float64")
+    del trainer, model, td, state, results
+    torch.cuda.empty_cache()
+
+
+def phase_transducer_beam(kernel_rows) -> None:
+    """The transducer recipe's test decode at full width: request 0 through
+    the batched beam search (beam 10, state and expand beam 2.3) with the
+    RNNLM at `LMConfig(model_type="rnn")` fused at 0.5, and without it; the
+    batched search against the sequential one on the first frames."""
+    import torch
+
+    from summarymixing_tpu_torch.config import LMConfig, build_lm, build_model
+    from summarymixing_tpu_torch.decoding.transducer_search import (
+        transducer_beam_search,
+        transducer_beam_search_batched,
+    )
+    from summarymixing_tpu_torch.frontend.features import InputNormalization
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+
+    cfg = transducer_config()
+    dec = cfg.decoding
+    kernels = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
+    for fn in kernels:
+        fn.launches, fn.plain_calls = 0, 0
+    torch.cuda.reset_peak_memory_stats()
+    model, fbank, td = build_model(cfg)
+    lm = build_lm(LMConfig(model_type="rnn"), cfg.model.output_neurons, seed=cfg.seed)
+    n_lm = sum(p.numel() for p in lm.parameters())
+    stats = seeded_norm_stats()
+    wav, lens = request0(cfg.features.sample_rate)
+    kw = dict(blank_id=cfg.model.blank_index, bos_id=cfg.model.bos_index,
+              beam_size=dec.beam_size, state_beam=dec.state_beam, expand_beam=dec.expand_beam)
+    lm_kw = dict(lm_step=lm.step, lm_init=lm.initial_state, lm_weight=dec.lm_weight)
+    fns = (td.predictor_init, td.predictor_step, td.joint_step)
+    print(f"transducer beam: beam {dec.beam_size}, state beam {dec.state_beam}, expand beam "
+          f"{dec.expand_beam}; RNNLM (emb 128, 2 x 2048 LSTM, dnn 512) {n_lm:,} float32 "
+          f"parameters at LM weight {dec.lm_weight}")
+
+    def encode():
+        with torch.inference_mode():
+            feats, _ = InputNormalization()(fbank(wav), stats)
+            enc, enc_lens = model.encode(feats, fbank.frame_lengths(lens))
+            return td.encode_proj(enc), enc_lens
+
+    def search(enc_proj, enc_lens, with_lm, **extra):
+        with torch.inference_mode():
+            return transducer_beam_search_batched(enc_proj, enc_lens, *fns, **kw, **extra,
+                                                  **(lm_kw if with_lm else {}))
+
+    enc_proj, enc_lens = encode()
+    search(enc_proj[:, :8], torch.clamp(enc_lens, max=8), True)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc_proj, enc_lens = encode()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks, tlens, scores = search(enc_proj, enc_lens, True)
+    hyp_lens = tlens.tolist()
+    t2 = time.perf_counter()
+    rounds = enc_proj.shape[1] * dec.beam_size
+    if not torch.isfinite(scores).all() or min(hyp_lens) < 0:
+        fail(f"transducer beam: scores {scores.tolist()}, lengths {hyp_lens}")
+    if any(t <= 0 or t >= cfg.model.output_neurons
+           for i, n in enumerate(hyp_lens) for t in toks[i, :n].tolist()):
+        fail("transducer beam: token ids outside [1, vocabulary)")
+    print(f"transducer beam request 0 (with the RNNLM): "
+          f"{(t2 - t0) * 1e3:.1f} ms wall, encoder {(t1 - t0) * 1e3:.1f} ms, search "
+          f"{(t2 - t1) * 1e3:.1f} ms ({rounds} rounds over T={enc_proj.shape[1]}, "
+          f"{rounds / (t2 - t1):.1f} rounds/s, {(t2 - t1) * 1e3 / rounds:.3f} ms per "
+          f"round); tokens per row {hyp_lens}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"transducer beam: peak memory allocated {peak:.2f} GiB")
+
+    # batched against sequential over the first frames of each row; the
+    # batched search keeps every expansion within expand_beam (max_expand =
+    # vocab - 1), as the sequential one does
+    n_frames = min(TD_BEAM_CHECK_FRAMES, enc_proj.shape[1])
+    short = torch.clamp(enc_lens, max=n_frames)
+    device_profile(lambda: search(enc_proj[:, :n_frames], short, True),
+                   f"transducer beam with the RNNLM, the first {n_frames} frames", top=16)
+    for with_lm in (False, True):
+        t0 = time.perf_counter()
+        btoks, blens, _ = search(enc_proj[:, :n_frames], short, with_lm,
+                                 max_expand=cfg.model.output_neurons - 1)
+        batched = [btoks[i, :int(blens[i])].tolist() for i in range(BATCH)]
+        t1 = time.perf_counter()
+        seq = [transducer_beam_search(enc_proj[i, :n_frames], int(short[i]), *fns, **kw,
+                                      **(lm_kw if with_lm else {}))[0][0]
+               for i in range(BATCH)]
+        t2 = time.perf_counter()
+        same = sum(a == b for a, b in zip(batched, seq))
+        print(f"transducer beam check ({'with' if with_lm else 'without'} the RNNLM): batched "
+              f"(max_expand {cfg.model.output_neurons - 1}) vs sequential over the first "
+              f"{n_frames} frames: {same}/{BATCH} rows with the same tokens; batched "
+              f"{(t1 - t0) * 1e3:.1f} ms, sequential {(t2 - t1) * 1e3:.1f} ms; tokens per row "
+              f"{[len(h) for h in seq]}")
+        if same != BATCH:
+            fail("transducer beam: the batched search disagrees with the sequential search")
+    rose = [fn.launches for fn in kernels]
+    plain = [fn.plain_calls for fn in kernels]
+    if rose != [0, 0]:
+        fail(f"transducer beam: a hand-written kernel was launched: {rose}")
+    for name, n in zip(("summary_mixing", "csgu"), plain):
+        kernel_rows[name]["launches_by_path"]["transducer_beam"] = 0
+        kernel_rows[name]["plain_calls_by_path"]["transducer_beam"] = n
+    del model, td, lm
+    torch.cuda.empty_cache()
+
+
+def phase_runner_transducer(kernel_rows, here: str, corpus: dict, root: str) -> None:
+    """The three runners on recipes/Synthetic/hard_synthetic_transducer.yaml
+    (d128, float32, the fast cell): the plain path, counted."""
+    from summarymixing_tpu_torch.data.dataio import read_manifest_csv
+    from summarymixing_tpu_torch.recipes import evaluate, train, train_lm
+
+    recipe = os.path.join(here, TRANSDUCER_SYNTH_RECIPE)
+    run, lm_run = os.path.join(root, "transducer"), os.path.join(root, "transducer_lm")
+    n_test = len(read_manifest_csv(corpus["test"]))
+    plain_total = {}
+
+    def no_launch(label, counts):
+        for name, c in counts.items():
+            plain_total[name] = plain_total.get(name, 0) + c[1]
+            if c[0]:
+                fail(f"runner {label}: {name} launched {c[0]} times")
+
+    res, counts, secs, peak = run_stage("transducer train", train.main, [
+        recipe, "--train-manifest", corpus["train"], "--valid-manifest", corpus["dev"],
+        "--test-manifest", corpus["test"], "--output", run, "--steps",
+        str(RUNNER_SYNTH_STEPS)])
+    print(f"runner transducer train: {step_ms(res['step_s'])}; {res['epochs']} epochs; valid "
+          f"{res['valid']}; test (beam 10) WER {res['test']['WER']:.2f}")
+    if (res["steps"] != RUNNER_SYNTH_STEPS or not np.isfinite(res["valid"]["loss"])
+            or not np.isfinite(res["test"]["WER"])):
+        fail(f"runner transducer train: {res['steps']} steps, valid {res['valid']}")
+    no_launch("transducer train", counts)
+    res, counts, secs, peak = run_stage("transducer train_lm", train_lm.main, [
+        recipe, "--text", corpus["lm_text"], "--tokenizer-dir", run, "--output", lm_run,
+        "--steps", str(RUNNER_LM_STEPS), "--model-type", "rnn"])
+    print(f"runner transducer train_lm (RNNLM): {step_ms(res['step_s'])}; loss "
+          f"{res['loss']:.4f}; {res['params']:,} parameters")
+    if res["steps"] != RUNNER_LM_STEPS or not np.isfinite(res["loss"]):
+        fail(f"runner transducer train_lm: {res['steps']} steps, loss {res['loss']}")
+    stream = ["--chunk-size", str(RUNNER_STREAM_CHUNK), "--left-context",
+              str(RUNNER_STREAM_LEFT)]
+    for label, extra in (("greedy", []), ("beam", ["--beam"]),
+                         ("beam + RNNLM", ["--beam", "--lm-ckpt", lm_run]),
+                         ("streaming", ["--streaming"] + stream),
+                         ("streaming-full", ["--streaming-full"] + stream)):
+        out_dir = os.path.join(root, "eval_transducer_" + label.replace(" + ", "_"))
+        summary, counts_e, secs, peak = run_stage(f"transducer evaluate {label}", evaluate.main, [
+            recipe, "--test-manifest", corpus["test"], "--ckpt", os.path.join(run, "save"),
+            "--avg", "2", "--output", out_dir] + extra)
+        check_eval(f"transducer evaluate {label}", summary, n_test)
+        if not os.path.exists(os.path.join(out_dir, "wer_details.txt")):
+            fail(f"runner transducer evaluate {label}: no wer_details.txt")
+        timing = {k: summary[k] for k in ("chunk_latency_ms_p50", "chunk_latency_ms_p90",
+                                          "chunk_ms_mean") if k in summary}
+        print(f"runner transducer evaluate {label}: WER {summary['WER']:.2f} over "
+              f"{summary['utterances']} utterances, decode {summary['decode']}, "
+              f"{secs * 1e3:.1f} ms {timing}")
+        no_launch(f"transducer evaluate {label}", counts_e)
+    if not plain_total.get("summary_mixing"):
+        fail(f"runner transducer: no fast-mode cell counted on the plain path: {plain_total}")
+    for name, n in plain_total.items():
+        kernel_rows[name]["launches_by_path"]["runner_transducer"] = 0
+        kernel_rows[name]["plain_calls_by_path"]["runner_transducer"] = n
 
 
 def make_corpus(here: str, root: str) -> dict:
@@ -1669,10 +2054,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_transducer(kernel_rows)
     torch.cuda.empty_cache()
+    phase_transducer_train(kernel_rows)
+    phase_transducer_beam(kernel_rows)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_") as root:
         corpus = make_corpus(here, os.path.join(root, "corpus"))
         phase_runner_synthetic(kernel_rows, here, corpus, root)
         phase_runner_flagship(kernel_rows, here, corpus, root)
+        phase_runner_transducer(kernel_rows, here, corpus, root)
     for row in kernel_rows.values():
         row["launches"] = sum(row["launches_by_path"].values())
         row["plain_calls"] = sum(row["plain_calls_by_path"].values())

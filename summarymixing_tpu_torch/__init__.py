@@ -21,8 +21,13 @@ For the streaming Conformer-SummaryMixing transducer recipes: the
 Conformer encoder with the fast-mode cell (`models/conformer.py`), the
 transducer (`models/transducer.py`) and its greedy decode, offline
 (`transcribe.transducer_greedy_transcribe`), by encoder chunks
-(`evaluate.streaming_decode`) and from raw audio (`streaming.py`); no
-hand-written kernel lies on that path, as no Pallas kernel does in the
+(`evaluate.streaming_decode`) and from raw audio (`streaming.py`); its
+training (`training/transducer_trainer.py`: the RNN-T loss of
+`losses/transducer.py`, Dynamic Chunk Training, the CTC aux, gradient
+accumulation and the warm-up + exponential-decay schedule of
+`training/optim.py`) and its test stage (the batched beam search with
+RNNLM fusion of `decoding/transducer_search.py` and `models/lm.py`); no
+hand-written kernel lies on those paths, as no Pallas kernel does in the
 JAX package. The recipes' run loop (`recipes/`: the `train`, `train_lm`
 and `evaluate` runners over `data/`'s manifests, bucketed batches and
 tokenizers, recipes read by `config/yaml_lite.py`). Parameters are
@@ -34,7 +39,8 @@ Conventions kept from the JAX package at public functions: `[B, T, C]`
 sequences, float masks with 1 = valid, NHWC order where the CNN frontend
 flattens. Entry points (`config.build_model`, `config.build_lm`,
 `transcribe.batch_waveforms`, the checkpoint restores, and on the model's
-device `training.trainer.ASRTrainer`, `evaluate.evaluate_beam`,
+device `training.trainer.ASRTrainer`,
+`training.transducer_trainer.TransducerTrainer`, `evaluate.evaluate_beam`,
 `evaluate.streaming_decode` and `streaming.make_streaming_infer_fns`) run
 on `cuda` unless the caller passes `device="cpu"`; with no card they raise
 rather than fall back.

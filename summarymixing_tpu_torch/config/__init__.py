@@ -1,6 +1,12 @@
 """Recipe schema and loader of the port."""
 
-from summarymixing_tpu_torch.config.loader import build_lm, build_model, build_trainer, load_recipe
+from summarymixing_tpu_torch.config.loader import (
+    build_lm,
+    build_model,
+    build_trainer,
+    build_transducer_trainer,
+    load_recipe,
+)
 from summarymixing_tpu_torch.config.schema import (
     DecodingConfig,
     FeaturesConfig,
@@ -23,4 +29,5 @@ __all__ = [
     "build_model",
     "build_lm",
     "build_trainer",
+    "build_transducer_trainer",
 ]

@@ -1,7 +1,8 @@
-"""YAML recipe loader, `build_model`, `build_lm` and `build_trainer` — the
-port of `summarymixing_tpu/config/loader.py` for the Branchformer-SummaryMixing
-CTC/attention recipe and its fusion LM, the Conformer-SummaryMixing
-transducer recipes, and of the trainer set-up of `recipes/train.py`.
+"""YAML recipe loader, `build_model`, `build_lm`, `build_trainer` and
+`build_transducer_trainer` — the port of `summarymixing_tpu/config/loader.py`
+for the Branchformer-SummaryMixing CTC/attention recipe and its fusion LM,
+the Conformer-SummaryMixing transducer recipes and their RNNLM, and of the
+trainer set-up of `recipes/train.py`.
 Recipes are read by `config/yaml_lite.py`, the port's own reader of the
 YAML subset they are written in, so no YAML package is needed."""
 
@@ -133,10 +134,11 @@ def build_model(cfg: RecipeConfig, device=None) -> tuple:
 
 
 def build_lm(lm_cfg: LMConfig, vocab: int, device=None, seed: int = 0) -> "torch.nn.Module":
-    """LMConfig -> the fusion LM (`models.lm.build_lm`) in eval mode on
-    `device` (the card unless `device` says otherwise), its weights drawn
-    from `seed` with a `torch.Generator` as `build_model` draws the
-    recognizer's. The LM computes in float32, as the JAX recipes build it."""
+    """LMConfig -> the fusion LM (`models.lm.build_lm`: the Transformer LM or
+    the RNNLM) in eval mode on `device` (the card unless `device` says
+    otherwise), its weights drawn from `seed` with a `torch.Generator` as
+    `build_model` draws the recognizer's. The LM computes in float32, as
+    the JAX recipes build it."""
     from summarymixing_tpu_torch.models.lm import build_lm as lm_module
     from summarymixing_tpu_torch.utils.init import init_parameters
 
@@ -150,39 +152,101 @@ def build_lm(lm_cfg: LMConfig, vocab: int, device=None, seed: int = 0) -> "torch
     return lm.eval()
 
 
-def build_trainer(cfg: RecipeConfig, model, fbank):
-    """RecipeConfig -> `ASRTrainer` for `model`: the training section's
-    loss weights and label smoothing, AdamW (betas, eps, weight decay) with
-    the Noam schedule (peak `lr_adam`, `n_warmup_steps`) and gradient
-    clipping, the augment section's speed perturbation and SpecAugment, the
-    features section's normalization epochs and the model's token ids."""
-    from summarymixing_tpu_torch.frontend.augment import SpecAugmentConfig
-    from summarymixing_tpu_torch.training.optim import AdamW, noam_schedule
-    from summarymixing_tpu_torch.training.trainer import ASRTrainer, TrainerConfig
+def _optimizer(cfg: RecipeConfig):
+    """The training section's optimizer, the JAX `recipes/train.py::build_tx`:
+    AdamW (betas, eps, weight decay) with gradient clipping and the `noam`
+    (peak `lr_adam`, `n_warmup_steps`) or `warm_exp_decay` schedule (`lr_adam`,
+    `n_warmup_steps`, `optimizer_step_limit` or 200,000, `decay_factor`),
+    accumulating `grad_accumulation_factor` micro-batches. The two-stage
+    Adam -> SGD optimizer is refused."""
+    from summarymixing_tpu_torch.training.optim import (
+        make_optimizer,
+        noam_schedule,
+        warm_and_exp_decay_schedule,
+    )
 
-    t, a, m = cfg.training, cfg.augment, cfg.model
-    if t.scheduler != "noam" or t.stage_one_epochs or t.grad_accumulation_factor > 1:
-        raise NotImplementedError("the port trains with AdamW + Noam and no gradient "
-                                  "accumulation; see ROADMAP.md")
+    t = cfg.training
+    if t.scheduler == "noam" and not t.stage_one_epochs:
+        schedule = noam_schedule(t.lr_adam, t.n_warmup_steps)
+    elif t.scheduler == "warm_exp_decay" and not t.stage_one_epochs:
+        schedule = warm_and_exp_decay_schedule(t.lr_adam, t.n_warmup_steps,
+                                               t.optimizer_step_limit or 200000, t.decay_factor)
+    else:
+        raise NotImplementedError(f"scheduler {t.scheduler!r} (stage_one_epochs "
+                                  f"{t.stage_one_epochs}): the two-stage Adam -> SGD optimizer "
+                                  "is not ported; see ROADMAP.md queue 1 item 5")
+    return make_optimizer(schedule, t.weight_decay, tuple(t.adam_betas), t.adam_eps,
+                          t.max_grad_norm, t.grad_accumulation_factor)
+
+
+def _spec_augment(cfg: RecipeConfig):
+    """The augment section's SpecAugment configuration (None when
+    `fea_augment` is off); refuses what is not ported."""
+    from summarymixing_tpu_torch.frontend.augment import SpecAugmentConfig
+
+    a = cfg.augment
     if a.concat_original or a.augment_warmup_steps > 0:
         raise NotImplementedError(
             f"augment.concat_original ({a.concat_original}) and augment.augment_warmup_steps "
             f"({a.augment_warmup_steps}) are not ported; see ROADMAP.md queue 1 item 5")
-    augment = None
-    if a.fea_augment:
-        augment = SpecAugmentConfig(
-            time_drop_length=(a.time_drop_length_low, a.time_drop_length_high),
-            time_drop_count=a.time_drop_count,
-            freq_drop_length=(a.freq_drop_length_low, a.freq_drop_length_high),
-            freq_drop_count=a.freq_drop_count, warp_window=a.time_warp_window,
-            replace=a.drop_replace, min_augmentations=a.min_augmentations,
-            max_augmentations=a.max_augmentations,
-            shuffle_augmentations=a.shuffle_augmentations)
-    optimizer = AdamW(noam_schedule(t.lr_adam, t.n_warmup_steps), t.weight_decay,
-                      tuple(t.adam_betas), t.adam_eps, t.max_grad_norm)
+    if not a.fea_augment:
+        return None
+    return SpecAugmentConfig(
+        time_drop_length=(a.time_drop_length_low, a.time_drop_length_high),
+        time_drop_count=a.time_drop_count,
+        freq_drop_length=(a.freq_drop_length_low, a.freq_drop_length_high),
+        freq_drop_count=a.freq_drop_count, warp_window=a.time_warp_window,
+        replace=a.drop_replace, min_augmentations=a.min_augmentations,
+        max_augmentations=a.max_augmentations, shuffle_augmentations=a.shuffle_augmentations)
+
+
+def build_trainer(cfg: RecipeConfig, model, fbank):
+    """RecipeConfig -> `ASRTrainer` for `model`: the training section's
+    loss weights and label smoothing, its optimizer (`_optimizer`), the
+    augment section's speed perturbation and SpecAugment, the features
+    section's normalization epochs and the model's token ids."""
+    from summarymixing_tpu_torch.training.trainer import ASRTrainer, TrainerConfig
+
+    t, a, m = cfg.training, cfg.augment, cfg.model
+    augment = _spec_augment(cfg)
     config = TrainerConfig(
         ctc_weight=t.ctc_weight, label_smoothing=t.label_smoothing, blank_id=m.blank_index,
         pad_id=m.pad_index, bos_id=m.bos_index, eos_id=m.eos_index, augment=augment,
         speed_perturb=a.speed_perturb, speeds=tuple(a.speeds),
         normalize_update_until_epoch=cfg.features.normalize_update_until_epoch)
-    return ASRTrainer(model, optimizer, fbank, config)
+    return ASRTrainer(model, _optimizer(cfg), fbank, config)
+
+
+def build_transducer_trainer(cfg: RecipeConfig, model, fbank, transducer, train: bool = True):
+    """RecipeConfig -> `TransducerTrainer` for a transducer recipe's models,
+    mapped as the JAX `recipes/train.py::run_transducer` maps it: CTC and
+    CE weights, `number_of_ctc_epochs`, the blank id, SpecAugment and speed
+    perturbation, the normalization epochs, the DCT sampler of the
+    `transducer` section, `joint_chunk` and the optimizer. With `train`
+    False, the evaluation trainer of the JAX `recipes/evaluate.py`: no
+    optimizer, augmentation or DCT."""
+    from summarymixing_tpu_torch.training.transducer_trainer import (
+        DynChunkTrainSamplerConfig,
+        TransducerTrainer,
+        TransducerTrainerConfig,
+    )
+
+    t, a, td = cfg.training, cfg.augment, cfg.transducer
+    if not train:
+        return TransducerTrainer(model, transducer, None, fbank, TransducerTrainerConfig(
+            ctc_weight=t.ctc_weight, blank_id=cfg.model.blank_index, augment=None, dct=None,
+            joint_chunk=td.joint_chunk))
+    config = TransducerTrainerConfig(
+        ctc_weight=t.ctc_weight, ce_weight=t.ce_weight,
+        number_of_ctc_epochs=t.number_of_ctc_epochs, blank_id=cfg.model.blank_index,
+        augment=_spec_augment(cfg), speed_perturb=a.speed_perturb,
+        speeds=tuple(a.speeds),
+        normalize_update_until_epoch=cfg.features.normalize_update_until_epoch,
+        dct=DynChunkTrainSamplerConfig(
+            chunkwise_prob=td.chunkwise_prob, chunk_size_min=td.chunk_size_min,
+            chunk_size_max=td.chunk_size_max,
+            limited_left_context_prob=td.limited_left_context_prob,
+            left_context_chunks_min=td.left_context_chunks_min,
+            left_context_chunks_max=td.left_context_chunks_max),
+        joint_chunk=td.joint_chunk)
+    return TransducerTrainer(model, transducer, _optimizer(cfg), fbank, config)

@@ -50,16 +50,16 @@ def static_decode_length(cfg, max_samples: int, fbank) -> int:
     return min(max(int(frames * cfg.decoding.max_decode_ratio), 8), 256)
 
 
-def restore_lm(cfg, lm_ckpt_dir: str, device=None):
+def restore_lm(cfg, lm_ckpt_dir: str, device=None, default_model_type: str = "transformer"):
     """The fusion LM of a run directory, `(lm_cfg, lm)` on `device` (the
     card unless told otherwise), or None when it holds no checkpoint. An
     `lm_config.json` beside its `save/` directory takes precedence over the
     recipe's `lm:` block (the weights fix the architecture); without
-    either, `LMConfig()` applies."""
+    either, `LMConfig(model_type=default_model_type)` applies."""
     from summarymixing_tpu_torch.config.loader import build_lm
     from summarymixing_tpu_torch.config.schema import LMConfig
 
-    lm_cfg = cfg.lm or LMConfig()
+    lm_cfg = cfg.lm or LMConfig(model_type=default_model_type)
     save_dir = (lm_ckpt_dir if os.path.basename(lm_ckpt_dir) == "save"
                 else os.path.join(lm_ckpt_dir, "save"))
     cfg_path = os.path.join(os.path.dirname(save_dir), "lm_config.json")

@@ -1,5 +1,5 @@
-"""Sequence KL-divergence with label smoothing — the port of
-`summarymixing_tpu/losses/kldiv.py::kldiv_loss`."""
+"""Sequence KL-divergence with label smoothing and the masked NLL — the port
+of `summarymixing_tpu/losses/kldiv.py::kldiv_loss` and `nll_loss`."""
 
 from __future__ import annotations
 
@@ -42,3 +42,11 @@ def kldiv_loss(log_probs: torch.Tensor, targets: torch.Tensor,
     if reduction == "batchmean":
         return (nll.sum(dim=1) / mask.sum(dim=1).clamp_min(1.0)).mean()
     raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def nll_loss(log_probs: torch.Tensor, targets: torch.Tensor,
+             target_lengths: Optional[torch.Tensor] = None, pad_idx: Optional[int] = None,
+             reduction: str = "batchmean") -> torch.Tensor:
+    """Masked negative log-likelihood: `kldiv_loss` without smoothing."""
+    return kldiv_loss(log_probs, targets, target_lengths, label_smoothing=0.0, pad_idx=pad_idx,
+                      reduction=reduction)

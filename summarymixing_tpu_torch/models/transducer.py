@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from summarymixing_tpu_torch.ops.layers import Dense, Dropout
-from summarymixing_tpu_torch.ops.linear import get_activation, uniform_fan_in_
+from summarymixing_tpu_torch.ops.linear import get_activation
+from summarymixing_tpu_torch.utils.init import lecun_normal_
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
@@ -33,7 +34,9 @@ def one_hot_no_blank(tokens: torch.Tensor, vocab: int, blank_id: int = 0) -> tor
 
 class LSTMCell(nn.Module):
     """flax's `OptimizedLSTMCell`: gates = x·W_iᵀ + (h·W_hᵀ + b), split i, f,
-    g, o; c' = σ(f)·c + σ(i)·tanh(g); h' = σ(o)·tanh(c'). Carry `(c, h)`."""
+    g, o; c' = σ(f)·c + σ(i)·tanh(g); h' = σ(o)·tanh(c'). Carry `(c, h)`.
+    Drawn as flax draws it: the input kernels `lecun_normal`, each gate's
+    H×H recurrent kernel orthogonal, the biases zero."""
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
@@ -43,8 +46,11 @@ class LSTMCell(nn.Module):
         self.bias = nn.Parameter(torch.empty(4 * hidden_size))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        uniform_fan_in_(self.weight_ih, self.weight_ih.shape[1], generator)
-        uniform_fan_in_(self.weight_hh, self.hidden_size, generator)
+        h = self.hidden_size
+        lecun_normal_(self.weight_ih, self.weight_ih.shape[1], generator)
+        with torch.no_grad():
+            for g in range(4):
+                nn.init.orthogonal_(self.weight_hh[g * h:(g + 1) * h], generator=generator)
         nn.init.zeros_(self.bias)
 
     def initial_state(self, batch: int) -> Carry:

@@ -52,6 +52,18 @@ def uniform_fan_in_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Gene
         return t.uniform_(-bound, bound, generator=generator)
 
 
+class FanInDense(Dense):
+    """A `Dense` drawn as torch's `Linear` is: weight uniform(±1/sqrt(fan_in)),
+    bias zero. The flax `SummaryNet` draws its plain layers so
+    (`uniform_fan_in_init`, zero bias); other `Dense` layers draw
+    `lecun_normal` (`utils.init.init_parameters`)."""
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        uniform_fan_in_(self.weight, self.in_features, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
 class ParallelLinear(nn.Module):
     """Input `[B, T, F]` is viewed as `[B, T, n_split, F/n_split]` (a 4-D
     input reuses its head axis); head h is mapped by `kernel[h]`. With a
@@ -110,7 +122,7 @@ class SummaryNet(nn.Module):
                 layer = ParallelLinear(fan_in, feats, n_split,
                                        combine_out_dims=(i == len(self.features) - 1))
             else:
-                layer = Dense(fan_in, feats)
+                layer = FanInDense(fan_in, feats)
             self.add_module(f"layer_{i}", layer)
             fan_in = feats
 

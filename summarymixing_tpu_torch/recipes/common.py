@@ -1,8 +1,10 @@
 """Pieces the port's runners share — the port of the helpers of the JAX
 package's `recipes/train.py`: bucket construction and the steps-per-epoch
 estimate, the batch iterator (WAV files in, tensors on the run's device
-out), scoring of decoded batches, greedy and beam decoding of a manifest,
-the fusion LM, the training run's tokenizer, and `--set` overrides.
+out), scoring of decoded batches, greedy and beam decoding of a manifest (CTC,
+attention and transducer), the fusion LMs (the Transformer LM of the
+attention recipes and the RNNLM of the transducer recipes), the training
+run's tokenizer, and `--set` overrides.
 
 One card, so batches are not split over devices (`batch_multiple` 1), and
 the JAX loader's multi-process row split has no counterpart."""
@@ -21,6 +23,10 @@ from summarymixing_tpu_torch.data.batching import DynamicBucketBatcher, make_buc
 from summarymixing_tpu_torch.data.dataio import Utterance, load_wav
 from summarymixing_tpu_torch.data.subword import SubwordTokenizer, train_subword
 from summarymixing_tpu_torch.data.tokenizer import CharTokenizer, SentencePieceTokenizer
+from summarymixing_tpu_torch.decoding.transducer_search import (
+    transducer_beam_search_batched,
+    transducer_greedy_decode,
+)
 from summarymixing_tpu_torch.evaluate import evaluate_beam, restore_lm, static_decode_length
 from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
 from summarymixing_tpu_torch.training.metrics import ErrorRateStats
@@ -164,6 +170,66 @@ def load_fusion_lm(cfg, lm_ckpt: Optional[str], device):
         print(f"WARNING: no LM checkpoint in {lm_ckpt}; decoding without LM fusion")
         return None
     return restored[1]
+
+
+def load_rnnlm(cfg, lm_ckpt: Optional[str], device):
+    """The transducer recipes' fusion RNNLM of `lm_ckpt` (the JAX
+    `recipes/train.py::load_rnnlm`), or None without one, at `lm_weight` 0,
+    or (with a warning) when the run's LM is not an RNNLM."""
+    if not lm_ckpt or cfg.decoding.lm_weight <= 0.0:
+        return None
+    restored = restore_lm(cfg, lm_ckpt, device=device, default_model_type="rnn")
+    if restored is None:
+        print(f"WARNING: no LM checkpoint in {lm_ckpt}; decoding without LM fusion")
+        return None
+    if restored[0].model_type != "rnn":
+        print("WARNING: transducer fusion expects an RNNLM (lm.model_type rnn); "
+              "decoding without LM fusion")
+        return None
+    return restored[1]
+
+
+@torch.no_grad()
+def transducer_greedy_score(stats: ErrorRateStats, trainer, state: Dict,
+                            manifest: Sequence[Utterance], tokenizer, cfg, device,
+                            record: Optional[Dict] = None) -> float:
+    """Greedy transducer decoding of a manifest through
+    `TransducerTrainer.eval_step` (the JAX `run_valid`), scored into
+    `stats`; returns the mean loss."""
+    td = trainer.transducer_model
+    losses, seen = [], set()
+    for batch, idx in batches(manifest, tokenizer, cfg, False, 0, device):
+        out, (enc_out, enc_lens) = trainer.eval_step(state, batch)
+        losses.append(float(out["loss"]))
+        toks, lens = transducer_greedy_decode(td.encode_proj(enc_out), enc_lens,
+                                              td.predictor_init, td.predictor_step,
+                                              td.joint_step, blank_id=cfg.model.blank_index)
+        score_batch(stats, tokenizer, batch, idx, seen, toks.cpu(), lens.cpu(), record=record)
+    return float(np.mean(losses)) if losses else 0.0
+
+
+@torch.no_grad()
+def transducer_beam_score(stats: ErrorRateStats, trainer, state: Dict,
+                          manifest: Sequence[Utterance], tokenizer, cfg, device, lm=None,
+                          record: Optional[Dict] = None) -> int:
+    """The transducer recipes' test decode over a manifest: the batched
+    beam search at `decoding.beam_size`, `state_beam` and `expand_beam`,
+    with `lm` (an RNNLM) fused at `lm_weight`, scored into `stats`.
+    Returns the number of utterances scored."""
+    td, dec = trainer.transducer_model, cfg.decoding
+    seen: set = set()
+    n = 0
+    for batch, idx in batches(manifest, tokenizer, cfg, False, 0, device):
+        _, (enc_out, enc_lens) = trainer.eval_step(state, batch)
+        toks, lens, _ = transducer_beam_search_batched(
+            td.encode_proj(enc_out), enc_lens, td.predictor_init, td.predictor_step,
+            td.joint_step, blank_id=cfg.model.blank_index, bos_id=cfg.model.bos_index,
+            beam_size=dec.beam_size, state_beam=dec.state_beam, expand_beam=dec.expand_beam,
+            lm_step=None if lm is None else lm.step,
+            lm_init=None if lm is None else lm.initial_state,
+            lm_weight=dec.lm_weight if lm is not None else 0.0)
+        n += score_batch(stats, tokenizer, batch, idx, seen, toks.cpu(), lens.cpu(), record=record)
+    return n
 
 
 def decode_length(cfg, manifest: Sequence[Utterance], fbank) -> int:

@@ -1,10 +1,13 @@
-"""Word (or character) error rate of a trained CTC + attention recipe on a
-test manifest — the port of the JAX package's `recipes/evaluate.py` (its
-non-transducer branch).
+"""Word (or character) error rate of a trained recipe on a test manifest —
+the port of the JAX package's `recipes/evaluate.py`, for CTC + attention
+recipes and transducer recipes.
 
     python -m summarymixing_tpu_torch.recipes.evaluate recipes/Synthetic/hard_synthetic.yaml \\
         --test-manifest test.csv --ckpt RUN_DIR/save [--avg 10] [--beam] \\
         [--lm-ckpt LM_RUN_DIR] [--output EVAL_DIR] [--set decoding.lm_weight=0.2] [--device cpu]
+    python -m summarymixing_tpu_torch.recipes.evaluate recipes/Synthetic/hard_synthetic_transducer.yaml \\
+        --test-manifest test.csv --ckpt RUN_DIR/save [--beam [--lm-ckpt RNNLM_RUN_DIR]] \\
+        [--streaming | --streaming-full] [--chunk-size 16] [--left-context 4]
 
 The tokenizer is the one the training run wrote beside `--ckpt`. The
 parameters are the latest checkpoint's, or the mean of the last `--avg`.
@@ -12,17 +15,31 @@ Greedy CTC runs through `ASRTrainer.eval_step`; `--beam` runs the joint
 CTC/attention search at `test_beam_size` and `test_temperature` with the
 KV-cached decoder (`evaluate.evaluate_beam`, batches wider than
 `max_beam_rows` // beam searched in slices, one decode-length cap for the
-run), and with `--lm-ckpt` the Transformer LM fused at `lm_weight`. The
-last line of standard output is the summary as JSON: WER, SER, error
-counts, utterances, wall_s, audio_s, rtf (wall over audio), the decode
-and `kernels`, each kernel's launches and plain calls (cells or branches
-on the card whose configuration it does not take) in the run.
-`--output` also gets it as `eval.json`, with the per-utterance
-alignments in `wer_details.txt` (or `cer_details.txt`).
+run), and with `--lm-ckpt` the Transformer LM fused at `lm_weight`.
 
-Not ported, and refused: `--nbest` above 1, `--seq-parallel`,
-`--streaming`, `--streaming-full`, and recipes with a `transducer:`
-section (ROADMAP.md)."""
+A transducer recipe decodes through `TransducerTrainer.eval_step` (no
+augmentation, no DCT): greedily (`transducer_greedy`); with `--beam` by
+the batched beam search at `beam_size`, `state_beam` and `expand_beam`,
+and with `--lm-ckpt` the RNNLM fused at `lm_weight`
+(`transducer_beam`, `transducer_beam+lm`); with `--streaming` chunk by
+chunk over the CNN output, `--chunk-size` encoder frames a chunk and
+`--left-context` chunks of carried context, the greedy carry threaded
+through (`evaluate.streaming_decode`: `transducer_streaming_greedy`, with
+the chunks' p50 and p90 latency); with `--streaming-full` through the
+raw-audio pipeline (`streaming.run_stream`:
+`transducer_streaming_full_pipeline`, with the mean time per chunk of a
+batch).
+
+The last line of standard output is the summary as JSON: WER, SER, error
+counts, utterances, wall_s, audio_s, rtf (wall over audio), the decode
+(with `chunk_frames` and `left_context_chunks` when streaming) and
+`kernels`, each kernel's launches and plain calls (cells or branches on
+the card whose configuration it does not take) in the run. `--output`
+also gets it as `eval.json`, with the per-utterance alignments in
+`wer_details.txt` (or `cer_details.txt`).
+
+Not ported, and refused: `--nbest` above 1 and `--seq-parallel`
+(ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -33,12 +50,17 @@ import sys
 import time
 from typing import Dict, List, Optional, Sequence
 
-from summarymixing_tpu_torch.config import build_model, load_recipe
+import numpy as np
+import torch
+
+from summarymixing_tpu_torch.config import build_model, build_transducer_trainer, load_recipe
 from summarymixing_tpu_torch.data.dataio import read_manifest_csv
 from summarymixing_tpu_torch.data.subword import SubwordTokenizer
 from summarymixing_tpu_torch.data.tokenizer import CharTokenizer, SentencePieceTokenizer
-from summarymixing_tpu_torch.evaluate import restore_eval_state
+from summarymixing_tpu_torch.evaluate import restore_eval_state, streaming_decode
+from summarymixing_tpu_torch.frontend.features import InputNormalization
 from summarymixing_tpu_torch.recipes import common
+from summarymixing_tpu_torch.streaming import make_streaming_infer_fns, run_stream
 from summarymixing_tpu_torch.training.trainer import ASRTrainer, TrainerConfig
 from summarymixing_tpu_torch.utils.device import resolve_device
 
@@ -49,7 +71,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--test-manifest", required=True)
     ap.add_argument("--ckpt", required=True, help="checkpoint directory")
     ap.add_argument("--beam", action="store_true",
-                    help="joint CTC/attention beam search (decoder models)")
+                    help="beam search: joint CTC/attention (decoder models) or the transducer's")
     ap.add_argument("--avg", type=int, default=0, help="average the last N checkpoints")
     ap.add_argument("--lm-ckpt", default=None,
                     help="LM run directory (recipes.train_lm) fused at decoding.lm_weight")
@@ -60,9 +82,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="torch device; the card unless this says otherwise (e.g. cpu)")
     ap.add_argument("--nbest", type=int, default=1, help="above 1: not ported")
     ap.add_argument("--seq-parallel", type=int, default=0, metavar="N", help="not ported")
-    ap.add_argument("--streaming", action="store_true", help="not ported")
+    ap.add_argument("--streaming", action="store_true",
+                    help="transducer: chunked streaming encode + carried greedy decode")
     ap.add_argument("--streaming-full", action="store_true", dest="streaming_full",
-                    help="not ported")
+                    help="transducer: the raw-audio streaming pipeline (streaming.run_stream)")
+    ap.add_argument("--chunk-size", type=int, default=16,
+                    help="streaming chunk in encoder frames (16 = 640 ms)")
+    ap.add_argument("--left-context", type=int, default=4,
+                    help="streaming left context in chunks")
     return ap.parse_args(argv)
 
 
@@ -73,10 +100,8 @@ def refuse_unported(args: argparse.Namespace, cfg) -> None:
         raise NotImplementedError("--nbest output is not ported; see ROADMAP.md queue 1 item 7")
     if args.seq_parallel > 1:
         raise NotImplementedError("--seq-parallel is not ported; see ROADMAP.md queue 1 item 10")
-    if args.streaming or args.streaming_full or cfg.transducer is not None:
-        raise NotImplementedError("the transducer test stage (--streaming, --streaming-full, "
-                                  "transducer recipes) is not ported in this runner; see "
-                                  "ROADMAP.md queue 1 item 3")
+    if (args.streaming or args.streaming_full) and cfg.transducer is None:
+        raise SystemExit("--streaming and --streaming-full decode a transducer recipe")
 
 
 def resolve_tokenizer(cfg, run_dir: str, fallback_texts: Optional[List[str]] = None):
@@ -116,6 +141,71 @@ def run_dir_of(ckpt_dir: str) -> str:
     return os.path.dirname(path) if os.path.basename(path) == "save" else path
 
 
+def restore(args: argparse.Namespace, cfg, device):
+    """`(trainer or model, fbank, state, lm)` for the recipe: the evaluation
+    `TransducerTrainer` and the RNNLM of a transducer recipe, else the
+    recognizer and the Transformer LM; the parameters from `--ckpt`
+    (averaged over `--avg`)."""
+    if cfg.transducer is not None:
+        model, fbank, td = build_model(cfg, device=device)
+        trainer = build_transducer_trainer(cfg, model, fbank, td, train=False)
+        state = restore_eval_state(trainer.model, args.ckpt, args.avg, device=device)
+        lm = common.load_rnnlm(cfg, args.lm_ckpt, device) if args.beam else None
+        return trainer, fbank, state, lm
+    model, fbank = build_model(cfg, device=device)
+    state = restore_eval_state(model, args.ckpt, args.avg, device=device)
+    lm = common.load_fusion_lm(cfg, args.lm_ckpt, device) if args.beam else None
+    return model, fbank, state, lm
+
+
+def decode_transducer(args: argparse.Namespace, cfg, device, trainer, state: Dict, lm,
+                      test_set, tokenizer, stats, record: Dict) -> Dict:
+    """The transducer branch (the JAX `eval_transducer`): decode every batch
+    as the flags say and score it; returns the decode's summary fields."""
+    model, fbank, td = trainer.encoder_model, trainer.fbank, trainer.transducer_model
+    blank = cfg.model.blank_index
+    if args.beam:
+        common.transducer_beam_score(stats, trainer, state, test_set, tokenizer, cfg, device, lm,
+                                     record)
+        return {"decode": "transducer_beam+lm" if lm is not None else "transducer_beam",
+                **({"lm_weight": cfg.decoding.lm_weight} if lm is not None else {})}
+    if not (args.streaming or args.streaming_full):
+        common.transducer_greedy_score(stats, trainer, state, test_set, tokenizer, cfg, device,
+                                       record)
+        return {"decode": "transducer_greedy"}
+    chunk_times: List[float] = []
+    if args.streaming_full:
+        init_fn, step_fn, info = make_streaming_infer_fns(
+            model, td, fbank, InputNormalization(), state["norm_stats"],
+            chunk_frames=args.chunk_size, left_context_chunks=args.left_context, blank_id=blank)
+    seen: set = set()
+    for batch, idx in common.batches(test_set, tokenizer, cfg, False, 0, device):
+        if args.streaming_full:
+            t0 = time.perf_counter()
+            toks, lens = run_stream(init_fn, step_fn, batch["wav"], batch["wav_lens"],
+                                    info["chunk_samples"])
+            # run_stream runs ceil(n / chunk) + 2 steps (the two flush chunks)
+            n_steps = -(-batch["wav"].shape[1] // info["chunk_samples"]) + 2
+            chunk_times.extend([(time.perf_counter() - t0) / n_steps] * n_steps)
+        else:
+            toks, lens = streaming_decode(model, td, fbank, state["norm_stats"], batch["wav"],
+                                          batch["wav_lens"], args.chunk_size, args.left_context,
+                                          blank, chunk_times)
+        common.score_batch(stats, tokenizer, batch, idx, seen, toks.cpu(), lens.cpu(),
+                           record=record)
+    out = {"decode": ("transducer_streaming_full_pipeline" if args.streaming_full
+                      else "transducer_streaming_greedy"),
+           "chunk_frames": args.chunk_size, "left_context_chunks": args.left_context}
+    if chunk_times and args.streaming_full:
+        # a batch mean: run_stream is driven a whole batch at a time here
+        out["chunk_ms_mean"] = round(float(np.mean(chunk_times)) * 1e3, 2)
+    elif chunk_times:
+        ct = sorted(chunk_times)
+        out["chunk_latency_ms_p50"] = round(ct[len(ct) // 2] * 1e3, 2)
+        out["chunk_latency_ms_p90"] = round(ct[min(len(ct) - 1, int(len(ct) * 0.9))] * 1e3, 2)
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Evaluate; returns the summary (as printed) with `hyps`, each
     utterance ID's hypothesis words, added."""
@@ -128,34 +218,41 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     # shift the ids
     tokenizer = resolve_tokenizer(cfg, run_dir_of(args.ckpt),
                                   fallback_texts=[u.text for u in test_set])
-    model, fbank = build_model(cfg, device=device)
-    state = restore_eval_state(model, args.ckpt, args.avg, device=device)
     stats = common.error_rate_stats(cfg, keep_details=bool(args.output))
     record: Dict[int, list] = {}
-    lm = common.load_fusion_lm(cfg, args.lm_ckpt, device) if args.beam else None
+    model, fbank, state, lm = restore(args, cfg, device)
     counts0 = common.kernel_counts()
     t0 = time.time()
-    if args.beam:
-        n_utts = common.beam_score(
-            stats, cfg, model, fbank, state["norm_stats"], test_set, tokenizer, device, lm,
-            beam_size=cfg.decoding.test_beam_size, temperature=cfg.decoding.test_temperature,
-            record=record)
-    else:
-        m = cfg.model
-        trainer = ASRTrainer(model, None, fbank, TrainerConfig(
-            ctc_weight=cfg.training.ctc_weight, augment=None, blank_id=m.blank_index,
-            pad_id=m.pad_index, bos_id=m.bos_index, eos_id=m.eos_index))
-        common.greedy_score(stats, trainer, state, test_set, tokenizer, cfg, device, record)
+    if cfg.transducer is not None:
+        decode = decode_transducer(args, cfg, device, model, state, lm, test_set, tokenizer,
+                                   stats, record)
         n_utts = len(record)
+    else:
+        if args.beam:
+            n_utts = common.beam_score(
+                stats, cfg, model, fbank, state["norm_stats"], test_set, tokenizer, device, lm,
+                beam_size=cfg.decoding.test_beam_size, temperature=cfg.decoding.test_temperature,
+                record=record)
+            decode = {"decode": "beam+lm" if lm is not None else "beam"}
+        else:
+            m = cfg.model
+            trainer = ASRTrainer(model, None, fbank, TrainerConfig(
+                ctc_weight=cfg.training.ctc_weight, augment=None, blank_id=m.blank_index,
+                pad_id=m.pad_index, bos_id=m.bos_index, eos_id=m.eos_index))
+            common.greedy_score(stats, trainer, state, test_set, tokenizer, cfg, device, record)
+            n_utts = len(record)
+            decode = {"decode": "greedy_ctc"}
+        if lm is not None:
+            decode["lm_weight"] = cfg.decoding.lm_weight
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     summary = stats.summarize()
     summary["utterances"] = n_utts
     summary["wall_s"] = round(time.time() - t0, 1)
     audio_s = sum(u.duration for u in test_set)
     summary["audio_s"] = round(audio_s, 1)
     summary["rtf"] = round(summary["wall_s"] / max(audio_s, 1e-9), 5)
-    summary["decode"] = ("beam+lm" if lm is not None else "beam") if args.beam else "greedy_ctc"
-    if lm is not None:
-        summary["lm_weight"] = cfg.decoding.lm_weight
+    summary.update(decode)
     summary["kernels"] = common.kernel_counts(since=counts0)
     print(json.dumps(summary), flush=True)
     if args.output:

@@ -1,5 +1,6 @@
-"""Train and evaluate a CTC + attention recipe on the card — the port of
-the JAX package's `recipes/train.py` (its non-transducer branch).
+"""Train and evaluate a recipe on the card — the port of the JAX package's
+`recipes/train.py`: a CTC + attention recipe, or a transducer recipe
+(a `transducer:` section, the JAX `run_transducer`).
 
     python -m summarymixing_tpu_torch.recipes.train recipes/Synthetic/hard_synthetic.yaml \\
         --train-manifest train.csv --valid-manifest dev.csv [--test-manifest test.csv] \\
@@ -9,20 +10,29 @@ the JAX package's `recipes/train.py` (its non-transducer branch).
 The tokenizer is resolved and written to the run directory; training
 resumes from the run's latest checkpoint at the epoch after the one it
 saved. Each epoch: bucketed, shuffled batches through
-`ASRTrainer.train_step` (speed perturbation, SpecAugment and dropout as
-the recipe sets them), a heartbeat line every `SMT_HEARTBEAT_STEPS` steps
-(10), checkpoints every `ckpt_interval_minutes`, and at the epoch's end a
-checkpoint (always after epoch 1 and the last), greedy-CTC validation and,
-every `valid_search_interval` epochs, joint CTC/attention beam validation
-at `valid_beam_size`. `train_log.txt` and `train_log.jsonl` record each
-epoch, with each kernel's launches and plain calls (cells or branches on
-the card whose configuration it does not take, such as a float32 recipe's)
-in it. With a test manifest, the test stage decodes at `test_beam_size`
-and `test_temperature` (with the LM of `--lm-ckpt` fused at `lm_weight`),
-or greedily for a model without a decoder.
+`ASRTrainer.train_step`, or for a transducer recipe
+`TransducerTrainer.train_step` (RNN-T loss, Dynamic Chunk Training, the
+CTC aux for `number_of_ctc_epochs`; each call is one micro step of
+`grad_accumulation_factor`), with speed perturbation, SpecAugment and
+dropout as the recipe sets them; a heartbeat line every
+`SMT_HEARTBEAT_STEPS` steps (10), checkpoints every
+`ckpt_interval_minutes`, and at the epoch's end a checkpoint (always after
+epoch 1 and the last), greedy validation (CTC, or the transducer's greedy
+search, with the validation loss) and, for a decoder model every
+`valid_search_interval` epochs, joint CTC/attention beam validation at
+`valid_beam_size`; a transducer recipe with `training.valid_every_steps`
+also checkpoints and validates greedily every that many steps.
+`train_log.txt` and `train_log.jsonl` record each epoch, with each
+kernel's launches and plain calls (cells or branches on the card whose
+configuration it does not take, such as a float32 recipe's) in it. With
+a test manifest, the test stage decodes at `test_beam_size` and
+`test_temperature` (with the Transformer LM of `--lm-ckpt` fused at
+`lm_weight`), greedily for a CTC model without a decoder, and for a
+transducer with the batched beam search at `beam_size`, `state_beam` and
+`expand_beam` (with the RNNLM of `--lm-ckpt` fused at `lm_weight`).
 
-Not ported, and refused: `--profile`, `--max-hours`, a multi-process
-launch, and recipes with a `transducer:` section (ROADMAP.md)."""
+Not ported, and refused: `--profile`, `--max-hours` and a multi-process
+launch (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -34,7 +44,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from summarymixing_tpu_torch.config import build_model, build_trainer, load_recipe
+from summarymixing_tpu_torch.config import (
+    build_model,
+    build_trainer,
+    build_transducer_trainer,
+    load_recipe,
+)
 from summarymixing_tpu_torch.data.batching import prefetch
 from summarymixing_tpu_torch.data.dataio import read_manifest_csv
 from summarymixing_tpu_torch.recipes import common
@@ -86,8 +101,8 @@ def refuse_unported(args: argparse.Namespace) -> None:
 def checkpoint_state(model, state: Dict) -> Dict:
     """What a checkpoint holds: the parameters, the optimizer state, the
     normalisation statistics, the step and epoch counters and the state of
-    the generator that speed perturbation, SpecAugment and dropout draw
-    from."""
+    the generator that speed perturbation, SpecAugment, the DCT sampler and
+    dropout draw from."""
     return {"params": model.state_dict(), "opt_state": state["opt_state"],
             "norm_stats": state["norm_stats"], "step": state["step"], "epoch": state["epoch"],
             "rng": state["generator"].get_state()}
@@ -121,18 +136,16 @@ def epoch_loss_stats(train_losses: List[torch.Tensor]) -> Dict:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
-    """Run the recipe; returns a summary: `steps`, `epochs` (the last one
-    run), `step_s` (the host time of each step this call ran, each ending in
-    the step's one device synchronisation), `valid` (the last epoch's
+    """Run the recipe; returns a summary: `steps` (train_step calls: micro
+    steps under gradient accumulation), `epochs` (the last one run),
+    `step_s` (the host time of each step this call ran, each ending in the
+    step's one device synchronisation), `valid` (the last epoch's
     validation stats), `test` (the test stage's error-rate summary, or
     None) and `kernels` (`common.kernel_counts` over this call; each
     epoch's line of the train log has its own)."""
     args = parse_args(argv)
     refuse_unported(args)
     cfg = load_recipe(args.recipe, overrides=common.parse_overrides(args.overrides))
-    if cfg.transducer is not None:
-        raise NotImplementedError("transducer recipes (RNN-T loss, Dynamic Chunk Training) "
-                                  "are not ported; see ROADMAP.md queue 1 item 4")
     if args.num_buckets:
         cfg.training.num_buckets = args.num_buckets
     device = resolve_device(args.device)
@@ -142,8 +155,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     valid_set = read_manifest_csv(args.valid_manifest)
     tokenizer = common.build_or_load_tokenizer(cfg, out_dir, train_set)
 
-    model, fbank = build_model(cfg, device=device)
-    trainer = build_trainer(cfg, model, fbank)
+    transducer = cfg.transducer is not None
+    if transducer:
+        model, fbank, td = build_model(cfg, device=device)
+        trainer = build_transducer_trainer(cfg, model, fbank, td)
+    else:
+        model, fbank = build_model(cfg, device=device)
+        trainer = build_trainer(cfg, model, fbank)
     if common.estimate_steps_per_epoch(train_set, cfg) == 0:
         raise SystemExit("no training batches produced: the corpus is smaller than one bucket "
                          "batch (drop_last). Lower training.max_batch_length or num_buckets.")
@@ -153,8 +171,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                              interval_minutes=cfg.training.ckpt_interval_minutes)
     state = init_or_restore(trainer, ckpt, cfg)
     step = state["step"]
-    lm = common.load_fusion_lm(cfg, args.lm_ckpt, device)
+    lm = (common.load_rnnlm if transducer else common.load_fusion_lm)(cfg, args.lm_ckpt, device)
     hb_every = int(os.environ.get("SMT_HEARTBEAT_STEPS", "10"))
+    # mid-epoch validation points (the JAX transducer runner's)
+    valid_every = cfg.training.valid_every_steps if transducer else 0
     step_s: List[float] = []
     valid_stats: Dict = {}
     epoch = state["epoch"]
@@ -170,24 +190,37 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             step_s.append(time.perf_counter() - ts)
             step += 1
             train_losses.append(metrics["loss"])
+            if valid_every and step % valid_every == 0:
+                ckpt.save(step, checkpoint_state(trainer.model, state))
+                tv = time.time()
+                stats = common.error_rate_stats(cfg)
+                vloss = common.transducer_greedy_score(stats, trainer, state, valid_set,
+                                                       tokenizer, cfg, device)
+                logger.log_stats({"valid_step": step, "epoch": epoch,
+                                  "valid_s": round(time.time() - tv, 1)},
+                                 valid_stats={"loss": vloss,
+                                              cfg.error_rate.upper(): stats.summarize()["WER"]})
+                hb_t = time.time()
             if hb_every and step % hb_every == 0:
                 now = time.time()
                 print(f"[hb] step {step} mean_step_s {(now - hb_t) / hb_every:.3f} "
                       f"loss {float(metrics['loss']):.3f}", flush=True)
                 hb_t = now
             if ckpt.should_save():
-                ckpt.save(step, checkpoint_state(model, state))
+                ckpt.save(step, checkpoint_state(trainer.model, state))
             if args.steps and step >= args.steps:
                 break
         # the epoch-end checkpoint comes before validation, so a failure
-        # there costs the epoch's validation numbers, not its training
-        state = trainer.next_epoch(state)
+        # there costs the epoch's validation numbers, not its training;
+        # validation runs at the epoch it follows (it gates the CTC aux)
+        valid_state, state = state, trainer.next_epoch(state)
         last_epoch = epoch >= cfg.training.number_of_epochs or bool(args.steps
                                                                       and step >= args.steps)
         if last_epoch or epoch == 1 or ckpt.should_save():
-            ckpt.save(step, checkpoint_state(model, state))
+            ckpt.save(step, checkpoint_state(trainer.model, state))
         stats = common.error_rate_stats(cfg)
-        vloss = common.greedy_score(stats, trainer, state, valid_set, tokenizer, cfg, device)
+        score = common.transducer_greedy_score if transducer else common.greedy_score
+        vloss = score(stats, trainer, valid_state, valid_set, tokenizer, cfg, device)
         valid_stats = {"loss": vloss, cfg.error_rate.upper(): stats.summarize()["WER"]}
         if (model.asr.num_decoder_layers > 0 and cfg.decoding.valid_search_interval > 0
                 and epoch % cfg.decoding.valid_search_interval == 0):
@@ -207,7 +240,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.test_manifest:
         test_set = read_manifest_csv(args.test_manifest)
         stats = common.error_rate_stats(cfg)
-        if model.asr.num_decoder_layers > 0 and cfg.decoding.test_beam_size > 0:
+        if transducer:
+            common.transducer_beam_score(stats, trainer, state, test_set, tokenizer, cfg, device,
+                                         lm)
+        elif model.asr.num_decoder_layers > 0 and cfg.decoding.test_beam_size > 0:
             common.beam_score(stats, cfg, model, fbank, state["norm_stats"], test_set,
                               tokenizer, device, lm, beam_size=cfg.decoding.test_beam_size,
                               temperature=cfg.decoding.test_temperature)

@@ -1,6 +1,7 @@
-"""Train the Transformer language model for shallow fusion on the card — the
-port of the JAX package's `recipes/train_lm.py` (`lm.model_type:
-transformer`).
+"""Train a language model for shallow fusion on the card — the port of the
+JAX package's `recipes/train_lm.py`: the Transformer LM of the attention
+recipes (`lm.model_type: transformer`) or the RNNLM of the transducer
+recipes (`rnn`).
 
     python -m summarymixing_tpu_torch.recipes.train_lm recipes/Synthetic/hard_synthetic.yaml \\
         [--train-manifest train.csv] [--text corpus.txt] --tokenizer-dir ASR_RUN_DIR \\
@@ -13,8 +14,9 @@ each step is the masked next-token cross-entropy under AdamW (weight decay
 0.01, gradients clipped to norm 5) with the Noam schedule peaking at
 `lm.lr` after 1000 steps. The run directory gets `lm_config.json`, a
 checkpoint per epoch under `save/` (the last three kept) and
-`train_log.txt`, the layout `evaluate.restore_lm` reads. The RNNLM
-(`model_type: rnn`) is not ported (ROADMAP.md queue 1 item 3)."""
+`train_log.txt`, the layout `evaluate.restore_lm` reads; `lm_config.json`
+records the architecture. Without an `lm:` block the recipe's LM is
+`LMConfig()`, the Transformer: pass `--model-type rnn` for the RNNLM."""
 
 from __future__ import annotations
 
@@ -120,9 +122,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     lm_cfg = cfg.lm or LMConfig()
     if args.model_type:
         lm_cfg.model_type = args.model_type
-    if lm_cfg.model_type != "transformer":
-        raise NotImplementedError(f"lm.model_type {lm_cfg.model_type!r}: only the "
-                                  "Transformer LM is ported; see ROADMAP.md queue 1 item 3")
     device = resolve_device(args.device)
     os.makedirs(args.output, exist_ok=True)
     # the architecture goes with the run: evaluate.restore_lm rebuilds the

@@ -1,20 +1,30 @@
-"""The flagship's optimizer — the port of `noam_schedule`, `make_adamw`
-(here the class `AdamW`) and `apply_safe_update` from
+"""The recipes' optimizer — the port of `noam_schedule`,
+`warm_and_exp_decay_schedule`, `make_adamw` (here the class `AdamW`, and
+`MultiSteps` for its `accum_steps`) and `apply_safe_update` from
 `summarymixing_tpu/training/optim.py`, written to give optax's numbers:
 
 - `noam_schedule`: lr(step) = peak · √warmup · min(step^-½, step · warmup^-1.5),
   step clamped at 1, in float32;
+- `warm_and_exp_decay_schedule`: a linear warm-up from 0 to lr over
+  `warmup_steps`, then lr · decay_factor^frac with frac going from 0 to 1
+  at `total_steps`, in float32;
 - `AdamW`: optax's `chain(clip_by_global_norm, adamw)`: the gradients
   scaled by max_norm / ‖g‖ when ‖g‖ ≥ max_norm; moments
   μ = (1-β1)·g + β1·μ and ν = (1-β2)·g² + β2·ν; bias corrections at the
   incremented count; u = μ̂ / (√ν̂ + ε) + wd · p, weight decay on every
   parameter; p ← p - lr(count) · u with the schedule read at the count
   BEFORE the increment, as optax's `scale_by_learning_rate` does;
+- `MultiSteps`: optax's `MultiSteps(inner, every_k_schedule=k)` with a
+  constant k: the micro-batch gradients are averaged (a running mean,
+  acc + (g - acc) / (n + 1)); every k-th call the inner optimizer steps on
+  the mean (so clipping applies to the mean) and the schedule reads the
+  inner count, which only those calls advance; between them the
+  parameters are not touched;
 - `apply_safe_update`: on a non-finite loss or gradient norm the step is
-  skipped, so parameters, moments and count keep their values.
+  skipped, so parameters, moments, counts and the accumulator keep their
+  values; the norm it returns is the micro-batch gradient's.
 
-The two-stage Adam -> SGD optimizer, the warm + exponential-decay
-schedule and gradient accumulation are still to port (ROADMAP.md).
+The two-stage Adam -> SGD optimizer is still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,6 +41,24 @@ def noam_schedule(lr_peak: float, warmup_steps: int) -> Callable[[torch.Tensor],
         s = torch.clamp(torch.as_tensor(step, dtype=torch.float32), min=1.0)
         w = torch.tensor(float(warmup_steps), dtype=torch.float32, device=s.device)
         return lr_peak * torch.sqrt(w) * torch.minimum(s ** -0.5, s * w ** -1.5)
+
+    return schedule
+
+
+def warm_and_exp_decay_schedule(lr: float, warmup_steps: int, total_steps: int,
+                                decay_factor: float = 0.05
+                                ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Linear warm-up 0 -> lr over `warmup_steps`, then an exponential decay
+    reaching lr · decay_factor at `total_steps`."""
+
+    def schedule(step) -> torch.Tensor:
+        s = torch.as_tensor(step, dtype=torch.float32)
+        w = float(warmup_steps)
+        warm = lr * s / max(w, 1.0)
+        frac = torch.clamp((s - w) / max(total_steps - w, 1.0), 0.0, 1.0)
+        decayed = lr * torch.pow(torch.tensor(decay_factor, dtype=torch.float32,
+                                              device=s.device), frac)
+        return torch.where(s < w, warm, decayed)
 
     return schedule
 
@@ -97,10 +125,51 @@ class AdamW:
         return {"count": count, "mu": mu, "nu": nu}
 
 
-def apply_safe_update(optimizer: AdamW, params: List[torch.Tensor], grads: List[torch.Tensor],
+class MultiSteps:
+    """optax `MultiSteps(inner, every_k_schedule=every_k)`: gradient
+    accumulation over `every_k` micro-batches. The state is a dict:
+    `mini_step` (micro-batches in the accumulator), `gradient_step` (inner
+    steps taken), `inner` (the inner optimizer's state) and `acc`."""
+
+    def __init__(self, inner: AdamW, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"every_k must be at least 1, got {every_k}")
+        self.inner = inner
+        self.every_k = every_k
+
+    def init(self, params: Sequence[torch.Tensor]) -> Dict:
+        return {"mini_step": 0, "gradient_step": 0, "inner": self.inner.init(params),
+                "acc": [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict,
+             norm: Optional[torch.Tensor] = None) -> Dict:
+        """Add `grads` to the running mean; on every `every_k`-th call step
+        the inner optimizer on the mean (its own norm) and empty the
+        accumulator. `norm`, the micro-batch norm, is not used."""
+        acc, n = state["acc"], state["mini_step"]
+        torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(grads, acc), float(n + 1)))
+        if n < self.every_k - 1:
+            return dict(state, mini_step=n + 1, acc=acc)
+        inner = self.inner.step(params, acc, state["inner"])
+        return {"mini_step": 0, "gradient_step": state["gradient_step"] + 1, "inner": inner,
+                "acc": [torch.zeros_like(a) for a in acc]}
+
+
+def make_optimizer(schedule: Callable, weight_decay: float = 0.0, betas=(0.9, 0.98),
+                   eps: float = 1e-9, max_grad_norm: Optional[float] = 5.0,
+                   accum_steps: int = 1):
+    """The JAX `make_adamw`: `AdamW`, wrapped in `MultiSteps` when
+    `accum_steps` > 1."""
+    opt = AdamW(schedule, weight_decay, betas, eps, max_grad_norm)
+    return MultiSteps(opt, accum_steps) if accum_steps > 1 else opt
+
+
+def apply_safe_update(optimizer, params: List[torch.Tensor], grads: List[torch.Tensor],
                       opt_state: Dict, loss: torch.Tensor):
-    """The optimizer step with the non-finite skip: on a non-finite loss or
-    gradient norm nothing is updated. Returns (opt_state, grad_norm, finite)."""
+    """The optimizer (`AdamW` or `MultiSteps`) step with the non-finite
+    skip: on a non-finite loss or gradient norm nothing is updated. Returns
+    (opt_state, grad_norm, finite)."""
     norm = global_norm(grads)
     finite = bool(torch.isfinite(loss) & torch.isfinite(norm))
     if finite:

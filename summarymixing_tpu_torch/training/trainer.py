@@ -5,7 +5,8 @@
     updated while epoch + 1 < normalize_update_until_epoch) -> SpecAugment
     -> SpeechRecognizer (CNN, encoder, attention decoder, dropout)
     -> ctc_weight · CTC + (1 - ctc_weight) · KL-div -> backward
-    -> clip to the global norm -> AdamW with the Noam schedule, skipped on a
+    -> clip to the global norm -> AdamW with the Noam schedule (through
+    `MultiSteps` when the recipe accumulates gradients), skipped on a
     non-finite loss or gradient norm.
 
 The model's parameters are the trainable state; `init_state` returns the
@@ -15,8 +16,7 @@ perturbation, SpecAugment and every dropout draw. Speed perturbation runs
 inside `train_step` here; the JAX recipes apply it before calling theirs
 (`recipes/train.py`). Checkpoints are `training/checkpoint.py`'s. The
 mesh and sharding of the JAX trainer are still to port, as are
-preemption, gradient accumulation, `concat_original` and
-`augment_warmup_steps` (ROADMAP.md).
+preemption, `concat_original` and `augment_warmup_steps` (ROADMAP.md).
 
     trainer = ASRTrainer(model, AdamW(noam_schedule(5e-4, 30000), 0.01), fbank)
     state = trainer.init_state(seed=3407)
@@ -39,7 +39,7 @@ from summarymixing_tpu_torch.frontend.augment import (
 from summarymixing_tpu_torch.frontend.features import InputNormalization, NormStats
 from summarymixing_tpu_torch.losses import ctc_loss, kldiv_loss
 from summarymixing_tpu_torch.ops.layers import set_dropout_generator
-from summarymixing_tpu_torch.training.optim import AdamW, apply_safe_update
+from summarymixing_tpu_torch.training.optim import apply_safe_update
 from summarymixing_tpu_torch.utils.init import xavier_normal_overwrite
 
 
@@ -63,7 +63,7 @@ class TrainerConfig:
 class ASRTrainer:
     """Joint CTC/attention training (CTC only when the model has no decoder)."""
 
-    def __init__(self, model, optimizer: AdamW, fbank, config: TrainerConfig = TrainerConfig()):
+    def __init__(self, model, optimizer, fbank, config: TrainerConfig = TrainerConfig()):
         self.model = model
         self.optimizer = optimizer
         self.fbank = fbank

@@ -9,8 +9,9 @@ LM's: `emb.emb`, `encoder.layer_i.{self_att,pos_ffn,norm1,norm2}`,
 the Conformer's `ffn1`, `ffn2`, `norm_ffn1`, `norm_ffn2`, `norm1`,
 `norm2`, `mixer.global_proj`, `convolution_module.{layer_norm,bottleneck,
 after_norm,pointwise_out}`; the transducer's `proj_enc`, `predictor.lstm`,
-`predictor.proj_dec`, `joint.transducer_lin`, `proj_ctc`, `dec_lin`), so
-the bridge is a tree walk with these layout rules:
+`predictor.proj_dec`, `joint.transducer_lin`, `proj_ctc`, `dec_lin`; the
+RNNLM's `emb`, `lstm_0`, `lstm_1`, ..., `dnn`, `out`), so the bridge is a
+tree walk with these layout rules:
 
 - `torch.nn.Linear`: the Dense `kernel` `[in, out]` becomes `weight`
   `[out, in]`;

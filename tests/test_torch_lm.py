@@ -115,10 +115,16 @@ def test_full_width_lm_parameter_count_matches_flax():
 
 
 def test_build_lm_seeds_weights_and_refuses_the_rnnlm():
-    a = build_lm(LMConfig(d_model=32, nhead=2, num_layers=1, d_ffn=64), 20, device="cpu", seed=5)
-    b = build_lm(LMConfig(d_model=32, nhead=2, num_layers=1, d_ffn=64), 20, device="cpu", seed=5)
-    assert not a.training
-    for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
-        assert torch.equal(pa, pb), name
-    with pytest.raises(NotImplementedError, match="RNNLM"):
-        build_lm(LMConfig(model_type="rnn"), 20, device="cpu")
+    """The same seed draws the same weights, for the Transformer LM and (since
+    the RNNLM is ported, no longer refused) the RNNLM; an unknown model type
+    is refused."""
+    for cfg in (LMConfig(d_model=32, nhead=2, num_layers=1, d_ffn=64),
+                LMConfig(model_type="rnn", embedding_dim=8, rnn_neurons=16, dnn_neurons=12)):
+        a = build_lm(cfg, 20, device="cpu", seed=5)
+        b = build_lm(cfg, 20, device="cpu", seed=5)
+        assert not a.training
+        for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+            assert torch.equal(pa, pb), name
+    assert type(a).__name__ == "RNNLM"
+    with pytest.raises(ValueError, match="model_type"):
+        build_lm(LMConfig(model_type="gru"), 20, device="cpu")

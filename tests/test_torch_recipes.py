@@ -27,7 +27,12 @@ from summarymixing_tpu.parallel.mesh import make_mesh
 from summarymixing_tpu.training import optim as joptim
 from summarymixing_tpu.training.trainer import ASRTrainer as JTrainer
 from summarymixing_tpu.training.trainer import TrainerConfig as JTrainerConfig
-from summarymixing_tpu_torch.config import build_model, build_trainer, load_recipe
+from summarymixing_tpu_torch.config import (
+    build_model,
+    build_trainer,
+    build_transducer_trainer,
+    load_recipe,
+)
 from summarymixing_tpu_torch.data.dataio import read_manifest_csv
 from summarymixing_tpu_torch.data.tokenizer import CharTokenizer
 from summarymixing_tpu_torch.ops import convolution, fused_csgu, fused_summary, summary_mixing
@@ -43,6 +48,7 @@ FLAGSHIP = os.path.join(REPO, "recipes/LibriSpeech/branchformer_summarymixing.ya
 # the corpus's 32 training utterances of 2-3 s hold no full batch at the
 # recipe's 60 s budget: 8 s batches in 2 buckets
 SMALL_BATCHES = ["--num-buckets", "2", "--set", "training.max_batch_length=8.0"]
+SYNTH_TRANSDUCER = os.path.join(REPO, "recipes/Synthetic/hard_synthetic_transducer.yaml")
 LOGP_TOL = 1e-4
 
 
@@ -272,29 +278,39 @@ def test_runners_end_to_end_with_resume(corpus, tmp_path):
         assert summary["kernels"] == zero
 
 
-@pytest.mark.parametrize("runner,args,match", [
-    ("train", ["--max-hours", "1"], "max-hours"),
-    ("train", ["--profile", "prof"], "profile"),
-    ("train", ["--transducer"], "transducer"),
-    ("evaluate", ["--beam", "--nbest", "2"], "nbest"),
-    ("evaluate", ["--seq-parallel", "2"], "seq-parallel"),
-    ("evaluate", ["--streaming"], "streaming"),
-    ("evaluate", ["--streaming-full"], "streaming"),
-    ("evaluate", ["--transducer"], "transducer"),
-    ("train_lm", ["--model-type", "rnn"], "queue 1 item 3"),
+@pytest.mark.parametrize("runner,recipe,args,match", [
+    ("train", "synth", ["--max-hours", "1"], "max-hours"),
+    ("train", "synth", ["--profile", "prof"], "profile"),
+    ("train", "synth", ["--set", "training.scheduler=two_stage", "--set",
+                        "training.stage_one_epochs=2"], "two-stage"),
+    ("evaluate", "synth", ["--beam", "--nbest", "2"], "nbest"),
+    ("evaluate", "transducer", ["--beam", "--nbest", "2"], "nbest"),
+    ("evaluate", "synth", ["--seq-parallel", "2"], "seq-parallel"),
 ])
-def test_runners_refuse_what_is_not_ported(corpus, tmp_path, runner, args, match):
-    recipe = SYNTH
-    if "--transducer" in args:
-        recipe, args = os.path.join(REPO, "recipes/Synthetic/hard_synthetic_transducer.yaml"), []
+def test_runners_refuse_what_is_not_ported(corpus, tmp_path, runner, recipe, args, match):
+    recipe = {"synth": SYNTH, "transducer": SYNTH_TRANSDUCER}[recipe]
     common_args = {"train": ["--train-manifest", corpus["train"], "--valid-manifest",
-                             corpus["dev"], "--output", str(tmp_path / "run")],
+                             corpus["dev"], "--output", str(tmp_path / "run")] + SMALL_BATCHES,
                    "evaluate": ["--test-manifest", corpus["test"], "--ckpt",
-                                str(tmp_path / "run" / "save")],
-                   "train_lm": ["--text", corpus["lm_text"], "--output", str(tmp_path / "lm")]}
-    main = {"train": train.main, "evaluate": evaluate.main, "train_lm": train_lm.main}[runner]
+                                str(tmp_path / "run" / "save")]}
+    main = {"train": train.main, "evaluate": evaluate.main}[runner]
     with pytest.raises(NotImplementedError, match=match):
         main([recipe] + common_args[runner] + args + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("recipe,setting", [
+    ("recipes/VoxPopuli/conformer_summarymixing_transducer.yaml", None),
+    ("recipes/Synthetic/hard_synthetic_transducer.yaml", "training.scheduler=two_stage"),
+    ("recipes/Synthetic/hard_synthetic_transducer.yaml", "augment.concat_original=true"),
+])
+def test_build_transducer_trainer_refuses_what_is_not_ported(recipe, setting):
+    """VoxPopuli's `augment_warmup_steps: 5000`, the two-stage optimizer and
+    `concat_original` stay refused for the transducer recipes too."""
+    cfg = load_recipe(os.path.join(REPO, recipe),
+                      overrides=common.parse_overrides([setting] if setting else []))
+    model, fbank, td = build_model(cfg, device="meta")
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        build_transducer_trainer(cfg, model, fbank, td)
 
 
 def test_evaluate_runner_reports_plain_calls(corpus, tmp_path, monkeypatch):
@@ -329,14 +345,11 @@ def test_evaluate_runner_reports_plain_calls(corpus, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("runner,flag", [
-    ("evaluate", "--chunk-size"), ("evaluate", "--left-context"),
     ("wer_protocol", "--epochs"), ("wer_protocol", "--ckpt-interval-minutes")])
 def test_runners_have_no_flag_that_nothing_reads(runner, flag, tmp_path):
-    """The streaming flags wait for the transducer branch; the protocol's
-    epochs and checkpoint interval are constants."""
-    argv = {"evaluate": [SYNTH, "--test-manifest", "t.csv", "--ckpt", "save"],
-            "wer_protocol": [str(tmp_path)]}[runner]
-    main = {"evaluate": evaluate.main, "wer_protocol": wer_protocol.main}[runner]
+    """The protocol's epochs and checkpoint interval are constants."""
+    argv = {"wer_protocol": [str(tmp_path)]}[runner]
+    main = {"wer_protocol": wer_protocol.main}[runner]
     with pytest.raises(SystemExit):
         main(argv + [flag, "1", "--device", "cpu"])
 
