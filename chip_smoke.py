@@ -139,12 +139,46 @@ Phases (any failure exits non-zero):
    `wer_details.txt` from each, no launch, the fast cells counted in
    `plain_calls`.
 Neither kernel lies on phases 14-16: both launch counters must stay 0.
+17. Kernels at the serving shapes: both against their plain versions (phase
+   3's tolerances) at B=1, T=126 (a 5 s request of `transcribe
+   --batch-size 1`) and B=8, T=3001 (the server's 120 s bucket, ragged),
+   graph ms beside the bound and the plain version's ms.
+18. Serving: phase 13's flagship run through `recipes.serve.build_infer`,
+   warmed up at every bucket edge, behind `serving.DynamicBatchingServer`
+   (batches of 8) and `recipes.serve`'s HTTP handler on a free port in
+   this process: /healthz; 8 requests one at a time, each reply equal to
+   `infer` called directly on the batch the server formed for it; 32
+   concurrent 5-30 s requests from 32 threads with one of 100 s and one
+   FLAC body (its samples equal to its WAV twin's bit for bit, its text
+   equal to the twin's); a malformed body answered 400. Prints p50/p95
+   latency, mean batch, audio-s/s, the FLAC decode seconds and peak
+   memory; each kernel launches 18 times per batch, no plain call. Then
+   the transcribe runner at `--batch-size 1` on 5 files (one FLAC): 18
+   launches per file.
+19. Streaming server: the full-width transducer (phase 10's recipe, seed
+   3407) in float32 behind `serving.StreamingSessionServer` with 8 slots:
+   12 staggered sessions from threads over pieces of request 0's audio,
+   slots reused, one session over the HTTP `/stream` endpoints; each
+   session's tokens must equal `streaming.run_stream` on its audio alone.
+   Median and max ms per tick; the same count in bf16 is reported, not
+   held. No launch (the fast cell).
+20. Export: `recipes.export_model --check` on phase 13's run (polymorphic,
+   exported on the card); the artifact loaded in a fresh process that
+   imports only the port, its ids, keep and encoder lengths bit-equal to
+   the live inference function at (B=3, 2 s) and (B=8, 30 s: request 0),
+   18 launches of each kernel per forward and no plain call; the
+   streaming artifact of phase 19's float32 transducer (chunks of 8
+   frames, 4 of left context) against `run_stream` on the live functions. Prints export seconds, artifact
+   MB, load seconds and the artifact's latency on request 0 beside the
+   live model's.
 
 `plain_calls` (cells or cgMLP branches on the card whose configuration the
 kernel does not take, run on the plain path) is set to 0 at phase 4 and
 must still be 0 after phases 4, 7 and 9: the flagship takes both kernels
 everywhere. The kernels line reports `launches` and `plain_calls` summed
-over phases 4, 7, 9, 10 and 12-16, and each by phase.
+over phases 4, 7, 9, 10, 12-16 and 18-20, and each by path (`serve`,
+`transcribe`, `serve_streaming` and `export` for phases 18-20), with the
+phase-17 rows under `serving_shapes`.
 
 The line before the last holds nvidia-smi's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. No JAX is imported here.
@@ -248,6 +282,12 @@ TD_BEAM_CHECK_FRAMES = 40
 # transducer runners (phase 16)
 TRANSDUCER_SYNTH_RECIPE = "recipes/Synthetic/hard_synthetic_transducer.yaml"
 RUNNER_STREAM_CHUNK, RUNNER_STREAM_LEFT = 8, 4
+# serving, transcription and export (phases 17-20)
+SERVE_SHAPES = ((1, 5.0), (8, 120.0))   # (B, seconds): transcribe --batch-size 1, the 120 s bucket
+SERVE_SEQUENTIAL, SERVE_CONCURRENT, SERVE_LONG_S = 8, 32, 100.0
+STREAM_SESSIONS, STREAM_SLOTS = 12, 8
+EXPORT_SHAPES = ((3, 2.0), (8, 30.0))   # (B, seconds) the loaded artifact runs at
+HTTP_TIMEOUT = 300.0
 
 
 def fail(msg: str) -> None:
@@ -2020,6 +2060,584 @@ def phase_runner_flagship(kernel_rows, here: str, corpus: dict, root: str) -> No
                                                                        + counts_e[name][1])
 
 
+def encoder_frames(n_samples: int, hop: int = 160) -> int:
+    """Encoder frames of `n_samples` samples: Fbank frames through the CNN's two stride-2 blocks."""
+    frames = 1 + n_samples // hop
+    for _ in range(2):
+        frames = -(-frames // 2)
+    return frames
+
+
+def phase_serving_kernels(kernel_rows) -> None:
+    """Phase 17: both kernels against their plain versions at the serving
+    shapes (phase 3's tolerances), graph ms beside the bound and the plain
+    version's ms."""
+    import torch
+
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    d, c2, k, bf = 512, 3072, 31, torch.bfloat16
+
+    def w(*shape, scale=None, dtype=bf):
+        s = scale if scale is not None else (shape[-1] if len(shape) > 1 else 512) ** -0.5
+        return ((torch.rand(*shape, generator=g, device=dev) * 2 - 1) * s).to(dtype)
+
+    merge = w(d, 2 * d)
+    cell = (w(d, d), w(d, scale=0.1), w(d, d), w(d, scale=0.1), w(d, d), w(d, scale=0.1),
+            w(d, d), w(d, scale=0.1), merge[:, :d], merge[:, d:], w(d, scale=0.1))
+    branch = (w(c2, d), w(c2, scale=0.1, dtype=torch.float32),
+              1.0 + w(c2 // 2, scale=0.1, dtype=torch.float32),
+              w(c2 // 2, scale=0.1, dtype=torch.float32),
+              w(k, c2 // 2, scale=k ** -0.5, dtype=torch.float32),
+              1.0 + w(c2 // 2, scale=0.1, dtype=torch.float32), w(d, c2 // 2),
+              w(d, scale=0.1, dtype=torch.float32))
+    for b, secs in SERVE_SHAPES:
+        t = encoder_frames(int(secs * 16000))
+        # ragged rows in the batch of 8: the server pads requests of 40-120 s to this bucket
+        lens = torch.tensor([t] if b == 1 else [t, t, 2600, 2001, 1500, 1001, t, 2900],
+                            device=dev)
+        x = torch.randn(b, t, d, generator=g, device=dev).to(bf)
+        mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).to(torch.float32)
+        pad = mask[..., None].contiguous()
+        m, valid = b * t, int(mask.sum())
+        cases = (
+            ("summary_mixing", CELL_TOL,
+             lambda: fused_summary.fused_summary_mixing(x, pad, cell, "gelu"),
+             lambda: fused_summary.summary_mixing_reference(x, pad, cell, "gelu"),
+             bound(x.numel() * 2 + pad.numel() * 4 + m * d * 2
+                   + sum(v.numel() * v.element_size() for v in cell),
+                   2 * valid * d * d * 5 + 2 * b * d * d)),
+            ("csgu", CSGU_TOL,
+             lambda: fused_csgu.fused_convolution_branch(x, mask, branch),
+             lambda: fused_csgu.convolution_branch_reference(x, mask, branch),
+             bound(x.numel() * 2 + mask.numel() * 4 + m * d * 2
+                   + sum(v.numel() * v.element_size() for v in branch),
+                   2 * m * d * c2 + 2 * m * (c2 // 2) * d, 2 * m * (c2 // 2) * k)))
+        for name, tol, kernel, plain, (bound_ms, by) in cases:
+            abs_err, err = rel_err(kernel(), plain())
+            ok = err <= tol
+            ms, plain_ms = graph_ms(kernel), cuda_ms(plain)
+            print(f"serving shape {name} B={b} T={t} ({secs:g} s, {valid} valid frames): "
+                  f"max_abs_err {abs_err:.3e} max_rel_err {err:.3e} tol {tol:.3e} "
+                  f"{'ok' if ok else 'FAILED'}; {ms:.4f} ms (graph), plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({by}), {100 * bound_ms / ms:.1f}% of bound")
+            if not ok:
+                fail(f"{name} disagrees with its plain version at B={b}, T={t}")
+            kernel_rows[name].setdefault("serving_shapes", []).append(dict(
+                batch=b, frames=t, seconds=secs, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by))
+        del x, mask, pad
+    torch.cuda.empty_cache()
+
+
+def zero_counts() -> tuple:
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+
+    kernels = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
+    for fn in kernels:
+        fn.launches, fn.plain_calls = 0, 0
+    return kernels
+
+
+def read_counts(kernels) -> dict:
+    return {name: (fn.launches, fn.plain_calls)
+            for name, fn in zip(("summary_mixing", "csgu"), kernels)}
+
+
+def wav_bytes(audio: np.ndarray, sample_rate: int = 16000) -> bytes:
+    import io
+    import wave
+
+    pcm = np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16)
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(sample_rate)
+        wf.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+class HttpServer:
+    """A handler on a ThreadingHTTPServer at a free port, served from a thread."""
+
+    def __init__(self, handler):
+        import threading
+        from http.server import ThreadingHTTPServer
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def request(self, path: str, data: bytes = None) -> tuple:
+        """(HTTP status, JSON reply)."""
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, data=data,
+                                     method="GET" if data is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+                return r.status, json.load(r)
+        except urllib.error.HTTPError as e:
+            return e.code, json.load(e)
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=60)
+
+
+def flagship_run(here: str, root: str) -> tuple:
+    """Phase 13's run: (recipe path, save directory, --set overrides, config)."""
+    from summarymixing_tpu_torch.config import load_recipe
+    from summarymixing_tpu_torch.recipes import common
+
+    sets = [f"training.max_batch_length={RUNNER_FLAGSHIP_BATCH_S}",
+            f"training.num_buckets={RUNNER_FLAGSHIP_BUCKETS}"]
+    recipe = os.path.join(here, FLAGSHIP_RECIPE)
+    cfg = load_recipe(recipe, overrides=common.parse_overrides(sets))
+    return recipe, os.path.join(root, "flagship", "save"), \
+        [a for s in sets for a in ("--set", s)], cfg
+
+
+def phase_serve(kernel_rows, here: str, root: str) -> None:
+    """Phase 18: phase 13's flagship run behind `recipes.serve`'s CTC handler
+    in this process (dynamic batches of 8, warmed up at every bucket edge),
+    then the transcribe runner at --batch-size 1."""
+    import threading
+
+    import torch
+
+    from summarymixing_tpu_torch.data.dataio import load_audio_bytes
+    from summarymixing_tpu_torch.data.flac import encode_flac
+    from summarymixing_tpu_torch.recipes import serve, transcribe
+    from summarymixing_tpu_torch.serving import DynamicBatchingServer, ServingConfig
+
+    recipe, save, sets, cfg = flagship_run(here, root)
+    sr = cfg.features.sample_rate
+    dev = torch.device("cuda")
+    infer, _ = serve.build_infer(cfg, save, 0, dev)
+    scfg = ServingConfig(batch_size=BATCH, max_wait_ms=20.0, sample_rate=sr)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        serve.warmup(infer, scfg)
+    torch.cuda.synchronize()
+    print(f"serve: warm-up of {len(scfg.bucket_edges_s)} batches of {BATCH} (bucket edges "
+          f"{list(scfg.bucket_edges_s)} s) in {time.perf_counter() - t0:.1f} s")
+    batches = []   # (wav, lens, texts) of every batch the worker formed
+
+    def recording(wav, lens):
+        texts = infer(wav, lens)
+        batches.append((wav, lens, texts))
+        return texts
+
+    wavs = synthetic_waveforms(SERVE_SEQUENTIAL + SERVE_CONCURRENT, seed=23)
+    rng = np.random.default_rng(29)
+    long = rng.standard_normal(int(SERVE_LONG_S * sr)).astype(np.float32) * 0.05
+    long += 0.1 * np.sin(2 * np.pi * 440.0 * np.arange(len(long)) / sr).astype(np.float32)
+    twin = wavs[SERVE_SEQUENTIAL]   # the FLAC body's WAV twin, one of the concurrent requests
+    twin_pcm = np.clip(np.round(twin * 32768.0), -32768, 32767).astype(np.int64)
+    flac_body = encode_flac(twin_pcm, sr)
+    t0 = time.perf_counter()
+    flac_audio = load_audio_bytes(flac_body, sr)
+    flac_s = time.perf_counter() - t0
+    if not np.array_equal(flac_audio, load_audio_bytes(wav_bytes(twin), sr)):
+        fail("serve: the FLAC body's samples differ from its WAV twin's")
+    print(f"serve: FLAC body of {len(twin) / sr:.2f} s ({len(flac_body) / 1e6:.2f} MB) decoded "
+          f"in {flac_s:.3f} s on the host (bit-serial Python codec), samples equal to its WAV "
+          "twin's bit for bit")
+
+    kernels = zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    server = DynamicBatchingServer(recording, scfg, device=dev)
+    http = HttpServer(serve.make_handler(server, sr))
+    try:
+        if http.request("/healthz") != (200, {"ok": True}):
+            fail("serve: /healthz did not answer ok")
+        sequential = []
+        for i in range(SERVE_SEQUENTIAL):
+            code, reply = http.request("/transcribe", wav_bytes(wavs[i]))
+            if code != 200:
+                fail(f"serve: sequential request {i} got HTTP {code}: {reply}")
+            sequential.append((reply["text"], batches[-1]))
+        bodies = ([wav_bytes(a) for a in wavs[SERVE_SEQUENTIAL:]]
+                  + [wav_bytes(long), flac_body])
+        replies, lat = [None] * len(bodies), [0.0] * len(bodies)
+
+        def client(i):
+            t = time.perf_counter()
+            replies[i] = http.request("/transcribe", bodies[i])
+            lat[i] = time.perf_counter() - t
+
+        n_before = len(batches)
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=HTTP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads) or any(r is None or r[0] != 200 for r in replies):
+            fail(f"serve: concurrent requests failed: {[r for r in replies if r and r[0] != 200]}")
+        code, reply = http.request("/transcribe", b"RIFF\x10\x00\x00\x00WAVEjunk")
+        if code != 400:
+            fail(f"serve: a malformed body got HTTP {code}, not 400")
+        stats = http.request("/stats")[1]
+    finally:
+        http.close()
+        server.close()
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    n_batches = len(batches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if replies[-1][1]["text"] != replies[0][1]["text"]:
+        fail(f"serve: the FLAC body's text {replies[-1][1]['text']!r} differs from its WAV "
+             f"twin's {replies[0][1]['text']!r}")
+    conc_batches = n_batches - n_before
+    audio_s = (sum(len(a) for a in wavs[SERVE_SEQUENTIAL:]) + len(long) + len(twin)) / sr
+    ms = sorted(1e3 * v for v in lat)
+    print(f"serve: {len(bodies)} concurrent requests ({SERVE_CONCURRENT} of 5-30 s from "
+          f"{SERVE_CONCURRENT} threads, one of {SERVE_LONG_S:g} s, one FLAC body) in "
+          f"{wall:.2f} s: p50 {ms[len(ms) // 2]:.1f} ms, p95 {ms[int(len(ms) * 0.95)]:.1f} ms, "
+          f"{conc_batches} batches (mean batch {len(bodies) / conc_batches:.2f}), "
+          f"{audio_s:.1f} audio-s, {audio_s / wall:.1f} audio-s/s; server stats {stats}; peak "
+          f"memory {peak:.2f} GiB")
+    want = {name: (cfg.model.num_encoder_layers * n_batches, 0) for name in counts}
+    print(f"serve: {n_batches} batches, (launches, plain calls) {counts}")
+    if counts != want:
+        fail(f"serve: (launches, plain calls) {counts}, expected {want}")
+    # held after the counts are read: each sequential reply against `infer`
+    # called directly on the batch the server formed for it
+    with torch.inference_mode():
+        for i, (text, (wav, lens, _)) in enumerate(sequential):
+            direct = infer(wav, lens)[0]
+            if direct != text:
+                fail(f"serve: sequential reply {i} {text!r} != infer on its batch {direct!r}")
+    print(f"serve: {SERVE_SEQUENTIAL} sequential replies equal infer on the batches the server "
+          "formed; the FLAC body's text equals its WAV twin's; malformed body HTTP 400")
+    for name, c in counts.items():
+        kernel_rows[name]["launches_by_path"]["serve"] = c[0]
+        kernel_rows[name]["plain_calls_by_path"]["serve"] = c[1]
+
+    files = []
+    for i, audio in enumerate(wavs[:3]):
+        files.append(os.path.join(root, f"transcribe_{i}.wav"))
+        with open(files[-1], "wb") as f:
+            f.write(wav_bytes(audio))
+    files.append(os.path.join(root, "transcribe_twin.flac"))
+    with open(files[-1], "wb") as f:
+        f.write(flac_body)
+    files.append(os.path.join(root, "transcribe_twin.wav"))
+    with open(files[-1], "wb") as f:
+        f.write(wav_bytes(twin))
+    out = os.path.join(root, "transcribe.jsonl")
+    res, counts_t, secs, peak = run_stage("transcribe --batch-size 1", transcribe.main, [
+        recipe, *files, "--ckpt", save, "--batch-size", "1", "--output", out] + sets)
+    texts = [json.loads(line)["text"] for line in open(out)]
+    if len(texts) != len(files) or texts[-1] != texts[-2]:
+        fail(f"transcribe: {len(texts)} lines for {len(files)} files, or the FLAC file's text "
+             "differs from its WAV twin's")
+    want = {name: (cfg.model.num_encoder_layers * len(files), 0, 0) for name in counts_t}
+    if counts_t != want:
+        fail(f"transcribe: (launches, plain calls, backwards) {counts_t}, expected {want}")
+    audio_s = (sum(len(a) for a in wavs[:3]) + 2 * len(twin)) / sr
+    print(f"transcribe --batch-size 1: {len(files)} files ({audio_s:.1f} audio-s) in "
+          f"{secs:.2f} s, the FLAC file's text equal to its WAV twin's")
+    for name, c in counts_t.items():
+        kernel_rows[name]["launches_by_path"]["transcribe"] = c[0]
+        kernel_rows[name]["plain_calls_by_path"]["transcribe"] = c[1]
+
+
+class TokenIds:
+    """Writes token ids as text: the transducer phases have no tokenizer."""
+
+    @staticmethod
+    def decode(ids):
+        return " ".join(str(int(i)) for i in ids)
+
+
+def stream_sessions(wav, lens, sr: int) -> list:
+    """STREAM_SESSIONS pieces of request 0's audio, 4-8 s each, from its 8 utterances."""
+    rng = np.random.default_rng(37)
+    out = []
+    for i in range(STREAM_SESSIONS):
+        row = i % wav.shape[0]
+        n = int(rng.uniform(4.0, 8.0) * sr)
+        start = int(rng.integers(0, max(int(lens[row]) - n, 1)))
+        out.append(wav[row, start:start + n].cpu().numpy())
+    return out
+
+
+def phase_streaming(kernel_rows) -> tuple:
+    """Phase 19: the full-width transducer (phase 10's build, seed 3407) in
+    float32 behind `serving.StreamingSessionServer` with 8 slots: 12
+    staggered sessions from threads (slots reused), one of them over the
+    HTTP session endpoints; each session's tokens against `run_stream` on
+    its audio alone. The same sessions in bf16 are reported. Returns what
+    phase 20 exports."""
+    import threading
+
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model
+    from summarymixing_tpu_torch.frontend.features import InputNormalization
+    from summarymixing_tpu_torch.ops.layers import set_compute_dtype
+    from summarymixing_tpu_torch.recipes import serve
+    from summarymixing_tpu_torch.serving import StreamingSessionServer
+    from summarymixing_tpu_torch.streaming import make_streaming_infer_fns, run_stream
+
+    cfg = transducer_config()
+    sr = cfg.features.sample_rate
+    model, fbank, td = build_model(cfg)
+    stats = seeded_norm_stats()
+    wav, lens = request0(sr)
+    sessions = stream_sessions(wav, lens, sr)
+    init_fn, step_fn, info = make_streaming_infer_fns(
+        model, td, fbank, InputNormalization(), stats, chunk_frames=STREAM_CHUNK,
+        left_context_chunks=STREAM_LEFT, blank_id=cfg.model.blank_index)
+    cs = info["chunk_samples"]
+    tick_s = []
+
+    def timed_step(carry, chunk, n_valid):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(carry, chunk, n_valid)
+        torch.cuda.synchronize()
+        tick_s.append(time.perf_counter() - t)
+        return out
+
+    def alone(audio):
+        toks, n = run_stream(init_fn, step_fn, torch.from_numpy(audio[None]).cuda(),
+                             torch.tensor([len(audio)], device="cuda"), cs)
+        return toks[0, :int(n[0])].tolist()
+
+    def run_sessions(label):
+        got, errors = [None] * len(sessions), []
+        server = StreamingSessionServer(init_fn, timed_step, cs, slots=STREAM_SLOTS,
+                                        max_wait_ms=10.0)
+        http = HttpServer(serve.make_streaming_handler(server, TokenIds(), sr))
+
+        def open_slot():
+            deadline = time.monotonic() + HTTP_TIMEOUT
+            while True:
+                try:
+                    return server.open()
+                except RuntimeError:   # every slot busy: wait for a stream to end
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.05)
+
+        def client(i):
+            try:
+                time.sleep(0.15 * i)   # staggered starts
+                audio = sessions[i]
+                if i == len(sessions) - 1:   # this one over HTTP, raw float32 chunks
+                    deadline = time.monotonic() + HTTP_TIMEOUT
+                    code, r = http.request("/stream/start", b"")
+                    while code == 400 and "busy" in r["error"] and time.monotonic() < deadline:
+                        time.sleep(0.05)
+                        code, r = http.request("/stream/start", b"")
+                    sid = r["id"]
+                    for s in range(0, len(audio), cs):
+                        code, r = http.request(f"/stream/{sid}", audio[s:s + cs].tobytes())
+                        if code != 200:
+                            raise RuntimeError(f"HTTP {code}: {r}")
+                    code, r = http.request(f"/stream/{sid}/end", b"")
+                    got[i] = [int(t) for t in r["text"].split()]
+                    return
+                sid = open_slot()
+                toks, piece = [], cs // 2 + 123   # feeds that do not align with chunks
+                for s in range(0, len(audio), piece):
+                    toks += server.feed(sid, audio[s:s + piece], timeout=HTTP_TIMEOUT)
+                got[i] = toks + server.close(sid, timeout=HTTP_TIMEOUT)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"session {i}: {e!r}")
+
+        tick_s.clear()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(sessions))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=HTTP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        stats_ = server.stats()
+        http.close()
+        server.shutdown()
+        if errors or any(th.is_alive() for th in threads):
+            fail(f"streaming ({label}): {errors or 'a session did not finish'}")
+        ms = sorted(1e3 * t for t in tick_s)
+        same = sum(a == alone(s) for a, s in zip(got, sessions))
+        print(f"streaming ({label}): {len(sessions)} sessions over {STREAM_SLOTS} slots in "
+              f"{wall:.2f} s, {stats_['ticks']} ticks (mean {stats_['mean_ready_per_tick']} "
+              f"streams a tick), median {ms[len(ms) // 2]:.2f} ms, max {ms[-1]:.2f} ms per tick "
+              f"(chunks of {STREAM_CHUNK} frames = {1e3 * cs / sr:.0f} ms of audio); sessions "
+              f"equal to run_stream alone {same}/{len(sessions)}")
+        return same, got
+
+    kernels = zero_counts()
+    set_compute_dtype(model, None)
+    same, got = run_sessions("float32, TF32 off")
+    counts = read_counts(kernels)
+    if same != len(sessions) or not any(got):
+        fail(f"streaming: {same}/{len(sessions)} sessions equal run_stream alone in float32")
+    set_compute_dtype(model, torch.bfloat16)
+    run_sessions("bf16 encoder, reported, not held")
+    set_compute_dtype(model, None)
+    if any(c[0] for c in counts.values()):
+        fail(f"streaming: a hand-written kernel was launched: {counts}")
+    for name, c in counts.items():
+        kernel_rows[name]["launches_by_path"]["serve_streaming"] = c[0]
+        kernel_rows[name]["plain_calls_by_path"]["serve_streaming"] = c[1]
+    return model, fbank, td, stats, wav, lens
+
+
+ARTIFACT_CHECK = """
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+from summarymixing_tpu_torch.utils.export import ExportedASR
+t0 = time.perf_counter()
+asr = ExportedASR.load(sys.argv[2])
+load_s = time.perf_counter() - t0
+ref = torch.load(sys.argv[3])
+kernels = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
+out = {"load_s": load_s, "equal": [], "launches": [], "plain_calls": []}
+for wav, lens, want in ref["cases"]:
+    before = [k.launches for k in kernels]
+    got = asr(wav, lens)
+    torch.cuda.synchronize()
+    out["launches"].append([k.launches - b for k, b in zip(kernels, before)])
+    out["equal"].append([bool(torch.equal(g.cpu(), w)) for g, w in zip(got, want)])
+out["plain_calls"] = [k.plain_calls for k in kernels]
+wav, lens, _ = ref["cases"][-1]
+ms = []
+for _ in range(4):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    asr(wav, lens)
+    torch.cuda.synchronize()
+    ms.append(1e3 * (time.perf_counter() - t))
+out["ms"] = sorted(ms[1:])[1]
+print(json.dumps(out))
+"""
+
+
+def phase_export(kernel_rows, here: str, root: str, streaming) -> None:
+    """Phase 20: `export_model --check` on phase 13's run (polymorphic, on
+    the card); the artifact loaded in a fresh process that imports only
+    the port, bit-equal to the live inference function at (B=3, 2 s) and
+    (B=8, 30 s = request 0), launching 18 of each kernel per forward; and
+    the streaming artifact of phase 19's transducer against `run_stream`."""
+    import torch
+
+    from summarymixing_tpu_torch.frontend.features import InputNormalization
+    from summarymixing_tpu_torch.recipes import common, export_model
+    from summarymixing_tpu_torch.streaming import make_streaming_infer_fns, run_stream
+    from summarymixing_tpu_torch.utils.export import (
+        ExportedStreamingASR,
+        decode_token_rows,
+        export_streaming,
+        make_ctc_infer_fn,
+        save_artifact,
+    )
+
+    recipe, save, sets, cfg = flagship_run(here, root)
+    sr, n_layers = cfg.features.sample_rate, cfg.model.num_encoder_layers
+    art = os.path.join(root, "flagship.smt")
+    res, counts, secs, peak = run_stage("export_model --check", export_model.main, [
+        recipe, "--ckpt", save, "--output", art, "--check"] + sets)
+    # --check runs the artifact and the live model once each
+    if not res.get("check") or counts != {name: (2 * n_layers, 0, 0) for name in counts}:
+        fail(f"export: check {res.get('check')}, (launches, plain calls, backwards) {counts}")
+    print(f"export: polymorphic CTC artifact of {res['mb']:.1f} MB exported on the card in "
+          f"{res['export_s']:.1f} s, checked against the live model at (3, 2 s)")
+
+    model, fbank, _, stats = common.restore_inference(cfg, save, 0, torch.device("cuda"))
+    infer = make_ctc_infer_fn(model, fbank, InputNormalization(), stats, cfg.model.blank_index)
+    rng = np.random.default_rng(43)
+    wav0, lens0 = request0(sr)
+    cases = []
+    for b, secs in EXPORT_SHAPES:
+        if (b, secs) == (BATCH, 30.0):
+            wav, lens = wav0, lens0
+        else:
+            n = int(secs * sr)
+            wav = torch.from_numpy((rng.standard_normal((b, n)) * 0.1).astype(np.float32)).cuda()
+            lens = torch.tensor([n] * (b - 1) + [n - 5000], dtype=torch.int32, device="cuda")
+        with torch.inference_mode():
+            want = infer(wav, lens.to(torch.int32))
+        cases.append((wav.cpu(), lens.to(torch.int32).cpu(), [w.cpu() for w in want]))
+    live_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            infer(wav0, lens0.to(torch.int32))
+        torch.cuda.synchronize()
+        live_ms.append(1e3 * (time.perf_counter() - t))
+    ref = os.path.join(root, "export_ref.pt")
+    torch.save({"cases": cases}, ref)
+    del model, fbank, infer
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-c", ARTIFACT_CHECK, here, art, ref],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"export: the loading process failed: {proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"export: loaded in a fresh process in {out['load_s']:.1f} s; outputs equal per case "
+          f"{out['equal']}; launches per forward {out['launches']}; plain calls "
+          f"{out['plain_calls']}; request 0 (8 x 30 s): artifact {out['ms']:.1f} ms, live model "
+          f"{sorted(live_ms[1:])[1]:.1f} ms (median of 3 after one warm-up)")
+    if not all(all(e) for e in out["equal"]):
+        fail("export: the loaded artifact's outputs differ from the live model's")
+    if any(n != [n_layers, n_layers] for n in out["launches"]) or any(out["plain_calls"]):
+        fail(f"export: the artifact launched {out['launches']} per forward, plain calls "
+             f"{out['plain_calls']}; expected {n_layers} of each kernel and none")
+    for i, name in enumerate(("summary_mixing", "csgu")):
+        kernel_rows[name]["launches_by_path"]["export"] = (
+            counts[name][0] + sum(n[i] for n in out["launches"]))
+        kernel_rows[name]["plain_calls_by_path"]["export"] = out["plain_calls"][i]
+
+    # chunks of 8 frames (the runners' streaming chunk): the step's greedy
+    # loop unrolls 3 emit steps per frame into the graph, so the export's
+    # tracing time grows with the chunk
+    model, fbank, td, stats, wav, lens = streaming
+    init_fn, step_fn, info = make_streaming_infer_fns(
+        model, td, fbank, InputNormalization(), stats, chunk_frames=RUNNER_STREAM_CHUNK,
+        left_context_chunks=RUNNER_STREAM_LEFT)
+    t0 = time.perf_counter()
+    payloads = export_streaming(init_fn, step_fn, info["chunk_samples"], model, td, fbank)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(root, "transducer_stream.smt")
+    meta = {"family": "transducer_streaming", "token_type": "ids", "vocab": None,
+            "device": "cuda", **info}
+    save_artifact(path, payloads, meta)
+    t0 = time.perf_counter()
+    stream_art = ExportedStreamingASR.load(path)
+    load_s = time.perf_counter() - t0
+    n = 6 * sr   # two rows of request 0, the first 6 s
+    w2 = wav[:2, :n].cpu().numpy()
+    l2 = np.minimum(lens[:2].cpu().numpy(), n)
+    got = stream_art.transcribe(w2, l2)
+    toks, tl = run_stream(init_fn, step_fn, torch.from_numpy(w2).cuda(),
+                          torch.from_numpy(l2).cuda(), info["chunk_samples"])
+    want = decode_token_rows(meta, [toks[i, :int(tl[i])].tolist() for i in range(2)])
+    mb = sum(len(v) for v in payloads.values()) / 1e6
+    print(f"export: streaming artifact of the float32 transducer (chunks of "
+          f"{RUNNER_STREAM_CHUNK} frames, {mb:.1f} MB) exported in "
+          f"{export_s:.1f} s, loaded in {load_s:.1f} s; its transcribe equals run_stream with the "
+          f"live functions on 2 x 6 s: {got == want}")
+    if got != want:
+        fail("export: the streaming artifact disagrees with run_stream on the live functions")
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     try:
@@ -2061,6 +2679,15 @@ def main() -> int:
         phase_runner_synthetic(kernel_rows, here, corpus, root)
         phase_runner_flagship(kernel_rows, here, corpus, root)
         phase_runner_transducer(kernel_rows, here, corpus, root)
+        t_serve = time.perf_counter()
+        phase_serving_kernels(kernel_rows)
+        phase_serve(kernel_rows, here, root)
+        torch.cuda.empty_cache()
+        streaming = phase_streaming(kernel_rows)
+        phase_export(kernel_rows, here, root, streaming)
+        del streaming
+        print(f"phases 17-20 (serving, streaming, export): "
+              f"{time.perf_counter() - t_serve:.1f} s wall")
     for row in kernel_rows.values():
         row["launches"] = sum(row["launches_by_path"].values())
         row["plain_calls"] = sum(row["plain_calls_by_path"].values())

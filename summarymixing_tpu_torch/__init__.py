@@ -30,7 +30,11 @@ RNNLM fusion of `decoding/transducer_search.py` and `models/lm.py`); no
 hand-written kernel lies on those paths, as no Pallas kernel does in the
 JAX package. The recipes' run loop (`recipes/`: the `train`, `train_lm`
 and `evaluate` runners over `data/`'s manifests, bucketed batches and
-tokenizers, recipes read by `config/yaml_lite.py`). Parameters are
+tokenizers, recipes read by `config/yaml_lite.py`). Serving and shipping
+a trained run: `serving.py` (the dynamic batcher and the streaming session
+server), the `serve`, `transcribe` and `export_model` runners,
+`utils/export.py` (`torch.export` artifacts, the kernels as registered
+`torch.library` ops) and FLAC input (`data/flac.py`). Parameters are
 float32; the layers compute in bf16 for `precision: bf16`, as the flax
 modules do. On the card a configuration a kernel does not take runs the
 plain PyTorch path, counted in the wrapper's `plain_calls`.

@@ -1,9 +1,10 @@
 """Dataset IO — the port's copy of `summarymixing_tpu/data/dataio.py`:
 SpeechBrain-style CSV/JSON manifests (columns ID, duration, wav, spk_id,
 wrd) and audio loading on the host (16-bit and 32-bit PCM WAV through the
-standard library, other WAV through scipy). FLAC input raises: the JAX
-package's pure-Python FLAC codec (`data/flac.py`) is still to port
-(ROADMAP.md, queue 1 item 9)."""
+standard library, other WAV through scipy) and FLAC through the port's
+pure-Python codec (`data/flac.py`). The JAX package's native FLAC decoder
+(`data/native_loader.py`) is not ported (ROADMAP.md, queue 1 item 9), so a
+FLAC body always takes the bit-serial codec."""
 
 from __future__ import annotations
 
@@ -16,10 +17,11 @@ from typing import List, Optional
 
 import numpy as np
 
+from summarymixing_tpu_torch.data.flac import decode_flac, decode_flac_file
+
 # exception types the stdlib wave / struct decoders leak for truncated or
 # corrupt input; callers are promised plain ValueError
 _DECODE_ERRORS = (EOFError, IndexError, KeyError, struct.error)
-_FLAC_TODO = "FLAC decoding (data/flac.py) is not ported; see ROADMAP.md queue 1 item 9"
 
 
 @dataclass
@@ -62,17 +64,21 @@ def read_manifest_json(path: str) -> List[Utterance]:
 
 def load_audio_bytes(data: bytes,
                      expected_rate: Optional[int] = None) -> np.ndarray:
-    """In-memory WAV (16-bit PCM) bytes -> float32 [-1, 1] mono.
+    """In-memory WAV (16-bit PCM) or FLAC bytes -> float32 [-1, 1] mono.
 
-    The bytes-level twin of `load_wav` (for a serving path, which receives
-    audio over HTTP). Raises ValueError for any malformed or unsupported
-    input — including wave.Error, so callers can map every client-input
-    problem to one exception type; NotImplementedError for FLAC."""
+    The bytes-level twin of `load_wav` (for the serving path, which
+    receives audio over HTTP). Raises ValueError for any malformed or
+    unsupported input — including wave.Error, so callers can map every
+    client-input problem to one exception type."""
     import io
 
     if data[:4] == b"fLaC":
-        raise NotImplementedError(_FLAC_TODO)
-    if data[:4] == b"RIFF":
+        try:
+            samples, rate, bps = decode_flac(data)
+        except _DECODE_ERRORS as e:
+            raise ValueError(f"truncated or malformed FLAC: {e!r}") from e
+        audio = samples.astype(np.float32) / float(1 << (bps - 1))
+    elif data[:4] == b"RIFF":
         try:
             with wave.open(io.BytesIO(data), "rb") as w:
                 rate = w.getframerate()
@@ -96,12 +102,21 @@ def load_audio_bytes(data: bytes,
 
 
 def load_wav(path: str, expected_rate: Optional[int] = None) -> np.ndarray:
-    """Load a WAV file to float32 [-1, 1] mono. Routing is by content
-    sniffing, not extension: FLAC raises NotImplementedError."""
+    """Load an audio file (WAV or FLAC) to float32 [-1, 1] mono. Routing is
+    by content sniffing, not extension."""
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == b"fLaC":
-        raise NotImplementedError(f"{path}: {_FLAC_TODO}")
+        try:
+            samples, rate, bps = decode_flac_file(path)
+        except _DECODE_ERRORS as e:
+            raise ValueError(f"{path}: truncated or malformed FLAC: {e!r}") from e
+        audio = samples.astype(np.float32) / float(1 << (bps - 1))
+        if audio.ndim > 1:
+            audio = audio.mean(axis=1)
+        if expected_rate is not None and rate != expected_rate:
+            raise ValueError(f"{path}: sample rate {rate} != expected {expected_rate}")
+        return audio
     try:
         with wave.open(path, "rb") as w:
             rate = w.getframerate()

@@ -20,9 +20,12 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("summary_mixing", "csgu")
+OP_NAMESPACE = "summarymixing_torch"   # the kernels' registered ops: summarymixing_torch::<name>
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -80,7 +83,11 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
 
 def cached_weights(module, flatten):
     """`flatten(module)`, the kernel's weight tuple, made again only when a
-    parameter of `module` is another tensor or was updated in place."""
+    parameter of `module` is another tensor or was updated in place. Under
+    `torch.export` (whose tensors hold no data) it is made on every call,
+    so the casts become part of the exported graph."""
+    if torch.compiler.is_compiling():
+        return flatten(module)
     key = tuple((p.data_ptr(), p._version) for p in module.parameters())
     hit = module.__dict__.get("_kernel_weights")
     if hit is None or hit[0] != key:

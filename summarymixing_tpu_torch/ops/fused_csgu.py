@@ -40,6 +40,10 @@ Source note (csrc/csgu.cu, on the product core of csrc/gemm_sm90.cuh):
   flax module. The autograd Function's backward here is the VJP of the
   plain version, recomputed from the saved inputs, the float32
   parameters and the keep-mask.
+- Launch: through the registered op `summarymixing_torch::convolution_branch`
+  (`convolution_branch_op`), whose CUDA implementation is the `ctypes`
+  launch and whose fake implementation gives the output's shape, so a
+  model on the card exports with `torch.export`.
 
 Matrices use `torch.nn.Linear`'s layout, `[out, in]`; the conv weight is
 `[K, C]` with tap 0 reading frame t - (K-1)/2.
@@ -49,7 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -225,6 +229,29 @@ def _launch(x, pad_mask, weights, eps, keep, keep_prob):
     return out
 
 
+@torch.library.custom_op(f"{_build.OP_NAMESPACE}::convolution_branch", mutates_args=(),
+                         device_types="cpu")
+def convolution_branch_op(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                          weights: List[torch.Tensor], eps: float, keep: Optional[torch.Tensor],
+                          keep_prob: float) -> torch.Tensor:
+    """The kernel as a registered op, `summarymixing_torch::convolution_branch`:
+    every launch goes through it, so `torch.export` records it in a graph.
+    On the card one launch on `weights` in the layout `_check` takes; on
+    the CPU the plain version, for `torch.library.opcheck`."""
+    return convolution_branch_reference(x, pad_mask, tuple(weights), eps, keep, keep_prob)
+
+
+@convolution_branch_op.register_kernel("cuda")
+def _convolution_branch_cuda(x, pad_mask, weights, eps, keep, keep_prob):
+    return _launch(x, pad_mask, weights, eps, keep, keep_prob)
+
+
+@convolution_branch_op.register_fake
+def _convolution_branch_fake(x, pad_mask, weights, eps, keep, keep_prob):
+    # shape and dtype only: no guard on B or T
+    return torch.empty_like(x)
+
+
 class FusedConvolutionBranch(torch.autograd.Function):
     """Forward: one kernel launch. Backward: the VJP of the plain version,
     recomputed from the saved x, pad mask, keep-mask and `weights` (the
@@ -237,7 +264,7 @@ class FusedConvolutionBranch(torch.autograd.Function):
             launch_weights = kernel_weights(weights)
         ctx.eps, ctx.keep_prob = eps, keep_prob
         ctx.save_for_backward(x, pad_mask, keep, *weights)
-        return _launch(x, pad_mask, launch_weights, eps, keep, keep_prob)
+        return convolution_branch_op(x, pad_mask, list(launch_weights), eps, keep, keep_prob)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -264,7 +291,7 @@ def kernel_call(x, pad_mask, weights, eps, keep, keep_prob, launch_weights=None)
                                             *weights)
     if launch_weights is None:
         launch_weights = kernel_weights(weights)
-    return _launch(x, pad_mask, launch_weights, eps, keep, keep_prob)
+    return convolution_branch_op(x, pad_mask, list(launch_weights), eps, keep, keep_prob)
 
 
 def fused_convolution_branch(x: torch.Tensor, pad_mask: Optional[torch.Tensor],

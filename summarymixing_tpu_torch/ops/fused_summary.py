@@ -45,6 +45,10 @@ Source note (csrc/summary_mixing.cu):
   product of the plain version, recomputed from the saved inputs, the
   float32 parameters and the keep-mask, as the JAX package defines the
   Pallas kernel's (`pallas_summary.py:153-156`).
+- Launch: through the registered op `summarymixing_torch::summary_mixing`
+  (`summary_mixing_op`), whose CUDA implementation is the `ctypes` launch
+  and whose fake implementation gives the output's shape, so a model on
+  the card exports with `torch.export` and its graph launches the kernel.
 
 Weights use `torch.nn.Linear`'s layout, `[out, in]`; M1 and M2 are the
 column blocks of the merge layer's weight and may be strided views of it.
@@ -54,7 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -250,6 +254,29 @@ def _launch(x, pad, weights, activation, keep, keep_prob):
     return out
 
 
+@torch.library.custom_op(f"{_build.OP_NAMESPACE}::summary_mixing", mutates_args=(),
+                         device_types="cpu")
+def summary_mixing_op(x: torch.Tensor, pad: torch.Tensor, weights: List[torch.Tensor],
+                      activation: str, keep: Optional[torch.Tensor],
+                      keep_prob: float) -> torch.Tensor:
+    """The kernel as a registered op, `summarymixing_torch::summary_mixing`:
+    every launch goes through it, so `torch.export` records it in a graph.
+    On the card one launch on bf16 `weights` (the layout `_check` takes);
+    on the CPU the plain version, for `torch.library.opcheck`."""
+    return summary_mixing_reference(x, pad, tuple(weights), activation, keep, keep_prob)
+
+
+@summary_mixing_op.register_kernel("cuda")
+def _summary_mixing_cuda(x, pad, weights, activation, keep, keep_prob):
+    return _launch(x, pad, weights, activation, keep, keep_prob)
+
+
+@summary_mixing_op.register_fake
+def _summary_mixing_fake(x, pad, weights, activation, keep, keep_prob):
+    # shape and dtype only: no guard on B or T
+    return x.new_empty(x.shape[0], x.shape[1], weights[8].shape[0])
+
+
 class FusedSummaryMixing(torch.autograd.Function):
     """Forward: one kernel launch. Backward: the VJP of the plain version,
     recomputed from the saved x, pad, keep-mask and `weights` (the
@@ -262,7 +289,7 @@ class FusedSummaryMixing(torch.autograd.Function):
             launch_weights = kernel_weights(weights)
         ctx.activation, ctx.keep_prob = activation, keep_prob
         ctx.save_for_backward(x, pad, keep, *weights)
-        return _launch(x, pad, launch_weights, activation, keep, keep_prob)
+        return summary_mixing_op(x, pad, list(launch_weights), activation, keep, keep_prob)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -289,7 +316,7 @@ def kernel_call(x, pad, weights, activation, keep, keep_prob, launch_weights=Non
                                         *weights)
     if launch_weights is None:
         launch_weights = kernel_weights(weights)
-    return _launch(x, pad, launch_weights, activation, keep, keep_prob)
+    return summary_mixing_op(x, pad, list(launch_weights), activation, keep, keep_prob)
 
 
 def fused_summary_mixing(x: torch.Tensor, pad: torch.Tensor, weights: Tuple,

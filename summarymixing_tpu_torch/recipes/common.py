@@ -2,7 +2,7 @@
 package's `recipes/train.py`: bucket construction and the steps-per-epoch
 estimate, the batch iterator (WAV files in, tensors on the run's device
 out), scoring of decoded batches, greedy and beam decoding of a manifest (CTC,
-attention and transducer), the fusion LMs (the Transformer LM of the
+attention and transducer), a trained run restored for inference, the fusion LMs (the Transformer LM of the
 attention recipes and the RNNLM of the transducer recipes), the training
 run's tokenizer, and `--set` overrides.
 
@@ -27,7 +27,12 @@ from summarymixing_tpu_torch.decoding.transducer_search import (
     transducer_beam_search_batched,
     transducer_greedy_decode,
 )
-from summarymixing_tpu_torch.evaluate import evaluate_beam, restore_lm, static_decode_length
+from summarymixing_tpu_torch.evaluate import (
+    evaluate_beam,
+    restore_eval_state,
+    restore_lm,
+    static_decode_length,
+)
 from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
 from summarymixing_tpu_torch.training.metrics import ErrorRateStats
 
@@ -158,6 +163,24 @@ def greedy_score(stats: ErrorRateStats, trainer, state: Dict, manifest: Sequence
         losses.append(float(out["loss"]))
         score_batch(stats, tokenizer, batch, idx, seen, hyps, record=record)
     return float(np.mean(losses)) if losses else 0.0
+
+
+def restore_inference(cfg, ckpt: str, avg: int, device):
+    """`(model, fbank, transducer or None, norm_stats)` of a trained run for
+    greedy inference (the serve, transcribe and export runners): the
+    recipe's modules on `device`, in eval mode, with the parameters of
+    `ckpt` (the mean of the last `avg` checkpoints when `avg` > 1)."""
+    from summarymixing_tpu_torch.config import build_model
+
+    if cfg.transducer is None:
+        model, fbank = build_model(cfg, device=device)
+        state = restore_eval_state(model, ckpt, avg, device=device)
+        return model.eval(), fbank, None, state["norm_stats"]
+    model, fbank, td = build_model(cfg, device=device)
+    # a transducer run saves {"encoder": ..., "transducer": ...} (TransducerTrainer.model)
+    state = restore_eval_state(torch.nn.ModuleDict({"encoder": model, "transducer": td}), ckpt,
+                               avg, device=device)
+    return model.eval(), fbank, td.eval(), state["norm_stats"]
 
 
 def load_fusion_lm(cfg, lm_ckpt: Optional[str], device):

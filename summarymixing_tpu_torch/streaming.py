@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, fields, is_dataclass, replace
-from typing import Callable, Tuple
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -112,16 +112,48 @@ def streamed_frontend_chunk(fbank, normalizer, norm_stats: dict, cnn_apply: Call
 
 
 def _select(active: torch.Tensor, new, old):
-    """Per row: `new` where `active`, else `old`, through tuples and
-    dataclasses of tensors; other leaves (a state's chunk size) are kept."""
+    """Per row: `new` where `active`, else `old`, through dicts, tuples and
+    dataclasses of tensors (a whole carry); other leaves (a state's chunk
+    size) are kept from `new`."""
     if isinstance(new, torch.Tensor):
         return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+    if isinstance(new, dict):
+        return {k: _select(active, v, old[k]) for k, v in new.items()}
     if isinstance(new, tuple):
         return tuple(_select(active, a, b) for a, b in zip(new, old))
     if is_dataclass(new):
         return replace(new, **{f.name: _select(active, getattr(new, f.name),
                                                getattr(old, f.name)) for f in fields(new)})
     return new
+
+
+def carry_tensors(carry) -> List[torch.Tensor]:
+    """The tensors of a carry (dicts, tuples and dataclasses of tensors) in
+    one fixed order: the flat form an exported streaming step takes."""
+    if isinstance(carry, torch.Tensor):
+        return [carry]
+    if isinstance(carry, dict):
+        return [t for v in carry.values() for t in carry_tensors(v)]
+    if isinstance(carry, tuple):
+        return [t for v in carry for t in carry_tensors(v)]
+    if is_dataclass(carry):
+        return [t for f in fields(carry) for t in carry_tensors(getattr(carry, f.name))]
+    return []
+
+
+def carry_like(template, tensors):
+    """`template`'s structure with its tensors replaced, in `carry_tensors`
+    order, by those of the iterator `tensors`."""
+    if isinstance(template, torch.Tensor):
+        return next(tensors)
+    if isinstance(template, dict):
+        return {k: carry_like(v, tensors) for k, v in template.items()}
+    if isinstance(template, tuple):
+        return tuple(carry_like(v, tensors) for v in template)
+    if is_dataclass(template):
+        return replace(template, **{f.name: carry_like(getattr(template, f.name), tensors)
+                                    for f in fields(template)})
+    return template
 
 
 def make_streaming_infer_fns(model, transducer, fbank, normalizer, norm_stats: dict, *,

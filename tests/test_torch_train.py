@@ -253,8 +253,9 @@ def test_xavier_overwrite_stds_match_jax():
 
 
 def _plain_launch(module):
-    """A stand-in for a kernel launch: the plain version on the bf16 launch
-    weights, counted."""
+    """A stand-in for a kernel launch, the registered op every launch goes
+    through (`summary_mixing_op`, `convolution_branch_op`): the plain
+    version on the bf16 launch weights, counted."""
     ref = (fused_summary.summary_mixing_reference if module is fused_summary
            else fused_csgu.convolution_branch_reference)
 
@@ -284,8 +285,8 @@ def test_autograd_functions_fill_every_grad_after_an_eval_pass(rng, monkeypatch)
     def run(kernel_route):
         with monkeypatch.context() as mp:
             if kernel_route:
-                for m in (fused_summary, fused_csgu):
-                    mp.setattr(m, "_launch", launches[m])
+                mp.setattr(fused_summary, "summary_mixing_op", launches[fused_summary])
+                mp.setattr(fused_csgu, "convolution_branch_op", launches[fused_csgu])
                 mp.setattr(fused_summary, "fused_summary_mixing", fused_summary.kernel_call)
                 mp.setattr(fused_csgu, "fused_convolution_branch", fused_csgu.kernel_call)
                 mp.setattr(tsm, "uses_kernel", lambda x: True)
