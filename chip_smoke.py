@@ -171,13 +171,38 @@ Neither kernel lies on phases 14-16: both launch counters must stay 0.
    frames, 4 of left context) against `run_stream` on the live functions. Prints export seconds, artifact
    MB, load seconds and the artifact's latency on request 0 beside the
    live model's.
+21. The Summary Decoder and the other recipes' training set-up. (a)
+   `recipes/LibriSpeech/branchformer_summarymixing_summarydecoder.yaml` at
+   full width (18-layer Branchformer, 6-layer Summary Decoder, seed 3407):
+   one training step at B=16, T=751 after a warm-up (bf16, dropout,
+   augmentation), its time and peak memory; each kernel launches and is
+   differentiated 18 times, and the decoder's causal cells run the plain
+   path, 6 plain calls; then request 0 through `evaluate.evaluate_beam` at
+   beam 66 with the Transformer LM at `LMConfig()` (18 launches, no plain
+   call), ms per step and peak memory beside the MHA decoder's step
+   (printed, not compared); held: the cached step (the `(sum, denom)`
+   carry) against the whole-prefix decode over 528 rows of 8 random
+   positions in float32 with TF32 off, within SD_STEP_TOL. (b)
+   `recipes/AISHELL-1/branchformer_summarymixing.yaml` at full width
+   through the train runner on phase 12's corpus, 120 s batches in 2
+   buckets, `stage_one_epochs` 1: a `--max-hours 0` call stops after one
+   step with a checkpoint, the same command resumes there and runs to two
+   steps past the two-stage switch; the stage of every step must be
+   "adam" up to the switch and "sgd" after it, and every cell launch under
+   autograd must run at twice a training batch's rows (`concat_original`);
+   18 backwards per step, no plain call. (c) One flagship training step
+   (with the decoder, dropout, augmentation off) with `model.remat` against
+   the same step without it, the same dropout seed: loss and gradient norm
+   within REMAT_TOL, 36 launches (forward and recompute) and 18 backwards
+   with remat, and a lower peak memory.
 
 `plain_calls` (cells or cgMLP branches on the card whose configuration the
 kernel does not take, run on the plain path) is set to 0 at phase 4 and
 must still be 0 after phases 4, 7 and 9: the flagship takes both kernels
 everywhere. The kernels line reports `launches` and `plain_calls` summed
-over phases 4, 7, 9, 10, 12-16 and 18-20, and each by path (`serve`,
-`transcribe`, `serve_streaming` and `export` for phases 18-20), with the
+over phases 4, 7, 9, 10, 12-16 and 18-21, and each by path (`serve`,
+`transcribe`, `serve_streaming` and `export` for phases 18-20;
+`summary_decoder`, `runner_aishell` and `remat` for phase 21), with the
 phase-17 rows under `serving_shapes`.
 
 The line before the last holds nvidia-smi's name and power limit; the last
@@ -288,6 +313,23 @@ SERVE_SEQUENTIAL, SERVE_CONCURRENT, SERVE_LONG_S = 8, 32, 100.0
 STREAM_SESSIONS, STREAM_SLOTS = 12, 8
 EXPORT_SHAPES = ((3, 2.0), (8, 30.0))   # (B, seconds) the loaded artifact runs at
 HTTP_TIMEOUT = 300.0
+# the Summary Decoder and the other recipes' training set-up (phase 21)
+SD_RECIPE = "recipes/LibriSpeech/branchformer_summarymixing_summarydecoder.yaml"
+AISHELL_RECIPE = "recipes/AISHELL-1/branchformer_summarymixing.yaml"
+# (a) the cached Summary Decoder step against the whole-prefix decode,
+# float32 with TF32 off, on max |cached - prefix| / (1 + |prefix|) of the
+# decoder's hidden states: the CPU parity tests' float32 tolerance
+SD_STEP_TOL = 2e-5
+SD_CHECK_POSITIONS = 8
+# the MHA decoder's beam step on the same request, as PERF.md records it:
+# printed beside the Summary Decoder's, not compared
+MHA_BEAM_STEP_MS, MHA_GATHER_MS = (27.35, 30.97), 6.38
+# (b) AISHELL-1 through the train runner: batches of 120 s in 2 buckets
+# (about 8 steps per epoch of the 320 training utterances), one Adam epoch
+AISHELL_BATCH_S, AISHELL_BUCKETS = 120.0, 2
+# (c) remat against none: one bf16 training step with the same dropout
+# masks; loss and gradient norm within one bf16 step of each other
+REMAT_TOL = 2.0 ** -8
 
 
 def fail(msg: str) -> None:
@@ -2134,11 +2176,12 @@ def phase_serving_kernels(kernel_rows) -> None:
 
 
 def zero_counts() -> tuple:
+    """Both wrappers with their launch, plain-call and backward counters at 0."""
     from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
 
     kernels = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
     for fn in kernels:
-        fn.launches, fn.plain_calls = 0, 0
+        fn.launches, fn.plain_calls, fn.backwards = 0, 0, 0
     return kernels
 
 
@@ -2638,6 +2681,285 @@ def phase_export(kernel_rows, here: str, root: str, streaming) -> None:
         fail("export: the streaming artifact disagrees with run_stream on the live functions")
 
 
+def phase_summary_decoder(kernel_rows, here: str) -> None:
+    """Phase 21 (a): the Summary Decoder recipe at full width (18-layer
+    Branchformer, 6-layer Summary Decoder), random weights from its seed:
+    one training step at B=16, T=751 (bf16, dropout, speed perturbation and
+    SpecAugment), the joint CTC/attention beam search at beam 66 on request
+    0 with the Transformer LM at `LMConfig()`, and the cached step against
+    the whole-prefix decode in float32 on every row of a short prefix."""
+    import torch
+
+    from summarymixing_tpu_torch.config import LMConfig, build_lm, build_model, build_trainer
+    from summarymixing_tpu_torch.config import load_recipe
+    from summarymixing_tpu_torch.decoding.s2s_beam import tile_for_beam
+    from summarymixing_tpu_torch.evaluate import evaluate_beam
+    from summarymixing_tpu_torch.frontend.features import InputNormalization
+    from summarymixing_tpu_torch.ops.layers import set_compute_dtype
+    from summarymixing_tpu_torch.ops.masks import length_to_mask
+    from summarymixing_tpu_torch.ops.summary_mixing import SummaryMixing
+    from summarymixing_tpu_torch.transcribe import batch_waveforms
+
+    cfg = load_recipe(os.path.join(here, SD_RECIPE))
+    m, dec = cfg.model, cfg.decoding
+    torch.cuda.reset_peak_memory_stats()
+    model, fbank = build_model(cfg)
+    dev = next(model.parameters()).device
+    cells = [layer.self_attn for layer in model.asr.decoder.layers()]
+    if len(cells) != m.num_decoder_layers or not all(isinstance(c, SummaryMixing)
+                                                     for c in cells):
+        fail("summary decoder: the decoder's self-attention is not SummaryMixing")
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = build_trainer(cfg, model, fbank)
+    state = trainer.init_state(cfg.seed)
+    batch = training_batch()
+    state, metrics = trainer.train_step(state, batch)        # warm-up
+    kernels = zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = [(k.launches, k.backwards, k.plain_calls) for k in kernels]
+    loss = float(metrics["loss"])
+    print(f"summary decoder train: {SD_RECIPE}, {n_params:,} float32 parameters, "
+          f"{m.num_decoder_layers} Summary Decoder layers; one step at B={TRAIN_BATCH}, "
+          f"T=751 (bf16, dropout {m.transformer_dropout}, augmentation on): {dt * 1e3:.2f} ms, "
+          f"loss {loss:.4f} (ctc {float(metrics['ctc']):.4f}, att {float(metrics['att']):.4f}), "
+          f"grad norm {float(metrics['grad_norm']):.4f}, peak memory {peak:.2f} GiB; "
+          f"(launches, backwards, plain calls) summary_mixing {counts[0]} csgu {counts[1]}")
+    n_layers = m.num_encoder_layers
+    if not np.isfinite(loss) or metrics["nonfinite_skipped"]:
+        fail(f"summary decoder train: loss {loss}, skipped {metrics['nonfinite_skipped']}")
+    if counts != [(n_layers, n_layers, m.num_decoder_layers), (n_layers, n_layers, 0)]:
+        fail(f"summary decoder train: counts {counts}, expected {n_layers} launches and "
+             f"backwards of each kernel and {m.num_decoder_layers} plain calls of the cell "
+             "(the decoder's causal cells)")
+    launches = {"summary_mixing": counts[0][0], "csgu": counts[1][0]}
+    plain = {"summary_mixing": counts[0][2], "csgu": counts[1][2]}
+    del trainer, state, metrics
+    torch.cuda.empty_cache()
+
+    # the beam test stage on request 0 with the LM at LMConfig()
+    model.eval()
+    lm = build_lm(LMConfig(), m.output_neurons, seed=cfg.seed)
+    norm_stats = seeded_norm_stats()
+    wavs = synthetic_waveforms(N_REQUESTS * BATCH, seed=11)
+    idx, wav, wav_lens = next(iter(batch_waveforms(wavs, BATCH,
+                                                   pad_quantum=cfg.features.sample_rate // 2,
+                                                   device=dev)))
+    audio_s = sum(len(wavs[i]) / cfg.features.sample_rate for i in idx)
+    kernels = zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = evaluate_beam(model, fbank, norm_stats, [(idx, wav, wav_lens)], cfg, lm=lm)
+    torch.cuda.synchronize()
+    latency = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rose = [(k.launches, k.plain_calls) for k in kernels]
+    step_ms_ = out["search_s"] * 1e3 / max(out["steps"], 1)
+    print(f"summary decoder beam: request 0 ({BATCH} utterances, {audio_s:.2f} audio-s), beam "
+          f"{dec.test_beam_size} ({BATCH * dec.test_beam_size} rows), LM at LMConfig() fused at "
+          f"{dec.lm_weight}, temperatures {dec.test_temperature}/{dec.lm_temperature}: latency "
+          f"{latency * 1e3:.1f} ms, {out['steps']} steps, {step_ms_:.2f} ms per step, encoder "
+          f"{out['encode_s'] * 1e3:.1f} ms, search {out['search_s'] * 1e3:.1f} ms, peak memory "
+          f"{peak:.2f} GiB; (launches, plain calls) summary_mixing {rose[0]} csgu {rose[1]}; "
+          f"beside it, the MHA decoder's beam step on this request (PERF.md): "
+          f"{MHA_BEAM_STEP_MS[0]}-{MHA_BEAM_STEP_MS[1]} ms, of which the cache gather "
+          f"{MHA_GATHER_MS} ms (not compared)")
+    if rose != [(n_layers, 0)] * 2:
+        fail(f"summary decoder beam: (launches, plain calls) {rose}, expected ({n_layers}, 0)")
+    if not all(np.isfinite(out["scores"][i]) for i in idx):
+        fail("summary decoder beam: a non-finite score")
+    for name, (n, p) in zip(("summary_mixing", "csgu"), rose):
+        kernel_rows[name]["launches_by_path"]["summary_decoder"] = launches[name] + n
+        kernel_rows[name]["plain_calls_by_path"]["summary_decoder"] = plain[name] + p
+
+    # the cached step against the whole-prefix decode, float32, every row
+    with torch.inference_mode():
+        feats, _ = InputNormalization()(fbank(wav), norm_stats)
+        enc, enc_lens = model.encode(feats, fbank.frame_lengths(wav_lens))
+        enc = enc.float()
+        set_compute_dtype(model, None)
+        beam = dec.test_beam_size
+        n_rows = BATCH * beam
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        toks = torch.randint(3, m.output_neurons, (n_rows, SD_CHECK_POSITIONS), generator=g,
+                             device=dev)
+        toks[:, 0] = m.bos_index
+        whole = model.asr.decode_prefix(toks, tile_for_beam(enc, beam),
+                                        tile_for_beam(enc_lens, beam))
+        cache = model.asr.decode_cache_init(enc, SD_CHECK_POSITIONS, n_rows)
+        pad = length_to_mask(enc_lens, enc.shape[1])
+        err = 0.0
+        for pos in range(SD_CHECK_POSITIONS):
+            h, cache = model.asr.decode_step_cached(toks[:, pos], pos, cache, pad)
+            ref = whole[:, pos]
+            err = max(err, float(((h - ref).abs() / (1 + ref.abs())).max()))
+        set_compute_dtype(model, torch.bfloat16)
+    ok = err <= SD_STEP_TOL
+    print(f"summary decoder check: cached step ((sum, denom) carry) vs whole-prefix decode over "
+          f"{n_rows} rows x {SD_CHECK_POSITIONS} positions (float32, TF32 off): max "
+          f"|dh|/(1+|h|) {err:.3e} (tol {SD_STEP_TOL:.0e}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("summary decoder: the cached step disagrees with the whole-prefix decode")
+
+
+def phase_runner_aishell(kernel_rows, here: str, corpus: dict, root: str) -> None:
+    """Phase 21 (b): recipes/AISHELL-1/branchformer_summarymixing.yaml at
+    full width (two-stage Adam -> SGD, concat_original) through the train
+    runner on phase 12's corpus, with one Adam epoch: a `--max-hours 0`
+    run checkpoints after one step and stops; the same command without it
+    resumes there and runs past the switch. The kernels launch at twice
+    each training batch's rows."""
+    import torch
+
+    from summarymixing_tpu_torch.config import load_recipe
+    from summarymixing_tpu_torch.data.dataio import read_manifest_csv
+    from summarymixing_tpu_torch.ops import fused_summary
+    from summarymixing_tpu_torch.recipes import common, train
+
+    recipe = os.path.join(here, AISHELL_RECIPE)
+    run = os.path.join(root, "aishell")
+    sets = [f"training.max_batch_length={AISHELL_BATCH_S}", "training.stage_one_epochs=1",
+            f"training.num_buckets={AISHELL_BUCKETS}"]
+    cfg = load_recipe(recipe, overrides=common.parse_overrides(sets))
+    switch = common.estimate_steps_per_epoch(read_manifest_csv(corpus["train"]), cfg)
+    argv = [recipe, "--train-manifest", corpus["train"], "--valid-manifest", corpus["dev"],
+            "--output", run] + [a for s_ in sets for a in ("--set", s_)]
+    n_layers = cfg.model.num_encoder_layers
+    batch_rows, kernel_rows_seen = [], []
+    batches, cell = common.batches, fused_summary.kernel_call
+
+    def counted_batches(manifest, tokenizer, cfg_, shuffle, seed, device):
+        for batch, idx in batches(manifest, tokenizer, cfg_, shuffle, seed, device):
+            if shuffle:
+                batch_rows.append(int(batch["wav"].shape[0]))
+            yield batch, idx
+
+    def counted_cell(x, *args, **kw):
+        if torch.is_grad_enabled():
+            kernel_rows_seen.append(int(x.shape[0]))
+        return cell(x, *args, **kw)
+
+    # the training batches' rows, and the rows of each cell launch autograd
+    # records (the training forwards; validation runs without autograd)
+    common.batches, fused_summary.kernel_call = counted_batches, counted_cell
+    try:
+        first, counts1, secs1, _ = run_stage("aishell train --max-hours 0", train.main,
+                                             argv + ["--max-hours", "0"])
+        second, counts2, secs2, peak = run_stage("aishell train (resumed)", train.main,
+                                                 argv + ["--steps", str(switch + 2)])
+    finally:
+        common.batches, fused_summary.kernel_call = batches, cell
+    stages = first["opt_stages"] + second["opt_stages"]
+    print(f"runner aishell: {AISHELL_RECIPE} (two_stage, stage_one_epochs 1 = {switch} steps "
+          f"at {AISHELL_BATCH_S:.0f} s batches; concat_original): the first call stopped "
+          f"({first.get('stopped')}) after {first['steps']} step in {secs1:.1f} s; the second "
+          f"resumed and ran to step {second['steps']} in {secs2:.1f} s, {step_ms(second['step_s'])}"
+          f", peak memory {peak:.2f} GiB; optimizer stage per step {stages}; training batch "
+          f"rows {batch_rows}, kernel rows with autograd {sorted(set(kernel_rows_seen))}")
+    want_stages = ["adam"] * switch + ["sgd"] * 2
+    if first.get("stopped") != "WALLCLOCK" or first["steps"] != 1:
+        fail(f"runner aishell: --max-hours 0 gave {first.get('stopped')} at step "
+             f"{first['steps']}, expected a WALLCLOCK stop after step 1")
+    if second["steps"] != switch + 2 or stages != want_stages:
+        fail(f"runner aishell: steps {second['steps']}, stages {stages}, expected "
+             f"{want_stages}")
+    # the batch iterator runs ahead of the steps (prefetch), so some batches
+    # it made were not trained on: every launch's rows must be twice some
+    # batch's rows
+    doubled = sorted({2 * b for b in batch_rows})
+    if not kernel_rows_seen or not set(kernel_rows_seen) <= set(doubled):
+        fail(f"runner aishell: the cell kernel ran at {sorted(set(kernel_rows_seen))} rows in "
+             f"training, expected twice a batch's rows, one of {doubled} (concat_original)")
+    for name in counts1:
+        launched = counts1[name][0] + counts2[name][0]
+        backwards = counts1[name][2] + counts2[name][2]
+        if counts1[name][1] or counts2[name][1] or backwards != n_layers * (switch + 2):
+            fail(f"runner aishell: {name} (launches, plain calls, backwards) {counts1[name]} "
+                 f"then {counts2[name]}, expected no plain call and "
+                 f"{n_layers * (switch + 2)} backwards")
+        kernel_rows[name]["launches_by_path"]["runner_aishell"] = launched
+        kernel_rows[name]["plain_calls_by_path"]["runner_aishell"] = 0
+
+
+def phase_remat(kernel_rows) -> None:
+    """Phase 21 (c): one flagship training step (with its 6-layer decoder,
+    bf16, dropout; augmentation off so both steps see the same features)
+    with `model.remat` against the same step without it: the same dropout
+    masks from one seed; loss and gradient norm within REMAT_TOL; lower
+    peak memory with remat."""
+    import dataclasses
+
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model, build_trainer
+    from summarymixing_tpu_torch.ops.layers import set_dropout_generator
+
+    cfg = flagship_config(decoder_layers=6)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=True))
+    model, fbank = build_model(cfg)
+    if not model.asr.encoder.remat:
+        fail("remat: model.remat did not reach the encoder")
+    trainer = build_trainer(cfg, model, fbank)
+    trainer.config = dataclasses.replace(trainer.config, augment=None, speed_perturb=False)
+    state = trainer.init_state(cfg.seed)
+    batch = training_batch()
+    n_layers = cfg.model.num_encoder_layers
+
+    def one_step(remat: bool):
+        model.asr.encoder.remat = remat
+        gen = torch.Generator(device=next(model.parameters()).device)
+        gen.manual_seed(99)
+        set_dropout_generator(model, gen)
+        for p in model.parameters():
+            p.grad = None
+        kernels = zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = trainer._forward_loss(state["norm_stats"], batch, True, 0, gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        norm = float(torch.linalg.vector_norm(torch.stack(
+            [p.grad.float().norm() for p in model.parameters()])))
+        return (float(loss.detach()), norm, peak, ms, [(k.launches, k.backwards) for k in kernels],
+                [p.grad.clone() for p in model.parameters()])
+
+    one_step(False)                                   # warm-up
+    plain = one_step(False)
+    remat = one_step(True)
+    rel_loss = abs(remat[0] - plain[0]) / abs(plain[0])
+    rel_norm = abs(remat[1] - plain[1]) / plain[1]
+    worst = max(float((a - b).norm() / max(float(b.norm()), 1e-30))
+                for a, b in zip(remat[5], plain[5]) if float(b.norm()) > 1e-6 * plain[1])
+    ok = rel_loss <= REMAT_TOL and rel_norm <= REMAT_TOL and remat[2] < plain[2]
+    print(f"remat: one flagship training step (B={TRAIN_BATCH}, T=751, bf16, dropout "
+          f"{DROPOUT}, the same masks) with model.remat vs without: loss {remat[0]:.6f} vs "
+          f"{plain[0]:.6f} (relative {rel_loss:.2e}), grad norm {remat[1]:.6f} vs {plain[1]:.6f} "
+          f"(relative {rel_norm:.2e}; tol {REMAT_TOL:.2e}), worst per-tensor relative L2 "
+          f"gradient difference {worst:.2e}; peak memory {remat[2]:.2f} vs {plain[2]:.2f} GiB; "
+          f"{remat[3]:.1f} vs {plain[3]:.1f} ms; (launches, backwards) with remat "
+          f"{remat[4]}, without {plain[4]} {'ok' if ok else 'FAILED'}")
+    if remat[4] != [(2 * n_layers, n_layers)] * 2 or plain[4] != [(n_layers, n_layers)] * 2:
+        fail(f"remat: kernel counts {remat[4]} with remat, {plain[4]} without; expected "
+             f"{2 * n_layers} launches (forward and recompute) and {n_layers} backwards with "
+             f"it, {n_layers} each without")
+    if not ok:
+        fail("remat: the step with remat disagrees with the step without it, or its peak "
+             "memory is not lower")
+    for i, name in enumerate(("summary_mixing", "csgu")):
+        kernel_rows[name]["launches_by_path"]["remat"] = remat[4][i][0] + plain[4][i][0]
+        kernel_rows[name]["plain_calls_by_path"]["remat"] = 0
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     try:
@@ -2688,6 +3010,15 @@ def main() -> int:
         del streaming
         print(f"phases 17-20 (serving, streaming, export): "
               f"{time.perf_counter() - t_serve:.1f} s wall")
+        torch.cuda.empty_cache()
+        t_21 = time.perf_counter()
+        phase_summary_decoder(kernel_rows, here)
+        torch.cuda.empty_cache()
+        phase_runner_aishell(kernel_rows, here, corpus, root)
+        torch.cuda.empty_cache()
+        phase_remat(kernel_rows)
+        print(f"phase 21 (Summary Decoder, AISHELL-1 runner, remat): "
+              f"{time.perf_counter() - t_21:.1f} s wall")
     for row in kernel_rows.values():
         row["launches"] = sum(row["launches_by_path"].values())
         row["plain_calls"] = sum(row["plain_calls_by_path"].values())

@@ -80,7 +80,9 @@ def build_model(cfg: RecipeConfig, device=None) -> tuple:
     as the flax modules' `dtype` does. The Fbank and the transducer stay
     float32 (the flax transducer has no `dtype`). The recipe's `activation`
     serves every layer: the Conformer's, the SummaryMixing cell's, the
-    feed-forward blocks' and the joint's."""
+    feed-forward blocks' and the joint's (the Summary Decoder's cell keeps
+    the erf GELU, as the flax decoder builds it). `model.remat` recomputes
+    each encoder layer's activations in the backward pass."""
     from summarymixing_tpu_torch.frontend.features import Fbank
     from summarymixing_tpu_torch.models.asr import TransformerASR
     from summarymixing_tpu_torch.models.speech_recognizer import SpeechRecognizer
@@ -104,7 +106,7 @@ def build_model(cfg: RecipeConfig, device=None) -> tuple:
             local_proj_out_dim=m.local_proj_out_dim,
             summary_hid_dim=tuple(m.summary_hid_dim), summary_out_dim=m.summary_out_dim,
             mode=m.mode, branchformer_activation=m.activation,
-            conformer_activation=m.activation, max_length=m.max_length)
+            conformer_activation=m.activation, max_length=m.max_length, remat=m.remat)
         model = SpeechRecognizer(asr, m.output_neurons,
                                  frontend_channels=tuple(m.frontend_channels),
                                  frontend_strides=tuple(m.frontend_strides),
@@ -152,43 +154,50 @@ def build_lm(lm_cfg: LMConfig, vocab: int, device=None, seed: int = 0) -> "torch
     return lm.eval()
 
 
-def _optimizer(cfg: RecipeConfig):
+def _optimizer(cfg: RecipeConfig, steps_per_epoch: Optional[int] = None):
     """The training section's optimizer, the JAX `recipes/train.py::build_tx`:
     AdamW (betas, eps, weight decay) with gradient clipping and the `noam`
     (peak `lr_adam`, `n_warmup_steps`) or `warm_exp_decay` schedule (`lr_adam`,
-    `n_warmup_steps`, `optimizer_step_limit` or 200,000, `decay_factor`),
-    accumulating `grad_accumulation_factor` micro-batches. The two-stage
-    Adam -> SGD optimizer is refused."""
+    `n_warmup_steps`, `optimizer_step_limit` or 200,000, `decay_factor`); or
+    for `two_stage`, AdamW on the Noam schedule, then from optimizer step
+    `stage_one_epochs` · max(`steps_per_epoch` // accumulation, 1) on, SGD
+    at `lr_sgd` with `sgd_momentum` (Nesterov with `sgd_nesterov`), as the JAX
+    runner switches (1000 steps per epoch when `steps_per_epoch` is not
+    given, as there). Each accumulates `grad_accumulation_factor`
+    micro-batches."""
     from summarymixing_tpu_torch.training.optim import (
         make_optimizer,
+        make_two_stage_adam_sgd,
         noam_schedule,
         warm_and_exp_decay_schedule,
     )
 
     t = cfg.training
-    if t.scheduler == "noam" and not t.stage_one_epochs:
+    accum = t.grad_accumulation_factor
+    if t.scheduler == "noam":
         schedule = noam_schedule(t.lr_adam, t.n_warmup_steps)
-    elif t.scheduler == "warm_exp_decay" and not t.stage_one_epochs:
+    elif t.scheduler == "warm_exp_decay":
         schedule = warm_and_exp_decay_schedule(t.lr_adam, t.n_warmup_steps,
                                                t.optimizer_step_limit or 200000, t.decay_factor)
+    elif t.scheduler == "two_stage":
+        switch = (t.stage_one_epochs or 1) * max((steps_per_epoch or 1000) // max(accum, 1), 1)
+        return make_two_stage_adam_sgd(
+            noam_schedule(t.lr_adam, t.n_warmup_steps), sgd_lr=t.lr_sgd, switch_step=switch,
+            weight_decay=t.weight_decay, betas=tuple(t.adam_betas), eps=t.adam_eps,
+            max_grad_norm=t.max_grad_norm, sgd_momentum=t.sgd_momentum,
+            sgd_nesterov=t.sgd_nesterov, accum_steps=accum)
     else:
-        raise NotImplementedError(f"scheduler {t.scheduler!r} (stage_one_epochs "
-                                  f"{t.stage_one_epochs}): the two-stage Adam -> SGD optimizer "
-                                  "is not ported; see ROADMAP.md queue 1 item 5")
+        raise ValueError(f"unknown scheduler {t.scheduler!r}")
     return make_optimizer(schedule, t.weight_decay, tuple(t.adam_betas), t.adam_eps,
-                          t.max_grad_norm, t.grad_accumulation_factor)
+                          t.max_grad_norm, accum)
 
 
 def _spec_augment(cfg: RecipeConfig):
     """The augment section's SpecAugment configuration (None when
-    `fea_augment` is off); refuses what is not ported."""
+    `fea_augment` is off)."""
     from summarymixing_tpu_torch.frontend.augment import SpecAugmentConfig
 
     a = cfg.augment
-    if a.concat_original or a.augment_warmup_steps > 0:
-        raise NotImplementedError(
-            f"augment.concat_original ({a.concat_original}) and augment.augment_warmup_steps "
-            f"({a.augment_warmup_steps}) are not ported; see ROADMAP.md queue 1 item 5")
     if not a.fea_augment:
         return None
     return SpecAugmentConfig(
@@ -200,11 +209,12 @@ def _spec_augment(cfg: RecipeConfig):
         max_augmentations=a.max_augmentations, shuffle_augmentations=a.shuffle_augmentations)
 
 
-def build_trainer(cfg: RecipeConfig, model, fbank):
+def build_trainer(cfg: RecipeConfig, model, fbank, steps_per_epoch: Optional[int] = None):
     """RecipeConfig -> `ASRTrainer` for `model`: the training section's
-    loss weights and label smoothing, its optimizer (`_optimizer`), the
-    augment section's speed perturbation and SpecAugment, the features
-    section's normalization epochs and the model's token ids."""
+    loss weights and label smoothing, its optimizer (`_optimizer`; the
+    two-stage switch reads `steps_per_epoch`), the augment section's speed
+    perturbation, SpecAugment, `concat_original` and `augment_warmup_steps`,
+    the features section's normalization epochs and the model's token ids."""
     from summarymixing_tpu_torch.training.trainer import ASRTrainer, TrainerConfig
 
     t, a, m = cfg.training, cfg.augment, cfg.model
@@ -213,18 +223,22 @@ def build_trainer(cfg: RecipeConfig, model, fbank):
         ctc_weight=t.ctc_weight, label_smoothing=t.label_smoothing, blank_id=m.blank_index,
         pad_id=m.pad_index, bos_id=m.bos_index, eos_id=m.eos_index, augment=augment,
         speed_perturb=a.speed_perturb, speeds=tuple(a.speeds),
+        concat_original=a.concat_original, augment_warmup_steps=a.augment_warmup_steps,
         normalize_update_until_epoch=cfg.features.normalize_update_until_epoch)
-    return ASRTrainer(model, _optimizer(cfg), fbank, config)
+    return ASRTrainer(model, _optimizer(cfg, steps_per_epoch), fbank, config)
 
 
-def build_transducer_trainer(cfg: RecipeConfig, model, fbank, transducer, train: bool = True):
+def build_transducer_trainer(cfg: RecipeConfig, model, fbank, transducer, train: bool = True,
+                             steps_per_epoch: Optional[int] = None):
     """RecipeConfig -> `TransducerTrainer` for a transducer recipe's models,
     mapped as the JAX `recipes/train.py::run_transducer` maps it: CTC and
-    CE weights, `number_of_ctc_epochs`, the blank id, SpecAugment and speed
-    perturbation, the normalization epochs, the DCT sampler of the
-    `transducer` section, `joint_chunk` and the optimizer. With `train`
-    False, the evaluation trainer of the JAX `recipes/evaluate.py`: no
-    optimizer, augmentation or DCT."""
+    CE weights, `number_of_ctc_epochs`, the blank id, SpecAugment,
+    `augment_warmup_steps` and speed perturbation, the normalization
+    epochs, the DCT sampler of the `transducer` section, `joint_chunk` and
+    the optimizer (`steps_per_epoch` as for `build_trainer`). As there,
+    `augment.concat_original` is not read: it belongs to the CTC/attention
+    trainer. With `train` False, the evaluation trainer of the JAX
+    `recipes/evaluate.py`: no optimizer, augmentation or DCT."""
     from summarymixing_tpu_torch.training.transducer_trainer import (
         DynChunkTrainSamplerConfig,
         TransducerTrainer,
@@ -239,8 +253,8 @@ def build_transducer_trainer(cfg: RecipeConfig, model, fbank, transducer, train:
     config = TransducerTrainerConfig(
         ctc_weight=t.ctc_weight, ce_weight=t.ce_weight,
         number_of_ctc_epochs=t.number_of_ctc_epochs, blank_id=cfg.model.blank_index,
-        augment=_spec_augment(cfg), speed_perturb=a.speed_perturb,
-        speeds=tuple(a.speeds),
+        augment=_spec_augment(cfg), augment_warmup_steps=a.augment_warmup_steps,
+        speed_perturb=a.speed_perturb, speeds=tuple(a.speeds),
         normalize_update_until_epoch=cfg.features.normalize_update_until_epoch,
         dct=DynChunkTrainSamplerConfig(
             chunkwise_prob=td.chunkwise_prob, chunk_size_min=td.chunk_size_min,
@@ -249,4 +263,4 @@ def build_transducer_trainer(cfg: RecipeConfig, model, fbank, transducer, train:
             left_context_chunks_min=td.left_context_chunks_min,
             left_context_chunks_max=td.left_context_chunks_max),
         joint_chunk=td.joint_chunk)
-    return TransducerTrainer(model, transducer, _optimizer(cfg), fbank, config)
+    return TransducerTrainer(model, transducer, _optimizer(cfg, steps_per_epoch), fbank, config)

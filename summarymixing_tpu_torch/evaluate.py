@@ -114,13 +114,15 @@ def beam_config(cfg, max_length: int, lm_step=None, beam_size: Optional[int] = N
 
 def make_beam_step(cfg, model, enc_out: torch.Tensor, enc_lens: torch.Tensor, beam: int,
                    bc: S2SBeamConfig, lm_step=None, lm_make_cache=None):
-    """The KV-cached search step over UNtiled `enc_out` `[B, T, D]`:
-    self-attention (and LM) caches at N = B·beam rows and `max_length` + 1
-    positions, the cross-attention K/V and the encoder pad mask at B rows.
-    Returns `(step, cache, lm_cache)`."""
-    if cfg.model.decoder_attention_type not in ("regularMHA", "vanillaMHA"):
-        raise NotImplementedError(
-            f"decoder {cfg.model.decoder_attention_type!r} is not ported; see ROADMAP.md")
+    """The cached search step over UNtiled `enc_out` `[B, T, D]`: the
+    decoder's per-hypothesis state at N = B·beam rows (self-attention K/V
+    at `max_length` + 1 positions, or the Summary Decoder's `(sum, denom)`
+    carry), the LM cache at N rows, the cross-attention K/V and the
+    encoder pad mask at B rows. The search gathers every N-row leaf by
+    parent after each step. `cfg` keeps the JAX signature: its uncached
+    route for other decoders is not ported (ROADMAP.md queue 1 item 7), and
+    every decoder the port builds has a cached step. Returns
+    `(step, cache, lm_cache)`."""
     n = enc_out.shape[0] * beam
     lm_cache = lm_make_cache(n, bc.max_length + 1) if lm_step else None
     cache = model.decode_cache_init(enc_out, bc.max_length + 1, n)

@@ -1,10 +1,12 @@
 """`TransformerASR` with the Branchformer or Conformer encoder — the port
 of `summarymixing_tpu/models/asr.py`: `_src_masks` (non-causal, with the
 Dynamic Chunk Training mask for the Conformer), `_encode_inner` with the
-source dropout, `encode`, the target embedding and the regularMHA
-attention decoder (`_decode_inner`), `forward` with or without targets,
+source dropout, `encode`, the target embedding and the attention
+decoder (`_decode_inner`; regularMHA, or the paper's Summary Decoder with
+`decoder_attention_type="SummaryMixing"`), `forward` with or without targets,
 the decoder's search surface (`decode_prefix`, the uncached oracle, and
-the KV-cached `decode_cache_init`/`decode_step_cached`), and the
+the cached `decode_cache_init`/`decode_step_cached`: KV caches, or the
+Summary Decoder's running-mean carry), and the
 Conformer's chunked streaming (`DynChunkTrainConfig`, `ASRStreamingState`,
 `init_streaming_state`, `encode_streaming`). The transformer encoder and
 the causal encoder are still to port.
@@ -72,7 +74,8 @@ class TransformerASR(nn.Module):
                  local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
                  summary_hid_dim: Sequence[int] = (1024,), summary_out_dim: int = 1024,
                  mode: str = "SummaryMixing", branchformer_activation: str = "gelu_exact",
-                 conformer_activation: str = "swish", max_length: int = 2500):
+                 conformer_activation: str = "swish", max_length: int = 2500,
+                 remat: bool = False):
         super().__init__()
         if encoder_module not in ("branchformer", "conformer"):
             raise NotImplementedError(f"encoder {encoder_module!r} is not ported; {_TODO}")
@@ -92,7 +95,8 @@ class TransformerASR(nn.Module):
                 num_encoder_layers, d_model, d_ffn, nhead, kernel_size=kernel_size,
                 dropout_rate=dropout_rate, attention_type=attention_type,
                 local_proj_hid_dim=local_proj_hid_dim, local_proj_out_dim=local_proj_out_dim,
-                summary_hid_dim=summary_hid_dim, mode=mode, activation=conformer_activation)
+                summary_hid_dim=summary_hid_dim, mode=mode, activation=conformer_activation,
+                remat=remat)
         else:
             self.encoder = BranchformerEncoder(
                 num_encoder_layers, d_model, nhead, kernel_size=kernel_size,
@@ -100,12 +104,18 @@ class TransformerASR(nn.Module):
                 gate_activation=gate_activation, use_linear_after_conv=use_linear_after_conv,
                 local_proj_hid_dim=local_proj_hid_dim, local_proj_out_dim=local_proj_out_dim,
                 summary_hid_dim=summary_hid_dim, summary_out_dim=summary_out_dim, mode=mode,
-                activation=branchformer_activation, dropout_rate=dropout_rate)
+                activation=branchformer_activation, dropout_rate=dropout_rate, remat=remat)
         if num_decoder_layers > 0:
             self.tgt_emb = NormalizedEmbedding(d_model, tgt_vocab)
+            # the Summary Decoder's cell: the encoder's hidden widths, its
+            # outputs at d_model, and the full mode for lite (a causal
+            # summary needs the sum_mask path lite does not have)
             self.decoder = TransformerDecoder(
                 num_decoder_layers, d_model, d_ffn, nhead, dropout_rate, activation,
-                normalize_before, decoder_attention_type)
+                normalize_before, decoder_attention_type,
+                local_proj_hid_dim=local_proj_hid_dim, local_proj_out_dim=d_model,
+                summary_hid_dim=summary_hid_dim,
+                mode="SummaryMixing" if mode == "SummaryMixing-lite" else mode)
 
     def _src_masks(self, t: int, wav_len: Optional[torch.Tensor],
                    dynchunktrain: Optional[DynChunkTrainConfig], device):

@@ -5,7 +5,8 @@ Each layer runs LayerNorm -> SummaryMixing beside LayerNorm -> cgMLP,
 merges the two with `SummaryNet(summary_hid_dim + (d_model,))` over
 `cat([x1, x2])`, and adds the residual. Dropout follows each branch and
 the merge, as in the flax layer. The stack ends in a LayerNorm with eps
-1e-6; the layers' norms use 1e-5.
+1e-6; the layers' norms use 1e-5. With `remat` each layer's activations
+are recomputed in the backward pass (`ops.layers.remat_call`).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from torch import nn
 
 from summarymixing_tpu_torch.models.mixers import apply_mixer, make_mixer
 from summarymixing_tpu_torch.ops.convolution import ConvolutionBranch
-from summarymixing_tpu_torch.ops.layers import Dropout, LayerNorm
+from summarymixing_tpu_torch.ops.layers import Dropout, LayerNorm, remat_call
 from summarymixing_tpu_torch.ops.linear import SummaryNet
 
 
@@ -56,9 +57,11 @@ class BranchformerEncoderLayer(nn.Module):
 class BranchformerEncoder(nn.Module):
     """Stack of `BranchformerEncoderLayer`s (`layer_0` ...) + final `norm`."""
 
-    def __init__(self, num_layers: int, d_model: int, nhead: int, **layer_kwargs):
+    def __init__(self, num_layers: int, d_model: int, nhead: int, remat: bool = False,
+                 **layer_kwargs):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         for i in range(num_layers):
             self.add_module(f"layer_{i}", BranchformerEncoderLayer(d_model, nhead, **layer_kwargs))
         self.norm = LayerNorm(d_model, eps=1e-6)
@@ -66,5 +69,7 @@ class BranchformerEncoder(nn.Module):
     def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
                 pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, src_mask, pad_mask)
+            layer = getattr(self, f"layer_{i}")
+            x = (remat_call(layer, x, src_mask, pad_mask) if self.remat
+                 else layer(x, src_mask, pad_mask))
         return self.norm(x)

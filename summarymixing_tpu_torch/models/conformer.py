@@ -7,7 +7,9 @@ port; no recipe uses it).
 A layer is: x += ½·ffn1(norm_ffn1(x)); x = mixer(norm1(x)) + x;
 x += convolution_module(x); x = norm2(x + ½·ffn2(norm_ffn2(x))). The
 SummaryMixing mixer's output width is d_model. The stack ends in a
-LayerNorm with eps 1e-6; the layers' norms use 1e-5.
+LayerNorm with eps 1e-6; the layers' norms use 1e-5. With `remat` each
+layer's activations are recomputed in the backward pass
+(`ops.layers.remat_call`); streaming is untouched.
 
 Streaming carries, per layer, the last `left_context_frames` mixer inputs
 (post-ffn1), the last kernel//2 conv-module inputs and a per-row count of
@@ -29,7 +31,7 @@ from torch import nn
 from summarymixing_tpu_torch.models.mixers import apply_mixer, make_mixer
 from summarymixing_tpu_torch.ops.attention import PositionalwiseFeedForward
 from summarymixing_tpu_torch.ops.convolution import ConvolutionModule
-from summarymixing_tpu_torch.ops.layers import Dropout, LayerNorm
+from summarymixing_tpu_torch.ops.layers import Dropout, LayerNorm, remat_call
 
 
 @dataclass
@@ -123,9 +125,11 @@ class ConformerEncoderLayer(nn.Module):
 class ConformerEncoder(nn.Module):
     """Stack of `ConformerEncoderLayer`s (`layer_0` ...) + final `norm`."""
 
-    def __init__(self, num_layers: int, d_model: int, d_ffn: int, nhead: int, **layer_kwargs):
+    def __init__(self, num_layers: int, d_model: int, d_ffn: int, nhead: int,
+                 remat: bool = False, **layer_kwargs):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         for i in range(num_layers):
             self.add_module(f"layer_{i}",
                             ConformerEncoderLayer(d_model, d_ffn, nhead, **layer_kwargs))
@@ -137,7 +141,8 @@ class ConformerEncoder(nn.Module):
     def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
                 pad_mask: Optional[torch.Tensor] = None, chunk_size=None) -> torch.Tensor:
         for layer in self.layers():
-            x = layer(x, src_mask, pad_mask, chunk_size)
+            x = (remat_call(layer, x, src_mask, pad_mask, chunk_size) if self.remat
+                 else layer(x, src_mask, pad_mask, chunk_size))
         return self.norm(x)
 
     def init_streaming_state(self, batch: int, left_context_frames: int,

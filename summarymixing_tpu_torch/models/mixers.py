@@ -1,6 +1,8 @@
 """Token-mixer selection — the SummaryMixing route of `make_mixer` /
-`apply_mixer` from `summarymixing_tpu/models/mixers.py`. The attention
-mixers (regularMHA, RelPosMHAXL, hypermixing) are still to port."""
+`apply_mixer` from `summarymixing_tpu/models/mixers.py`, for the encoders
+and the Summary Decoder. The attention mixers (regularMHA, RelPosMHAXL,
+hypermixing) are still to port as mixers (the decoders' MHA is
+`ops.attention.MultiheadAttention`)."""
 
 from __future__ import annotations
 
@@ -30,8 +32,11 @@ def make_mixer(attention_type: str, d_model: int, nhead: int, *,
 def apply_mixer(mixer: SummaryMixing, attention_type: str, x: torch.Tensor, *,
                 attn_mask: Optional[torch.Tensor] = None,
                 pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Run the mixer; attn_mask doubles as the SummaryMixing sum_mask, with
-    padded columns embedded so summaries count only valid frames."""
+    """Run the mixer; attn_mask (`[T, T]`, 1 = include) doubles as the
+    SummaryMixing sum_mask, with the `[B, T]` pad_mask's padded columns
+    embedded (`combine_padding`: `[B, T, T]`, or the `[T, T]` mask as it is
+    without a pad_mask) so summaries count only valid frames; the cell's
+    `summary_matmul` takes either shape."""
     if attention_type != "SummaryMixing":
         raise NotImplementedError(f"mixer {attention_type!r} is not ported")
     return mixer(x, sum_mask=combine_padding(attn_mask, pad_mask), pad_mask=pad_mask)

@@ -1,27 +1,30 @@
 """Transformer encoder and decoder — the port of `TransformerEncoderLayer`,
 `TransformerEncoder` (the regularMHA route, the causal LM's stack),
-`TransformerDecoderLayer` (the regularMHA route), `TransformerDecoder` and
-`NormalizedEmbedding` from `summarymixing_tpu/models/transformer.py`, with
-the KV-cached `init_cache`/`step` of beam search. The RelPosMHAXL and
-Summary Decoder routes, the encoder's SummaryMixing route (the flagship's
-encoder is the Branchformer), the 1-D CNN feed-forward and layerdrop are
-still to port.
+`TransformerDecoderLayer` (the regularMHA route and the Summary Decoder's
+SummaryMixing route), `TransformerDecoder` and `NormalizedEmbedding` from
+`summarymixing_tpu/models/transformer.py`, with the cached
+`init_cache`/`step` of beam search. The RelPosMHAXL route, the encoder's
+SummaryMixing route (the flagship's encoder is the Branchformer), the 1-D
+CNN feed-forward and layerdrop are still to port.
 
 A cache is a list with one dict of tensors per layer. Self-attention
 caches are head-major `[rows, H, max_len, hd]` (`ops/attention.py`); the
-decoder's cross-attention K/V (`mem_k`, `mem_v`) keeps the memory's B rows
-when `rows` = B·beam, and beam search gathers only the leaves with `rows`
-rows.
+Summary Decoder's layer carries instead the running `(sum, denom)` pair
+of its causal summary (`"sm"`: `[rows, d_model]` and `[rows, 1]`, float32),
+O(1) per step where the KV cache is O(max_len). The decoder's
+cross-attention K/V (`mem_k`, `mem_v`) keeps the memory's B rows when
+`rows` = B·beam, and beam search gathers only the leaves with `rows` rows.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
+from summarymixing_tpu_torch.models.mixers import apply_mixer, make_mixer
 from summarymixing_tpu_torch.ops.attention import MultiheadAttention, PositionalwiseFeedForward
 from summarymixing_tpu_torch.ops.layers import Dropout, LayerNorm
 
@@ -120,18 +123,31 @@ class TransformerEncoder(nn.Module):
 class TransformerDecoderLayer(nn.Module):
     """Self-attention, cross-attention and the feed-forward block, each
     with a LayerNorm (eps 1e-6) before it (or after, without
-    `normalize_before`) and dropout before its residual."""
+    `normalize_before`) and dropout before its residual. With
+    `attention_type="SummaryMixing"` (the paper's Summary Decoder) the
+    self-attention is a SummaryMixing cell (`summary_out_dim` = d_model,
+    erf GELU, as the flax layer builds it) under the lookahead mask as its
+    `sum_mask`; cross-attention and the feed-forward block stay as they are."""
 
     def __init__(self, d_model: int, d_ffn: int, nhead: int, dropout_rate: float = 0.0,
                  activation: str = "gelu", normalize_before: bool = True,
-                 attention_type: str = "regularMHA"):
+                 attention_type: str = "regularMHA",
+                 local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
+                 summary_hid_dim: Sequence[int] = (1024,), mode: str = "SummaryMixing"):
         super().__init__()
-        if attention_type not in _MHA:
+        if attention_type not in _MHA + ("SummaryMixing",):
             raise NotImplementedError(
                 f"decoder attention {attention_type!r} is not ported; see ROADMAP.md")
         self.d_model, self.nhead = d_model, nhead
+        self.attention_type = attention_type
         self.normalize_before = normalize_before
-        self.self_attn = MultiheadAttention(d_model, nhead, dropout_rate)
+        if attention_type == "SummaryMixing":
+            self.self_attn = make_mixer(
+                "SummaryMixing", d_model, nhead, local_proj_hid_dim=local_proj_hid_dim,
+                local_proj_out_dim=local_proj_out_dim, summary_hid_dim=summary_hid_dim,
+                summary_out_dim=d_model, mode=mode, dropout_rate=dropout_rate)
+        else:
+            self.self_attn = MultiheadAttention(d_model, nhead, dropout_rate)
         self.cross_attn = MultiheadAttention(d_model, nhead, dropout_rate)
         self.pos_ffn = PositionalwiseFeedForward(d_ffn, d_model, dropout_rate, activation)
         self.norm1 = LayerNorm(d_model, eps=1e-6)
@@ -145,8 +161,12 @@ class TransformerDecoderLayer(nn.Module):
                 memory_pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         pre = self.normalize_before
         t1 = self.norm1(tgt) if pre else tgt
-        tgt = tgt + self.dropout(self.self_attn(t1, t1, t1, attn_mask=tgt_mask,
-                                                pad_mask=tgt_pad_mask))
+        if self.attention_type == "SummaryMixing":
+            out = apply_mixer(self.self_attn, "SummaryMixing", t1, attn_mask=tgt_mask,
+                              pad_mask=tgt_pad_mask)
+        else:
+            out = self.self_attn(t1, t1, t1, attn_mask=tgt_mask, pad_mask=tgt_pad_mask)
+        tgt = tgt + self.dropout(out)
         if not pre:
             tgt = self.norm1(tgt)
         t1 = self.norm2(tgt) if pre else tgt
@@ -159,12 +179,17 @@ class TransformerDecoderLayer(nn.Module):
 
     def init_cache(self, memory: torch.Tensor, max_len: int, rows: Optional[int] = None) -> dict:
         """The layer's decode cache: cross-attention K/V from `memory`
-        `[B, T, D]` at B rows, and zeroed self-attention K/V at `rows`
-        (B·beam in beam search; B by default) in the K/V dtype, as the JAX
-        layer makes them."""
+        `[B, T, D]` at B rows, and at `rows` (B·beam in beam search; B by
+        default) zeroed self-attention K/V in the K/V dtype, as the JAX
+        layer makes them, or the Summary Decoder's float32 `(sum, denom)`
+        carry (`"sm"`)."""
         mem_k, mem_v = self.cross_attn.kv(memory)
-        self_kv = _self_attn_cache(rows or memory.shape[0], max_len, self.nhead, self.d_model,
-                                   mem_k.dtype, memory.device)
+        rows = rows or memory.shape[0]
+        if self.attention_type == "SummaryMixing":
+            return {"sm": self.self_attn.decode_init(rows, memory.device),
+                    "mem_k": mem_k, "mem_v": mem_v}
+        self_kv = _self_attn_cache(rows, max_len, self.nhead, self.d_model, mem_k.dtype,
+                                   memory.device)
         return {"self_k": self_kv["k"], "self_v": self_kv["v"], "mem_k": mem_k, "mem_v": mem_v}
 
     def step(self, x_t: torch.Tensor, pos: int, cache: dict,
@@ -172,7 +197,13 @@ class TransformerDecoderLayer(nn.Module):
         """One decoding position: x_t `[N, D]` -> (`[N, D]`, cache)."""
         pre = self.normalize_before
         t1 = self.norm1(x_t) if pre else x_t
-        out, sk, sv = self.self_attn.step(t1, cache["self_k"], cache["self_v"], pos, append=True)
+        if self.attention_type == "SummaryMixing":
+            out, sm = self.self_attn.decode_step(t1, cache["sm"])
+            cache = dict(cache, sm=sm)
+        else:
+            out, sk, sv = self.self_attn.step(t1, cache["self_k"], cache["self_v"], pos,
+                                              append=True)
+            cache = dict(cache, self_k=sk, self_v=sv)
         x = x_t + out
         if not pre:
             x = self.norm1(x)
@@ -186,7 +217,7 @@ class TransformerDecoderLayer(nn.Module):
         x = x + self.pos_ffn(t1)
         if not pre:
             x = self.norm3(x)
-        return x, dict(cache, self_k=sk, self_v=sv)
+        return x, cache
 
 
 class TransformerDecoder(nn.Module):
@@ -194,13 +225,16 @@ class TransformerDecoder(nn.Module):
 
     def __init__(self, num_layers: int, d_model: int, d_ffn: int, nhead: int,
                  dropout_rate: float = 0.0, activation: str = "gelu",
-                 normalize_before: bool = True, attention_type: str = "regularMHA"):
+                 normalize_before: bool = True, attention_type: str = "regularMHA",
+                 **summary_kwargs):
+        """`summary_kwargs`: the Summary Decoder cell's `local_proj_hid_dim`,
+        `local_proj_out_dim`, `summary_hid_dim` and `mode`."""
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer_{i}", TransformerDecoderLayer(
                 d_model, d_ffn, nhead, dropout_rate, activation, normalize_before,
-                attention_type))
+                attention_type, **summary_kwargs))
         self.norm = LayerNorm(d_model, eps=1e-6)
 
     def layers(self) -> List[TransformerDecoderLayer]:

@@ -22,6 +22,14 @@ gave it (the trainer owns it), as flax's `Dropout` draws from the
 `dropout` rng: keep with probability 1 - rate, kept values divided by
 1 - rate in the input's dtype. `model.train()` and `model.eval()` switch
 it on and off, as flax's `deterministic` does.
+
+`remat_call(layer, *args)` runs a layer under `torch.utils.checkpoint`
+(the JAX encoders' `nn.remat`): its activations are recomputed in the
+backward pass. `checkpoint` restores only torch's global RNG for the
+recompute, not the trainer's generator, so `remat_call` rewinds the
+generators of the layer's `Dropout`s to their state at the forward for
+the recompute, and puts them back after it: the recompute draws the
+forward's keep-masks, and the draws after it are those without remat.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from summarymixing_tpu_torch.ops import _build
@@ -110,6 +119,32 @@ def apply_keep(x: torch.Tensor, keep: torch.Tensor, keep_prob: float) -> torch.T
     """Inverted dropout with a given keep-mask: x / keep_prob where kept, 0
     elsewhere, in x's dtype (flax's `select(keep, x / keep_prob, 0)`)."""
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def remat_call(layer: nn.Module, *args):
+    """`layer(*args)`, its activations recomputed in the backward pass when
+    autograd records it; the recompute draws the forward's dropout masks."""
+    if not torch.is_grad_enabled():
+        return layer(*args)
+    gens = list({id(m.generator): m.generator for m in layer.modules()
+                 if isinstance(m, Dropout) and m.generator is not None}.values())
+    at_forward = [g.get_state() for g in gens]
+    calls = []
+
+    def run(*a):
+        calls.append(None)
+        if len(calls) == 1:
+            return layer(*a)
+        after = [g.get_state() for g in gens]
+        for g, st in zip(gens, at_forward):
+            g.set_state(st)
+        try:
+            return layer(*a)
+        finally:
+            for g, st in zip(gens, after):
+                g.set_state(st)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> nn.Module:

@@ -20,8 +20,14 @@ time mean, or by `summary_matmul` given a `sum_mask`; then the merge. The
 JAX package has no TPU kernel for it, so it runs this PyTorch code on the
 card too (counted as a plain call there).
 
-The lite and expdecay modes and `decode_step` are still to port
-(ROADMAP.md, "Modules still to port").
+Incremental causal decoding (the Summary Decoder's self-attention):
+`decode_init` and `decode_step` carry the running `(sum, denom)` pair of
+the causal summary in float32, so one decoding position costs O(1) where
+the whole-prefix forward with a lookahead `sum_mask` costs O(t); the step
+equals that forward at its newest position.
+
+The lite and expdecay modes are still to port (ROADMAP.md, "Modules still
+to port").
 """
 
 from __future__ import annotations
@@ -121,6 +127,32 @@ class SummaryMixing(nn.Module):
         else:
             pooled = summary_matmul(sum_mask, summary)
         return self.summary_local_merging(self.dropout(torch.cat([local, pooled], dim=-1)))
+
+    # -- incremental causal decoding ----------------------------------------
+    def decode_init(self, batch: int, device=None) -> dict:
+        """The carry of `decode_step`: `sum` `[batch, width]` and `denom`
+        `[batch, 1]`, float32 zeros; the width is the summary half's
+        (`local_proj_out_dim` in the fast mode, `summary_out_dim` in full)."""
+        width = (self.global_proj.features[-1] // 2 if self.mode == "SummaryMixing-fast"
+                 else self.summary_proj.features[-1])
+        return {"sum": torch.zeros(batch, width, dtype=torch.float32, device=device),
+                "denom": torch.zeros(batch, 1, dtype=torch.float32, device=device)}
+
+    def decode_step(self, x_t: torch.Tensor, cache: dict):
+        """One causal position: x_t `[B, F]` -> (`[B, summary_out_dim]`, carry).
+        Adds s(x_t) and 1 to the carry and merges f(x_t) with sum / denom:
+        the lookahead-`sum_mask` forward evaluated at its newest position.
+        No dropout (decoding)."""
+        x = x_t[:, None, :]
+        if self.mode == "SummaryMixing-fast":
+            local, s = self.global_proj(x)[:, 0].chunk(2, dim=-1)
+        else:
+            local, s = self.local_proj(x)[:, 0], self.summary_proj(x)[:, 0]
+        new_sum = cache["sum"] + s.to(cache["sum"].dtype)
+        new_denom = cache["denom"] + 1.0
+        pooled = (new_sum / new_denom).to(s.dtype)
+        out = self.summary_local_merging(torch.cat([local, pooled], dim=-1)[:, None])[:, 0]
+        return out, {"sum": new_sum, "denom": new_denom}
 
     def _kernel_config(self, x: torch.Tensor, sum_mask) -> dict:
         """This call's configuration in `fused_summary.refusal`'s keywords

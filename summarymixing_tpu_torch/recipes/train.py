@@ -5,12 +5,18 @@
     python -m summarymixing_tpu_torch.recipes.train recipes/Synthetic/hard_synthetic.yaml \\
         --train-manifest train.csv --valid-manifest dev.csv [--test-manifest test.csv] \\
         [--output results/run1] [--steps N] [--num-buckets N] [--lm-ckpt LM_RUN_DIR] \\
-        [--set training.lr_adam=0.0005] [--device cpu]
+        [--max-hours H] [--set training.lr_adam=0.0005] [--device cpu]
 
 The tokenizer is resolved and written to the run directory; training
-resumes from the run's latest checkpoint at the epoch after the one it
-saved. Each epoch: bucketed, shuffled batches through
-`ASRTrainer.train_step`, or for a transducer recipe
+resumes from the run's latest checkpoint at the epoch after the last one
+it completed (a checkpoint taken inside an epoch, at a stop, reruns that
+epoch with the step count, optimizer state and generator it saved). On
+SIGTERM or SIGINT, or once `--max-hours` of wall clock are spent, the run
+saves a checkpoint at the end of the step and exits; the same command
+resumes it (`training/preempt.py`). The two-stage optimizer switches to
+SGD after `stage_one_epochs` epochs of the estimated steps per epoch,
+and each epoch's log line names the stage it ended in. Each epoch:
+bucketed, shuffled batches through `ASRTrainer.train_step`, or for a transducer recipe
 `TransducerTrainer.train_step` (RNN-T loss, Dynamic Chunk Training, the
 CTC aux for `number_of_ctc_epochs`; each call is one micro step of
 `grad_accumulation_factor`), with speed perturbation, SpecAugment and
@@ -31,8 +37,8 @@ a test manifest, the test stage decodes at `test_beam_size` and
 transducer with the batched beam search at `beam_size`, `state_beam` and
 `expand_beam` (with the RNNLM of `--lm-ckpt` fused at `lm_weight`).
 
-Not ported, and refused: `--profile`, `--max-hours` and a multi-process
-launch (ROADMAP.md)."""
+Not ported, and refused: `--profile` and a multi-process launch
+(ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -55,6 +61,8 @@ from summarymixing_tpu_torch.data.dataio import read_manifest_csv
 from summarymixing_tpu_torch.recipes import common
 from summarymixing_tpu_torch.training.checkpoint import CheckpointManager
 from summarymixing_tpu_torch.training.logger import EpochCounter, FileTrainLogger
+from summarymixing_tpu_torch.training.optim import optimizer_stage
+from summarymixing_tpu_torch.training.preempt import TrainStopper
 from summarymixing_tpu_torch.utils.device import resolve_device
 
 # environment variables of the JAX package's multi-process launch
@@ -81,15 +89,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     dest="overrides", help="override a recipe value by dotted path")
     ap.add_argument("--device", default=None,
                     help="torch device; the card unless this says otherwise (e.g. cpu)")
-    ap.add_argument("--max-hours", type=float, default=None, help="not ported")
+    ap.add_argument("--max-hours", type=float, default=None,
+                    help="wall-clock budget: checkpoint and exit once it is spent")
     ap.add_argument("--profile", default=None, metavar="DIR", help="not ported")
     return ap.parse_args(argv)
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    if args.max_hours is not None:
-        raise NotImplementedError("--max-hours (training/preempt.py TrainStopper) is not "
-                                  "ported; see ROADMAP.md queue 1 item 5")
     if args.profile is not None:
         raise NotImplementedError("--profile (a profiler trace of train steps) is not ported; "
                                   "see ROADMAP.md queue 1 item 9")
@@ -137,7 +143,12 @@ def epoch_loss_stats(train_losses: List[torch.Tensor]) -> Dict:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Run the recipe; returns a summary: `steps` (train_step calls: micro
-    steps under gradient accumulation), `epochs` (the last one run),
+    steps under gradient accumulation), `stopped` (the stop's reason,
+    such as "SIGTERM" or "WALLCLOCK", when the run checkpointed and
+    stopped early; the summary then holds only `steps`, `epochs`,
+    `step_s`, `opt_stages` and `kernels`), `opt_stages` (the two-stage
+    optimizer's stage before each step this call ran, else empty),
+    `epochs` (the last one run),
     `step_s` (the host time of each step this call ran, each ending in the
     step's one device synchronisation), `valid` (the last epoch's
     validation stats), `test` (the test stage's error-rate summary, or
@@ -156,13 +167,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     tokenizer = common.build_or_load_tokenizer(cfg, out_dir, train_set)
 
     transducer = cfg.transducer is not None
+    steps_per_epoch = common.estimate_steps_per_epoch(train_set, cfg)
     if transducer:
         model, fbank, td = build_model(cfg, device=device)
-        trainer = build_transducer_trainer(cfg, model, fbank, td)
+        trainer = build_transducer_trainer(cfg, model, fbank, td, steps_per_epoch=steps_per_epoch)
     else:
         model, fbank = build_model(cfg, device=device)
-        trainer = build_trainer(cfg, model, fbank)
-    if common.estimate_steps_per_epoch(train_set, cfg) == 0:
+        trainer = build_trainer(cfg, model, fbank, steps_per_epoch=steps_per_epoch)
+    if steps_per_epoch == 0:
         raise SystemExit("no training batches produced: the corpus is smaller than one bucket "
                          "batch (drop_last). Lower training.max_batch_length or num_buckets.")
     logger = FileTrainLogger(os.path.join(out_dir, "train_log.txt"))
@@ -176,64 +188,81 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     # mid-epoch validation points (the JAX transducer runner's)
     valid_every = cfg.training.valid_every_steps if transducer else 0
     step_s: List[float] = []
+    opt_stages: List[str] = []
     valid_stats: Dict = {}
     epoch = state["epoch"]
     counts0 = common.kernel_counts()
-    for epoch in EpochCounter(cfg.training.number_of_epochs, start=state["epoch"]):
-        t0 = hb_t = time.time()
-        epoch_counts = common.kernel_counts()
-        train_losses = []
-        for batch, _ in prefetch(common.batches(train_set, tokenizer, cfg, True,
-                                                cfg.seed + epoch, device)):
-            ts = time.perf_counter()
-            state, metrics = trainer.train_step(state, batch)
-            step_s.append(time.perf_counter() - ts)
-            step += 1
-            train_losses.append(metrics["loss"])
-            if valid_every and step % valid_every == 0:
+    # the stop handlers hold for the training loop only; the previous
+    # ones come back after it
+    with TrainStopper(max_hours=args.max_hours) as stopper:
+        for epoch in EpochCounter(cfg.training.number_of_epochs, start=state["epoch"]):
+            t0 = hb_t = time.time()
+            epoch_counts = common.kernel_counts()
+            train_losses = []
+            for batch, _ in prefetch(common.batches(train_set, tokenizer, cfg, True,
+                                                    cfg.seed + epoch, device)):
+                stage = optimizer_stage(trainer.optimizer, state["opt_state"])
+                if stage is not None:
+                    opt_stages.append(stage)
+                ts = time.perf_counter()
+                state, metrics = trainer.train_step(state, batch)
+                step_s.append(time.perf_counter() - ts)
+                step += 1
+                train_losses.append(metrics["loss"])
+                if valid_every and step % valid_every == 0:
+                    ckpt.save(step, checkpoint_state(trainer.model, state))
+                    tv = time.time()
+                    stats = common.error_rate_stats(cfg)
+                    vloss = common.transducer_greedy_score(stats, trainer, state, valid_set,
+                                                           tokenizer, cfg, device)
+                    logger.log_stats({"valid_step": step, "epoch": epoch,
+                                      "valid_s": round(time.time() - tv, 1)},
+                                     valid_stats={"loss": vloss,
+                                                  cfg.error_rate.upper(): stats.summarize()["WER"]})
+                    hb_t = time.time()
+                if hb_every and step % hb_every == 0:
+                    now = time.time()
+                    print(f"[hb] step {step} mean_step_s {(now - hb_t) / hb_every:.3f} "
+                          f"loss {float(metrics['loss']):.3f}", flush=True)
+                    hb_t = now
+                if ckpt.should_save():
+                    ckpt.save(step, checkpoint_state(trainer.model, state))
+                if stopper.should_stop():
+                    ckpt.save(step, checkpoint_state(trainer.model, state))
+                    print(f"[preempt] checkpoint saved at step {step} ({stopper.signame}); "
+                          "resume with the same command", flush=True)
+                    return {"steps": step, "epochs": epoch, "step_s": step_s,
+                            "stopped": stopper.signame, "opt_stages": opt_stages,
+                            "kernels": common.kernel_counts(since=counts0)}
+                if args.steps and step >= args.steps:
+                    break
+            # the epoch-end checkpoint comes before validation, so a failure
+            # there costs the epoch's validation numbers, not its training;
+            # validation runs at the epoch it follows (it gates the CTC aux)
+            valid_state, state = state, trainer.next_epoch(state)
+            last_epoch = epoch >= cfg.training.number_of_epochs or bool(args.steps
+                                                                          and step >= args.steps)
+            if last_epoch or epoch == 1 or ckpt.should_save():
                 ckpt.save(step, checkpoint_state(trainer.model, state))
-                tv = time.time()
-                stats = common.error_rate_stats(cfg)
-                vloss = common.transducer_greedy_score(stats, trainer, state, valid_set,
-                                                       tokenizer, cfg, device)
-                logger.log_stats({"valid_step": step, "epoch": epoch,
-                                  "valid_s": round(time.time() - tv, 1)},
-                                 valid_stats={"loss": vloss,
-                                              cfg.error_rate.upper(): stats.summarize()["WER"]})
-                hb_t = time.time()
-            if hb_every and step % hb_every == 0:
-                now = time.time()
-                print(f"[hb] step {step} mean_step_s {(now - hb_t) / hb_every:.3f} "
-                      f"loss {float(metrics['loss']):.3f}", flush=True)
-                hb_t = now
-            if ckpt.should_save():
-                ckpt.save(step, checkpoint_state(trainer.model, state))
+            stats = common.error_rate_stats(cfg)
+            score = common.transducer_greedy_score if transducer else common.greedy_score
+            vloss = score(stats, trainer, valid_state, valid_set, tokenizer, cfg, device)
+            valid_stats = {"loss": vloss, cfg.error_rate.upper(): stats.summarize()["WER"]}
+            if (model.asr.num_decoder_layers > 0 and cfg.decoding.valid_search_interval > 0
+                    and epoch % cfg.decoding.valid_search_interval == 0):
+                beam_stats = common.error_rate_stats(cfg)
+                common.beam_score(beam_stats, cfg, model, fbank, state["norm_stats"], valid_set,
+                                  tokenizer, device, lm)
+                valid_stats[f"beam_{cfg.error_rate.upper()}"] = beam_stats.summarize()["WER"]
+            epoch_stats = {"epoch": epoch, "steps": step, "epoch_s": round(time.time() - t0, 1),
+                           "kernels": common.kernel_counts(since=epoch_counts)}
+            stage = optimizer_stage(trainer.optimizer, state["opt_state"])
+            if stage is not None:
+                epoch_stats["opt_stage"] = stage
+            logger.log_stats(epoch_stats, epoch_loss_stats(train_losses), valid_stats)
+            print(f"epoch {epoch}: steps {step}, valid {valid_stats}", flush=True)
             if args.steps and step >= args.steps:
                 break
-        # the epoch-end checkpoint comes before validation, so a failure
-        # there costs the epoch's validation numbers, not its training;
-        # validation runs at the epoch it follows (it gates the CTC aux)
-        valid_state, state = state, trainer.next_epoch(state)
-        last_epoch = epoch >= cfg.training.number_of_epochs or bool(args.steps
-                                                                      and step >= args.steps)
-        if last_epoch or epoch == 1 or ckpt.should_save():
-            ckpt.save(step, checkpoint_state(trainer.model, state))
-        stats = common.error_rate_stats(cfg)
-        score = common.transducer_greedy_score if transducer else common.greedy_score
-        vloss = score(stats, trainer, valid_state, valid_set, tokenizer, cfg, device)
-        valid_stats = {"loss": vloss, cfg.error_rate.upper(): stats.summarize()["WER"]}
-        if (model.asr.num_decoder_layers > 0 and cfg.decoding.valid_search_interval > 0
-                and epoch % cfg.decoding.valid_search_interval == 0):
-            beam_stats = common.error_rate_stats(cfg)
-            common.beam_score(beam_stats, cfg, model, fbank, state["norm_stats"], valid_set,
-                              tokenizer, device, lm)
-            valid_stats[f"beam_{cfg.error_rate.upper()}"] = beam_stats.summarize()["WER"]
-        logger.log_stats({"epoch": epoch, "steps": step, "epoch_s": round(time.time() - t0, 1),
-                          "kernels": common.kernel_counts(since=epoch_counts)},
-                         epoch_loss_stats(train_losses), valid_stats)
-        print(f"epoch {epoch}: steps {step}, valid {valid_stats}", flush=True)
-        if args.steps and step >= args.steps:
-            break
     print("training done:", step, "steps", flush=True)
 
     test = None
@@ -253,7 +282,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         logger.log_stats({"stage": "test"}, test_stats={cfg.error_rate.upper(): test["WER"]})
         print("test", cfg.error_rate.upper(), test["WER"], flush=True)
     return {"steps": step, "epochs": epoch, "step_s": step_s, "valid": valid_stats,
-            "test": test, "tokenizer_size": tokenizer.vocab_size,
+            "test": test, "tokenizer_size": tokenizer.vocab_size, "opt_stages": opt_stages,
             "kernels": common.kernel_counts(since=counts0)}
 
 

@@ -1,9 +1,10 @@
 """The hard-synthetic WER protocols of `benchmarks/RESULTS.md`, run end to
 end through the port's runners, on the card unless `--device` says
-otherwise: `ctc` (the default, `:555-563`) and `transducer` (`:575-597`).
+otherwise: `ctc` (the default, `:555-563`), `transducer` (`:575-597`) and
+`summarydecoder` (`:602-627`).
 
-    python -m summarymixing_tpu_torch.recipes.wer_protocol WORK_DIR [ctc | transducer] \\
-        [--report report.json] [--device cpu]
+    python -m summarymixing_tpu_torch.recipes.wer_protocol WORK_DIR \\
+        [ctc | transducer | summarydecoder] [--report report.json] [--device cpu]
 
 1. `recipes/make_synthetic_corpus.py WORK_DIR/corpus --hard --n 400
    --lm-text 20000 --seed 0` (a subprocess: 320/40/40 utterances and
@@ -17,6 +18,11 @@ otherwise: `ctc` (the default, `:555-563`) and `transducer` (`:575-597`).
 4. `recipes.evaluate` on dev and test: greedy, `--beam` (beam 10) and
    `--beam --lm-ckpt` at LM weight 0.2 (the protocol's dev-selected
    weight), each on the mean of the last 10 checkpoints.
+
+`summarydecoder`: steps 1-4 on `recipes/Synthetic/hard_synthetic_summarydecoder.yaml`
+(the paper's Summary Decoder in place of the MHA decoder, everything else
+the same); the report carries beside its WERs the JAX package's on the
+CPU from `benchmarks/RESULTS.md:616-618` (`JAX_SUMMARYDECODER_WER`).
 
 `transducer`: the same corpus; `recipes.train` on
 `recipes/Synthetic/hard_synthetic_transducer.yaml` for 150 epochs with
@@ -50,6 +56,12 @@ from summarymixing_tpu_torch.training.checkpoint import CheckpointManager
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 RECIPE = os.path.join(REPO, "recipes", "Synthetic", "hard_synthetic.yaml")
 TRANSDUCER_RECIPE = os.path.join(REPO, "recipes", "Synthetic", "hard_synthetic_transducer.yaml")
+SUMMARYDECODER_RECIPE = os.path.join(REPO, "recipes", "Synthetic",
+                                     "hard_synthetic_summarydecoder.yaml")
+# the JAX package's Summary Decoder dev/test WER % on the CPU, the round-3
+# protocol's table (benchmarks/RESULTS.md:616-618; 40 + 40 utterances)
+JAX_SUMMARYDECODER_WER = {"greedy": (1.32, 1.41), "beam": (2.64, 1.88),
+                          "beam+lm": (1.32, 1.88)}
 # the protocol of benchmarks/RESULTS.md:555-563
 N_UTTERANCES, LM_SENTENCES, EPOCHS, LM_EPOCHS, AVG, LM_WEIGHT = 400, 20000, 150, 5, 10, 0.2
 # wall-clock minutes between interval checkpoints: 6 s, so that the last
@@ -82,7 +94,8 @@ def card() -> Optional[str]:
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("work_dir")
-    ap.add_argument("protocol", nargs="?", choices=("ctc", "transducer"), default="ctc")
+    ap.add_argument("protocol", nargs="?", choices=("ctc", "transducer", "summarydecoder"),
+                    default="ctc")
     ap.add_argument("--report", default=None)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
@@ -103,7 +116,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
          "--hard", "--n", str(N_UTTERANCES), "--lm-text", str(LM_SENTENCES), "--seed", "0"],
         check=True, stdout=subprocess.DEVNULL))
     manifest = {s: os.path.join(corpus, f"manifest_{s}.csv") for s in ("train", "dev", "test")}
-    recipe = TRANSDUCER_RECIPE if args.protocol == "transducer" else RECIPE
+    recipe = {"ctc": RECIPE, "transducer": TRANSDUCER_RECIPE,
+              "summarydecoder": SUMMARYDECODER_RECIPE}[args.protocol]
     res = stage("train", lambda: train.main([
         recipe, "--train-manifest", manifest["train"], "--valid-manifest", manifest["dev"],
         "--output", run, "--set", f"training.number_of_epochs={EPOCHS}",
@@ -116,7 +130,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.protocol == "transducer":
         return finish(report, args, transducer_evaluations(report, stage, manifest, run, device))
     lm = stage("train_lm", lambda: train_lm.main([
-        RECIPE, "--text", os.path.join(corpus, "lm_text.txt"), "--tokenizer-dir", run,
+        recipe, "--text", os.path.join(corpus, "lm_text.txt"), "--tokenizer-dir", run,
         "--output", lm_run, "--epochs", str(LM_EPOCHS)] + device))
     report["train_lm"] = {"steps": lm["steps"], "loss": lm["loss"],
                           "step_ms_median": float(np.median(np.asarray(lm["step_s"]) * 1e3))}
@@ -126,10 +140,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                               ("beam+lm", ["--beam", "--lm-ckpt", lm_run,
                                            "--set", f"decoding.lm_weight={LM_WEIGHT}"])):
             out = stage(f"evaluate {decode} {split}", lambda: evaluate.main([
-                RECIPE, "--test-manifest", manifest[split], "--ckpt", os.path.join(run, "save"),
+                recipe, "--test-manifest", manifest[split], "--ckpt", os.path.join(run, "save"),
                 "--avg", str(AVG)] + extra + device))
             out.pop("hyps")
             report["eval"][f"{decode} {split}"] = out
+    if args.protocol == "summarydecoder":
+        report["jax_cpu_wer"] = JAX_SUMMARYDECODER_WER
+        print(f"[protocol] the JAX package's Summary Decoder WER dev/test on the CPU "
+              f"(benchmarks/RESULTS.md:616-618): {JAX_SUMMARYDECODER_WER}", flush=True)
     return finish(report, args, ("greedy", "beam", "beam+lm"))
 
 

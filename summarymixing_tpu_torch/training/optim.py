@@ -1,6 +1,7 @@
 """The recipes' optimizer — the port of `noam_schedule`,
 `warm_and_exp_decay_schedule`, `make_adamw` (here the class `AdamW`, and
-`MultiSteps` for its `accum_steps`) and `apply_safe_update` from
+`MultiSteps` for its `accum_steps`), `make_two_stage_adam_sgd` (the class
+`TwoStageAdamSGD`) and `apply_safe_update` from
 `summarymixing_tpu/training/optim.py`, written to give optax's numbers:
 
 - `noam_schedule`: lr(step) = peak · √warmup · min(step^-½, step · warmup^-1.5),
@@ -20,11 +21,17 @@
   the mean (so clipping applies to the mean) and the schedule reads the
   inner count, which only those calls advance; between them the
   parameters are not touched;
+- `TwoStageAdamSGD`: clipping, then `AdamW` (without its own clipping) on
+  its schedule for optimizer steps < `switch_step`, then optax's
+  `sgd(lr, momentum, nesterov=True)`: trace ← g + m·trace, u = g + m·trace
+  (or the trace without Nesterov), p ← p - lr·u. The JAX transform feeds
+  the SGD branch zero gradients before the switch, so its trace stays zero
+  until then; here the SGD branch is not run before the switch, which
+  leaves the same zeros. After the switch Adam's state is not advanced (the
+  JAX transform advances it and discards its updates: nothing reads it);
 - `apply_safe_update`: on a non-finite loss or gradient norm the step is
   skipped, so parameters, moments, counts and the accumulator keep their
   values; the norm it returns is the micro-batch gradient's.
-
-The two-stage Adam -> SGD optimizer is still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -103,7 +110,11 @@ class AdamW:
         """Update `params` in place from `grads`; returns the new state."""
         if norm is None:
             norm = global_norm(grads)
-        grads = self.clip(grads, norm)
+        return self.update(params, self.clip(grads, norm), state)
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict) -> Dict:
+        """The AdamW update of `params` from already clipped `grads`."""
         b1, b2 = self.b1, self.b2
         mu, nu = state["mu"], state["nu"]
         torch._foreach_mul_(mu, b1)
@@ -125,13 +136,70 @@ class AdamW:
         return {"count": count, "mu": mu, "nu": nu}
 
 
+class TwoStageAdamSGD:
+    """The JAX `make_two_stage_adam_sgd` without its `accum_steps` (wrap it
+    in `MultiSteps`): clip to `max_grad_norm`, then AdamW on
+    `adam_schedule` for optimizer steps < `switch_step`, then SGD at
+    `sgd_lr` with momentum `sgd_momentum` (Nesterov by default). The state
+    is a dict: `count` (optimizer steps taken, a Python int), `adam`
+    (`AdamW`'s state) and `trace` (the SGD momentum, zero until the switch)."""
+
+    def __init__(self, adam_schedule: Callable, sgd_lr: float, switch_step: int,
+                 weight_decay: float = 0.0, betas=(0.9, 0.98), eps: float = 1e-8,
+                 max_grad_norm: Optional[float] = 5.0, sgd_momentum: float = 0.99,
+                 sgd_nesterov: bool = True):
+        self.adam = AdamW(adam_schedule, weight_decay, betas, eps, max_grad_norm)
+        self.sgd_lr = sgd_lr
+        self.switch_step = switch_step
+        self.momentum = sgd_momentum
+        self.nesterov = sgd_nesterov
+
+    def init(self, params: Sequence[torch.Tensor]) -> Dict:
+        return {"count": 0, "adam": self.adam.init(params),
+                "trace": [torch.zeros_like(p) for p in params]}
+
+    def stage(self, state: Dict) -> str:
+        """"adam" or "sgd": the stage the next optimizer step takes."""
+        return "adam" if state["count"] < self.switch_step else "sgd"
+
+    @torch.no_grad()
+    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict,
+             norm: Optional[torch.Tensor] = None) -> Dict:
+        """Update `params` in place from `grads`; returns the new state."""
+        if norm is None:
+            norm = global_norm(grads)
+        grads = self.adam.clip(grads, norm)
+        if self.stage(state) == "adam":
+            return dict(state, count=state["count"] + 1,
+                        adam=self.adam.update(params, grads, state["adam"]))
+        trace = state["trace"]
+        if self.momentum:
+            torch._foreach_mul_(trace, self.momentum)
+            torch._foreach_add_(trace, grads)
+            updates = (torch._foreach_add(grads, torch._foreach_mul(trace, self.momentum))
+                       if self.nesterov else [t.clone() for t in trace])
+        else:
+            updates = [g.clone() for g in grads]
+        torch._foreach_mul_(updates, -self.sgd_lr)
+        torch._foreach_add_(params, updates)
+        return dict(state, count=state["count"] + 1, trace=trace)
+
+
+def optimizer_stage(optimizer, opt_state: Dict) -> Optional[str]:
+    """The two-stage optimizer's stage for its next step ("adam" or "sgd"),
+    through a `MultiSteps` wrapper; None for any other optimizer."""
+    if isinstance(optimizer, MultiSteps):
+        optimizer, opt_state = optimizer.inner, opt_state["inner"]
+    return optimizer.stage(opt_state) if isinstance(optimizer, TwoStageAdamSGD) else None
+
+
 class MultiSteps:
     """optax `MultiSteps(inner, every_k_schedule=every_k)`: gradient
     accumulation over `every_k` micro-batches. The state is a dict:
     `mini_step` (micro-batches in the accumulator), `gradient_step` (inner
     steps taken), `inner` (the inner optimizer's state) and `acc`."""
 
-    def __init__(self, inner: AdamW, every_k: int):
+    def __init__(self, inner, every_k: int):
         if every_k < 1:
             raise ValueError(f"every_k must be at least 1, got {every_k}")
         self.inner = inner
@@ -154,6 +222,18 @@ class MultiSteps:
         inner = self.inner.step(params, acc, state["inner"])
         return {"mini_step": 0, "gradient_step": state["gradient_step"] + 1, "inner": inner,
                 "acc": [torch.zeros_like(a) for a in acc]}
+
+
+def make_two_stage_adam_sgd(adam_schedule: Callable, sgd_lr: float, switch_step: int,
+                            weight_decay: float = 0.0, betas=(0.9, 0.98), eps: float = 1e-8,
+                            max_grad_norm: Optional[float] = 5.0, sgd_momentum: float = 0.99,
+                            sgd_nesterov: bool = True, accum_steps: int = 1):
+    """The JAX `make_two_stage_adam_sgd`: `TwoStageAdamSGD`, wrapped in
+    `MultiSteps` when `accum_steps` > 1 (`switch_step` counts optimizer
+    steps, after accumulation)."""
+    opt = TwoStageAdamSGD(adam_schedule, sgd_lr, switch_step, weight_decay, betas, eps,
+                          max_grad_norm, sgd_momentum, sgd_nesterov)
+    return MultiSteps(opt, accum_steps) if accum_steps > 1 else opt
 
 
 def make_optimizer(schedule: Callable, weight_decay: float = 0.0, betas=(0.9, 0.98),

@@ -3,11 +3,13 @@
 
     wav -> speed perturbation -> Fbank -> InputNormalization (statistics
     updated while epoch + 1 < normalize_update_until_epoch) -> SpecAugment
+    (from step `augment_warmup_steps` on; with `concat_original` the batch
+    becomes [original; augmented], lengths, pad mask and tokens doubled)
     -> SpeechRecognizer (CNN, encoder, attention decoder, dropout)
     -> ctc_weight · CTC + (1 - ctc_weight) · KL-div -> backward
-    -> clip to the global norm -> AdamW with the Noam schedule (through
-    `MultiSteps` when the recipe accumulates gradients), skipped on a
-    non-finite loss or gradient norm.
+    -> clip to the global norm -> AdamW with the Noam schedule, or the
+    two-stage Adam -> SGD (through `MultiSteps` when the recipe accumulates
+    gradients), skipped on a non-finite loss or gradient norm.
 
 The model's parameters are the trainable state; `init_state` returns the
 rest: optimizer state, normalization statistics, step and epoch counters,
@@ -15,8 +17,7 @@ and the one `torch.Generator` on the model's device from which speed
 perturbation, SpecAugment and every dropout draw. Speed perturbation runs
 inside `train_step` here; the JAX recipes apply it before calling theirs
 (`recipes/train.py`). Checkpoints are `training/checkpoint.py`'s. The
-mesh and sharding of the JAX trainer are still to port, as are
-preemption, `concat_original` and `augment_warmup_steps` (ROADMAP.md).
+mesh and sharding of the JAX trainer are still to port (ROADMAP.md).
 
     trainer = ASRTrainer(model, AdamW(noam_schedule(5e-4, 30000), 0.01), fbank)
     state = trainer.init_state(seed=3407)
@@ -52,6 +53,10 @@ class TrainerConfig:
     bos_id: int = 1
     eos_id: int = 2
     augment: Optional[SpecAugmentConfig] = SpecAugmentConfig()
+    # the train batch becomes [original; augmented] (AISHELL-1's Augmenter)
+    concat_original: bool = False
+    # no feature augmentation before this step (VoxPopuli)
+    augment_warmup_steps: int = 0
     speed_perturb: bool = False
     speeds: Sequence[int] = (95, 100, 105)
     normalize_update_until_epoch: int = 4
@@ -104,12 +109,15 @@ class ASRTrainer:
 
     # -- steps ---------------------------------------------------------------
     def _forward_loss(self, norm_stats: Dict, batch: Dict, train: bool, epoch: int,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None, step: int = 0
                       ) -> Tuple[torch.Tensor, Tuple[Dict, Dict, Dict]]:
-        """Features, normalization, augmentation and the model in train mode
+        """Features, normalization, augmentation (from step
+        `augment_warmup_steps` on; with `concat_original`, the original
+        batch followed by its augmented copy) and the model in train mode
         (or eval mode), and the joint loss. Returns
         `(loss, (losses, norm_stats, model_out))`."""
         cfg = self.config
+        tokens, token_lens = batch["tokens"], batch["token_lens"]
         with torch.no_grad():
             feats = self.fbank(batch["wav"])
             feat_len = self.fbank.frame_lengths(batch["wav_lens"])
@@ -118,8 +126,17 @@ class ASRTrainer:
             feats, norm_stats = self.normalize(feats, norm_stats, pad_mask, epoch=epoch,
                                                update=train)
             if train and cfg.augment is not None:
-                feats = spec_augment(feats, pad_mask, cfg.augment, generator)
-        tokens, token_lens = batch["tokens"], batch["token_lens"]
+                # before the warm-up step no augmentation is drawn (the JAX
+                # trainer draws one and discards it)
+                aug = (spec_augment(feats, pad_mask, cfg.augment, generator)
+                       if step >= cfg.augment_warmup_steps else feats)
+                if cfg.concat_original:
+                    feats = torch.cat([feats, aug])
+                    feat_len = torch.cat([feat_len, feat_len])
+                    tokens = torch.cat([tokens, tokens])
+                    token_lens = torch.cat([token_lens, token_lens])
+                else:
+                    feats = aug
         tokens_bos = self._add_bos(tokens) if self._has_decoder() else None
         self.model.train(train)
         out = self.model(feats, feat_len, tokens_bos, pad_idx=cfg.pad_id)
@@ -149,7 +166,7 @@ class ASRTrainer:
         for p in self.params:
             p.grad = None
         loss, (losses, norm_stats, _) = self._forward_loss(
-            state["norm_stats"], batch, True, state["epoch"], generator)
+            state["norm_stats"], batch, True, state["epoch"], generator, state["step"])
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         opt_state, grad_norm, finite = apply_safe_update(

@@ -2,12 +2,14 @@
 `summarymixing_tpu/training/transducer_trainer.py` on one device:
 
     wav -> speed perturbation -> Fbank -> InputNormalization -> SpecAugment
-    -> the Conformer encoder under a sampled Dynamic Chunk Training (DCT)
-    configuration -> proj_enc; blank-prefixed targets -> the LSTM predictor
-    -> the joint -> RNN-T loss (+ ctc_weight · CTC on proj_ctc while the
-    epoch is below number_of_ctc_epochs, + ce_weight · NLL on dec_lin)
-    -> backward -> the optimizer (AdamW, or `MultiSteps` accumulating k
-    micro-batches), skipped on a non-finite loss or gradient norm.
+    (from micro step `augment_warmup_steps` on) -> the Conformer encoder
+    under a sampled Dynamic Chunk Training (DCT) configuration -> proj_enc;
+    blank-prefixed targets -> the LSTM predictor -> the joint -> RNN-T loss
+    (+ ctc_weight · CTC on proj_ctc while the epoch is below
+    number_of_ctc_epochs, + ce_weight · NLL on dec_lin) -> backward -> the
+    optimizer (AdamW or the two-stage Adam -> SGD, or `MultiSteps`
+    accumulating k micro-batches), skipped on a non-finite loss or
+    gradient norm.
 
 The parameters are those of `trainer.model`, a `ModuleDict` of the
 recognizer (`encoder`) and the `TransducerModel` (`transducer`), the JAX
@@ -16,8 +18,8 @@ SpecAugment, the DCT draw and every dropout draw from the trainer's one
 `torch.Generator` (the checkpoint keeps its state). The DCT draw is read
 to the host once per step: the chunk size shapes the attention mask.
 Speed perturbation runs inside `train_step`, as `ASRTrainer` runs it
-(the JAX recipes apply it before calling theirs); `augment_warmup_steps`
-is not ported (ROADMAP.md).
+(the JAX recipes apply it before calling theirs). Before the warm-up step
+no augmentation is drawn (the JAX trainer draws one and discards it).
 
     optimizer = make_optimizer(schedule, accum_steps=4)
     trainer = TransducerTrainer(model, transducer, optimizer, fbank)
@@ -91,6 +93,8 @@ class TransducerTrainerConfig:
     number_of_ctc_epochs: Optional[int] = None
     blank_id: int = 0
     augment: Optional[SpecAugmentConfig] = SpecAugmentConfig()
+    # no feature augmentation before this micro step (VoxPopuli)
+    augment_warmup_steps: int = 0
     speed_perturb: bool = False
     speeds: Sequence[int] = (95, 100, 105)
     normalize_update_until_epoch: int = 4
@@ -149,9 +153,10 @@ class TransducerTrainer:
         return frames
 
     def _forward_loss(self, norm_stats: Dict, batch: Dict, train: bool, epoch: int,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None, step: int = 0
                       ) -> Tuple[torch.Tensor, Tuple[Dict, Dict, Tuple]]:
-        """Features, normalization, augmentation, a DCT draw (training only),
+        """Features, normalization, augmentation (from micro step
+        `augment_warmup_steps` on), a DCT draw (training only),
         the encoder, the predictor once, the joint and the losses. Returns
         `(loss, (losses, norm_stats, (enc_out, enc_lens)))`."""
         cfg = self.config
@@ -162,7 +167,7 @@ class TransducerTrainer:
                         < feat_len[:, None]).to(feats.dtype)
             feats, norm_stats = self.normalize(feats, norm_stats, pad_mask, epoch=epoch,
                                                update=train)
-            if train and cfg.augment is not None:
+            if train and cfg.augment is not None and step >= cfg.augment_warmup_steps:
                 feats = spec_augment(feats, pad_mask, cfg.augment, generator)
         dct = None
         if train and cfg.dct is not None:
@@ -213,7 +218,7 @@ class TransducerTrainer:
         for p in self.params:
             p.grad = None
         loss, (losses, norm_stats, _) = self._forward_loss(
-            state["norm_stats"], batch, True, state["epoch"], generator)
+            state["norm_stats"], batch, True, state["epoch"], generator, state["step"])
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         opt_state, grad_norm, finite = apply_safe_update(

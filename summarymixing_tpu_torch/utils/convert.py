@@ -2,7 +2,9 @@
 from the flax params tree of its counterpart.
 
 The port's modules carry the flax tree's names (the attention decoder's
-too: `decoder.layer_i.{self_attn,cross_attn}.{q,k,v,out}_proj`,
+too: `decoder.layer_i.{self_attn,cross_attn}.{q,k,v,out}_proj`, or for
+the Summary Decoder `decoder.layer_i.self_attn.{local_proj,summary_proj,
+summary_local_merging}`,
 `pos_ffn.{ffn_in,ffn_out}`, `norm1`-`norm3`, `seq_lin`; the Transformer
 LM's: `emb.emb`, `encoder.layer_i.{self_att,pos_ffn,norm1,norm2}`,
 `encoder.norm`, `out`, with `out_proj` and `out_norm` for the "sb" head;

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.decoding import ctc_prefix as jctc
 from summarymixing_tpu.decoding import s2s_beam as jbeam
 from summarymixing_tpu.models import lm as jlm

@@ -16,6 +16,7 @@ versions' autograd gradients bit for bit: their backward is that VJP.
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
 
 CELL_TOL, CSGU_TOL = 2.0 ** -5, 2.0 ** -4

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.training import checkpoint as jckpt
 from summarymixing_tpu.training import metrics as jmetrics
 from summarymixing_tpu_torch.config import LMConfig, RecipeConfig, build_lm

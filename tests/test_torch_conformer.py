@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.models.asr import DynChunkTrainConfig as JDynChunk
 from summarymixing_tpu.models.asr import TransformerASR as JASR
 from summarymixing_tpu.models.conformer import ConformerEncoder as JEncoder

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import yaml
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.data import batching as jbatching
 from summarymixing_tpu.data import dataio as jdataio
 from summarymixing_tpu.data import subword as jsubword

@@ -17,6 +17,7 @@ import pytest
 import torch
 from flax import linen as nn
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.config import build_model as jax_build_model
 from summarymixing_tpu.config import load_recipe as jax_load_recipe
 from summarymixing_tpu.ops import attention as jattn

@@ -16,6 +16,7 @@ import wave
 import numpy as np
 import pytest
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.data import dataio as jdataio
 from summarymixing_tpu.data import flac as jflac
 from summarymixing_tpu_torch.data import dataio

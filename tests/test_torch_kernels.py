@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.ops import pallas_csgu as jcsgu
 from summarymixing_tpu.ops import pallas_summary as jps
 from summarymixing_tpu.ops.convolution import ConvolutionBranch as JConvolutionBranch

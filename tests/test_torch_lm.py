@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.config.schema import LMConfig as JLMConfig
 from summarymixing_tpu.models import lm as jlm
 from summarymixing_tpu.models import transformer as jtransformer

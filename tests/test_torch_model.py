@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.config import build_model as jax_build_model
 from summarymixing_tpu.config import load_recipe as jax_load_recipe
 from summarymixing_tpu.decoding.ctc import collapse_ctc, ctc_greedy_decode
@@ -64,19 +65,27 @@ def test_wav_to_tokens_matches_jax(rng):
     stats = {"count": np.float32(100.0),
              "mean": (rng.standard_normal(80) - 20.0).astype(np.float32),
              "m2": (99.0 * (1.0 + rng.random(80)) ** 2).astype(np.float32)}
+    jstats = {k: jnp.asarray(v) for k, v in stats.items()}
+
+    @jax.jit
+    def jax_features(jwav, jlens):
+        feats, _ = InputNormalization()(jfbank(jwav), jstats)
+        return feats, jfbank.frame_lengths(jlens)
+
+    @jax.jit
+    def jax_decode(params, feats, feat_len):
+        out = jmodel.apply(params, feats, feat_len)
+        return out, ctc_greedy_decode(out["ctc_log_probs"], out["enc_lengths"])
+
     params = None
     n_rows = 0
     for idx, wav, lens in batch_waveforms(wavs, 2, 800, device="cpu"):
         assert wav.shape[1] % 800 == 0 and int(lens.max()) <= wav.shape[1]
-        jwav, jlens = jnp.asarray(wav.numpy()), jnp.asarray(lens.numpy())
-        feats = jfbank(jwav)
-        feat_len = jfbank.frame_lengths(jlens)
-        feats, _ = InputNormalization()(feats, {k: jnp.asarray(v) for k, v in stats.items()})
+        feats, feat_len = jax_features(jnp.asarray(wav.numpy()), jnp.asarray(lens.numpy()))
         if params is None:
-            params = jmodel.init(jax.random.PRNGKey(0), feats, feat_len)
+            params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), feats, feat_len)
             load_jax_params(tmodel, params)
-        out = jmodel.apply(params, feats, feat_len)
-        ids, keep = ctc_greedy_decode(out["ctc_log_probs"], out["enc_lengths"])
+        out, (ids, keep) = jax_decode(params, feats, feat_len)
         want = collapse_ctc(ids, keep)
         hyps, tout = greedy_ctc_decode(tmodel, tfbank, {k: _t(v) for k, v in stats.items()},
                                        wav, lens)

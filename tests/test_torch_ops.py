@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.decoding import ctc as jctc
 from summarymixing_tpu.frontend import features as jfeat
 from summarymixing_tpu.ops import convolution as jconv

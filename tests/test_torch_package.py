@@ -10,6 +10,7 @@ import sys
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.config import schema as jschema
 from summarymixing_tpu_torch.config import schema as tschema
 from summarymixing_tpu_torch.config import build_model

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.config import build_model as jax_build_model
 from summarymixing_tpu.config import load_recipe as jax_load_recipe
 from summarymixing_tpu.parallel.mesh import make_mesh
@@ -39,6 +40,7 @@ from summarymixing_tpu_torch.ops import convolution, fused_csgu, fused_summary, 
 from summarymixing_tpu_torch.ops.summary_mixing import SummaryMixing
 from summarymixing_tpu_torch.recipes import common, evaluate, train, train_lm, wer_protocol
 from summarymixing_tpu_torch.training.checkpoint import CheckpointManager
+from summarymixing_tpu_torch.training.optim import TwoStageAdamSGD
 from summarymixing_tpu_torch.training.trainer import ASRTrainer, TrainerConfig
 from summarymixing_tpu_torch.utils.convert import load_jax_params
 from test_torch_data import REPO, make_corpus
@@ -150,10 +152,14 @@ def test_cell_route_is_the_same_in_training_and_the_launch_checks_the_keep_mask(
 @pytest.mark.parametrize("setting", ["augment.concat_original=true",
                                      "augment.augment_warmup_steps=5000"])
 def test_build_trainer_refuses_unported_augment_settings(setting):
+    """Both settings were refused until they were ported: `build_trainer`
+    now hands them to the trainer."""
     cfg = load_recipe(SYNTH, overrides=common.parse_overrides([setting]))
     model, fbank = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        build_trainer(cfg, model, fbank)
+    config = build_trainer(cfg, model, fbank).config
+    assert (config.concat_original, config.augment_warmup_steps) == (
+        cfg.augment.concat_original, cfg.augment.augment_warmup_steps)
+    assert config != build_trainer(load_recipe(SYNTH), model, fbank).config
 
 
 # -- the slice against JAX ---------------------------------------------------
@@ -279,10 +285,9 @@ def test_runners_end_to_end_with_resume(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("runner,recipe,args,match", [
-    ("train", "synth", ["--max-hours", "1"], "max-hours"),
+    ("train", "transducer", ["--profile", "prof"], "profile"),
     ("train", "synth", ["--profile", "prof"], "profile"),
-    ("train", "synth", ["--set", "training.scheduler=two_stage", "--set",
-                        "training.stage_one_epochs=2"], "two-stage"),
+    ("evaluate", "transducer", ["--seq-parallel", "2"], "seq-parallel"),
     ("evaluate", "synth", ["--beam", "--nbest", "2"], "nbest"),
     ("evaluate", "transducer", ["--beam", "--nbest", "2"], "nbest"),
     ("evaluate", "synth", ["--seq-parallel", "2"], "seq-parallel"),
@@ -304,13 +309,20 @@ def test_runners_refuse_what_is_not_ported(corpus, tmp_path, runner, recipe, arg
     ("recipes/Synthetic/hard_synthetic_transducer.yaml", "augment.concat_original=true"),
 ])
 def test_build_transducer_trainer_refuses_what_is_not_ported(recipe, setting):
-    """VoxPopuli's `augment_warmup_steps: 5000`, the two-stage optimizer and
-    `concat_original` stay refused for the transducer recipes too."""
+    """These three were refused until they were ported; each now builds, as
+    the JAX runner builds it: VoxPopuli's `augment_warmup_steps: 5000`
+    reaches the trainer, `two_stage` gives the two-stage optimizer, and
+    `concat_original`,
+    which the JAX runner hands only to the CTC/attention trainer, is not
+    read."""
     cfg = load_recipe(os.path.join(REPO, recipe),
                       overrides=common.parse_overrides([setting] if setting else []))
     model, fbank, td = build_model(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        build_transducer_trainer(cfg, model, fbank, td)
+    trainer = build_transducer_trainer(cfg, model, fbank, td)
+    assert trainer.config.augment_warmup_steps == cfg.augment.augment_warmup_steps
+    inner = getattr(trainer.optimizer, "inner", trainer.optimizer)
+    assert isinstance(inner, TwoStageAdamSGD) == (setting == "training.scheduler=two_stage")
+    assert not hasattr(trainer.config, "concat_original")
 
 
 def test_evaluate_runner_reports_plain_calls(corpus, tmp_path, monkeypatch):
@@ -336,6 +348,10 @@ def test_evaluate_runner_reports_plain_calls(corpus, tmp_path, monkeypatch):
     plain = evaluate.main(argv)
     monkeypatch.setattr(summary_mixing, "uses_kernel", lambda x: True)
     monkeypatch.setattr(convolution, "uses_kernel", lambda x: True)
+    # the counters are the process's: put them back after the test, so a
+    # later test in this worker reads what its own calls counted
+    for wrapper in (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch):
+        monkeypatch.setattr(wrapper, "plain_calls", wrapper.plain_calls)
     routed = evaluate.main(argv)
     n = cfg.model.num_encoder_layers * sum(
         1 for _ in common.batches(test_set, tok, cfg, False, 0, "cpu"))

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu_torch.config import build_model, load_recipe
 from summarymixing_tpu_torch.data.flac import encode_flac
 from summarymixing_tpu_torch.data.tokenizer import CharTokenizer

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.frontend import augment as jaug
 from summarymixing_tpu.frontend.features import Fbank as JFbank
 from summarymixing_tpu.frontend.features import NormStats as JNormStats

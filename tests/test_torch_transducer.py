@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.config import build_model as jax_build_model
 from summarymixing_tpu.config import load_recipe as jax_load_recipe
 from summarymixing_tpu.decoding.transducer_search import (

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu.decoding.transducer_search import (
     transducer_beam_search as jax_beam_seq,
 )

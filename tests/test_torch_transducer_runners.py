@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu_torch.data.dataio import read_manifest_csv
 from summarymixing_tpu_torch.recipes import evaluate, train, train_lm
 from summarymixing_tpu_torch.training.checkpoint import CheckpointManager
