@@ -195,15 +195,43 @@ Neither kernel lies on phases 14-16: both launch counters must stay 0.
    the same step without it, the same dropout seed: loss and gradient norm
    within REMAT_TOL, 36 launches (forward and recompute) and 18 backwards
    with remat, and a lower peak memory.
+22. A reference checkpoint on the card. (a) A SpeechBrain-layout
+   `--ref-dir` in a temporary directory: `model.ckpt` from the clean-room
+   oracle `tests/torch_full_oracle.py::build_oracle` at the flagship's
+   widths (d 512, nhead 1, 18 encoder and 6 decoder layers, d_ffn 2048,
+   vocabulary 5000, hidden widths 512, cgMLP 3072, kernel 31, frontend
+   channels (64, 32), seed 3407), `lm.ckpt` from
+   `tests/torch_lm_oracle.py` at `LMConfig()` widths (12 layers, d768,
+   d_ffn 3072, the "sb" head), a seeded `normalizer.ckpt` over 80 mels and
+   a 5000-piece unigram SentencePiece `tokenizer.ckpt` written by the
+   port's `serialize_model_proto`. (b) `recipes.convert_checkpoint --ref-dir`,
+   then `recipes.evaluate --beam --nbest 3 --lm-ckpt` on request 0 of
+   phase 4 (written as 16-bit WAVs, one batch of 8, T = 751) at the
+   recipe's beam 66, three times: without blank-skip, with
+   `ctc_blank_skip=1.0` and no cap, and with 0.95 (the default cap); then
+   one greedy `recipes.transcribe` call. (c) Held: every key of both
+   checkpoints consumed; the converted model in float32 with the exact
+   GELU (`--set model.activation=gelu_exact`: the plain path, the cgMLP
+   kernel refuses it) against the oracle's forward on the card within
+   REF_ORACLE_TOL; the recipe as written (bf16, tanh-GELU, both kernels)
+   against its plain path at phase 5's tolerances; blank-skip at 1.0 the
+   same hypotheses as no skip, the n-best scores within
+   REF_SKIP_SCORE_TOL; `nbest.jsonl` 3 score-sorted entries per utterance,
+   the first the scored hypothesis; 18 launches of each kernel per
+   encoder forward and no plain call on the recipe-as-written runs. (d)
+   Reported: conversion seconds, ms per beam step without and with
+   blank-skip at 0.95, the CTC scorer's frames, the rows whose hypotheses
+   the 0.95 skip leaves unchanged, peak memory and the phase's wall time.
 
 `plain_calls` (cells or cgMLP branches on the card whose configuration the
 kernel does not take, run on the plain path) is set to 0 at phase 4 and
 must still be 0 after phases 4, 7 and 9: the flagship takes both kernels
 everywhere. The kernels line reports `launches` and `plain_calls` summed
-over phases 4, 7, 9, 10, 12-16 and 18-21, and each by path (`serve`,
+over phases 4, 7, 9, 10, 12-16 and 18-22, and each by path (`serve`,
 `transcribe`, `serve_streaming` and `export` for phases 18-20;
-`summary_decoder`, `runner_aishell` and `remat` for phase 21), with the
-phase-17 rows under `serving_shapes`.
+`summary_decoder`, `runner_aishell` and `remat` for phase 21;
+`reference_checkpoint` for phase 22's runners), with the phase-17 rows
+under `serving_shapes`.
 
 The line before the last holds nvidia-smi's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. No JAX is imported here.
@@ -330,6 +358,20 @@ AISHELL_BATCH_S, AISHELL_BUCKETS = 120.0, 2
 # (c) remat against none: one bf16 training step with the same dropout
 # masks; loss and gradient norm within one bf16 step of each other
 REMAT_TOL = 2.0 ** -8
+# a reference (SpeechBrain-layout) checkpoint on the card (phase 22)
+REF_SEED = 3407
+REF_NBEST = 3
+REF_SKIP = 0.95
+# (c) the converted flagship in float32 (exact GELU, TF32 off, the plain path)
+# against the clean-room oracle's own forward on the same features, relative
+# L2 over the frames of full-length rows of the encoder output and the CTC
+# log-probs: the same float32 arithmetic in another order, 18 layers deep
+# (the JAX package's CPU test holds 1e-4 max abs at d16)
+REF_ORACLE_TOL = 1e-4
+# (c) blank-skip at 1.0 with no cap against no skip: the same hypotheses, the
+# n-best's length-normalised scores within this (the scorer's reductions
+# run over a longer, padded time axis)
+REF_SKIP_SCORE_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -2960,6 +3002,282 @@ def phase_remat(kernel_rows) -> None:
         kernel_rows[name]["plain_calls_by_path"]["remat"] = 0
 
 
+def spm_pieces(n: int, seed: int) -> list:
+    """A unigram SentencePiece table of `n` pieces, the ids the recipes
+    expect: <unk>, <s>, </s>, then word-initial and inner pieces over a-z
+    (1-3 letters), scores drawn from `seed`."""
+    import itertools
+
+    rng = np.random.default_rng(seed)
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    for length in (1, 2, 3):
+        for letters in itertools.product("abcdefghijklmnopqrstuvwxyz", repeat=length):
+            for text in ("▁" + "".join(letters), "".join(letters)):
+                if len(pieces) < n:
+                    pieces.append((text, -float(rng.uniform(1.0, 12.0)), 1))
+    return pieces
+
+
+def write_reference_dir(ref: str, oracle, lm_oracle, n_mels: int, vocab: int) -> None:
+    """The Pretrainer's `collect_in` layout of a SpeechBrain run:
+    `model.ckpt`, `lm.ckpt`, `normalizer.ckpt` (InputNormalization's
+    `glob_mean`, `glob_std`, `count`, seeded) and `tokenizer.ckpt` (a
+    SentencePiece ModelProto under the Pretrainer's name)."""
+    import torch
+
+    from summarymixing_tpu_torch.data.sentencepiece_model import serialize_model_proto
+
+    os.makedirs(ref, exist_ok=True)
+    torch.save(oracle.state_dict(), os.path.join(ref, "model.ckpt"))
+    torch.save(lm_oracle.state_dict(), os.path.join(ref, "lm.ckpt"))
+    g = torch.Generator().manual_seed(REF_SEED)
+    torch.save({"glob_mean": -10.0 + 5.0 * torch.randn(n_mels, generator=g),
+                "glob_std": 4.0 + 4.0 * torch.rand(n_mels, generator=g),
+                "count": torch.tensor(1.0e5)}, os.path.join(ref, "normalizer.ckpt"))
+    with open(os.path.join(ref, "tokenizer.ckpt"), "wb") as f:
+        f.write(serialize_model_proto(spm_pieces(vocab, REF_SEED)))
+
+
+def read_nbest(path: str) -> dict:
+    """`nbest.jsonl` as {utterance ID: [(text, score), ...]}."""
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    return {r["id"]: [(h["text"], h["score"]) for h in r["nbest"]] for r in rows}
+
+
+def phase_reference_checkpoint(kernel_rows, here: str, root: str) -> None:
+    """Phase 22: a SpeechBrain-layout checkpoint of the flagship (the
+    clean-room oracles' weights) through the port's own entry points on the
+    card: `convert_checkpoint --ref-dir`, `evaluate --beam --nbest 3
+    --lm-ckpt` with and without blank-skip, and `transcribe`; the
+    converted model against the oracle's forward, the kernel path against
+    the plain path."""
+    import csv
+    import io
+
+    import torch
+
+    from summarymixing_tpu_torch.config import LMConfig, load_recipe
+    from summarymixing_tpu_torch.data.batching import DynamicBucketBatcher
+    from summarymixing_tpu_torch.data.dataio import load_wav, read_manifest_csv
+    from summarymixing_tpu_torch.frontend.features import InputNormalization
+    from summarymixing_tpu_torch.recipes import common, convert_checkpoint, evaluate, transcribe
+    from summarymixing_tpu_torch.transcribe import greedy_ctc_decode
+
+    sys.path.insert(0, os.path.join(here, "tests"))
+    from torch_full_oracle import build_oracle
+    from torch_lm_oracle import TransformerLMTorch
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    recipe = os.path.join(here, FLAGSHIP_RECIPE)
+    cfg = load_recipe(recipe)
+    m, lm_cfg = cfg.model, cfg.lm or LMConfig()
+    n_layers = m.num_encoder_layers
+    work = os.path.join(root, "reference")
+    ref, run = os.path.join(work, "ref"), os.path.join(work, "run")
+
+    # (a) the SpeechBrain-layout directory
+    t0 = time.perf_counter()
+    oracle = build_oracle(
+        input_size=m.input_size, d_model=m.d_model, nhead=m.nhead, n_enc=n_layers,
+        n_dec=m.num_decoder_layers, d_ffn=m.d_ffn, vocab=m.output_neurons,
+        hid=tuple(m.local_proj_hid_dim), local_out=m.local_proj_out_dim,
+        sum_hid=tuple(m.summary_hid_dim), sum_out=m.summary_out_dim,
+        csgu_units=m.csgu_linear_units, kernel_size=m.csgu_kernel_size,
+        frontend_channels=tuple(m.frontend_channels), seed=REF_SEED)
+    torch.manual_seed(REF_SEED)
+    lm_oracle = TransformerLMTorch(m.output_neurons, d_model=lm_cfg.d_model, nhead=lm_cfg.nhead,
+                                   n_layers=lm_cfg.num_layers, d_ffn=lm_cfg.d_ffn)
+    write_reference_dir(ref, oracle, lm_oracle, cfg.features.n_mels, m.output_neurons)
+    del lm_oracle
+    print(f"reference checkpoint: oracle {sum(p.numel() for p in oracle.parameters()):,} "
+          f"parameters, written with its LM, normaliser and {m.output_neurons}-piece tokenizer "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+    # request 0 of phase 4 as 16-bit WAV files and a manifest
+    sr = cfg.features.sample_rate
+    wav, lens = request0(sr)
+    dev = wav.device
+    wav_np, lens_np = wav.cpu().numpy(), lens.cpu().numpy()
+    files, rows = [], []
+    for i in range(wav_np.shape[0]):
+        files.append(os.path.join(work, f"request0_{i}.wav"))
+        with open(files[-1], "wb") as f:
+            f.write(wav_bytes(wav_np[i, :lens_np[i]], sr))
+        rows.append({"ID": f"r0u{i}", "duration": lens_np[i] / sr, "wav": files[-1],
+                     "spk_id": "s0", "wrd": "ab cd ef"})
+    manifest = os.path.join(work, "request0.csv")
+    with open(manifest, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    one_batch = [f"training.max_batch_length_val={len(rows) * float(lens_np.max()) / sr}",
+                 "training.num_buckets=1"]
+    lengths, buckets = common.build_buckets(
+        read_manifest_csv(manifest), load_recipe(recipe, common.parse_overrides(one_batch)),
+        valid=True)
+    batched = list(DynamicBucketBatcher(lengths, buckets, shuffle=False, drop_last=False))
+    if len(batched) != 1 or len(batched[0][1]) != len(rows):
+        fail(f"reference: request 0 forms {[len(b[1]) for b in batched]} evaluation batches, "
+             f"not one of {len(rows)}")
+    sets = [a for kv in one_batch for a in ("--set", kv)]
+
+    # (b) convert
+    res, counts, convert_s, peak_c = run_stage("convert_checkpoint --ref-dir",
+                                               convert_checkpoint.main,
+                                               [recipe, "--ref-dir", ref, "--output", run])
+    if res["keys"]["unconsumed"] or res["lm"]["keys"]["unconsumed"]:
+        fail(f"reference: conversion left keys unread: model {res['keys']}, "
+             f"LM {res['lm']['keys']}")
+    if res["tokenizer"] != "tokenizer.model" or res["params"] != FLAGSHIP_TRAIN_PARAMS:
+        fail(f"reference: tokenizer placed as {res['tokenizer']}, {res['params']:,} parameters "
+             f"(expected tokenizer.model, {FLAGSHIP_TRAIN_PARAMS:,})")
+    print(f"reference convert: {convert_s:.2f} s; model keys {res['keys']}, LM keys "
+          f"{res['lm']['keys']} ({res['lm']['params']:,} LM parameters); "
+          f"{res['params']:,} parameters")
+
+    # (c) the converted model in float32 with the exact GELU against the oracle, on the card
+    save = os.path.join(run, "save")
+    audio = [load_wav(p, sr) for p in files]
+    wav_f = torch.zeros(len(audio), max(len(a) for a in audio), device=dev)
+    for i, a in enumerate(audio):
+        wav_f[i, :len(a)] = torch.from_numpy(a)
+    lens_f = torch.tensor([len(a) for a in audio], device=dev)
+    f32 = load_recipe(recipe, common.parse_overrides(["model.activation=gelu_exact",
+                                                      "training.precision=fp32"]))
+    model32, fbank, _, stats = common.restore_inference(f32, save, 0, dev)
+    kernels = zero_counts()
+    oracle = oracle.to(dev).eval()
+    cnn, asr, _, ctc_lin = oracle
+    rel_enc, rel_ctc, frames = [], [], []
+    with torch.no_grad():
+        # one utterance at a time, unpadded: the oracle's encoder has no pad mask
+        for a in audio:
+            row = torch.from_numpy(a).to(dev)[None]
+            feats, _ = InputNormalization()(fbank(row), stats)
+            enc, _ = model32.encode(feats, fbank.frame_lengths(torch.tensor([len(a)], device=dev)))
+            with dev:   # the oracle builds its sine table on the default device
+                enc_o = asr.encode(cnn(feats))
+            rel_enc.append(rel_l2(enc, enc_o))
+            rel_ctc.append(rel_l2(model32.ctc_head(enc), torch.log_softmax(ctc_lin(enc_o), -1)))
+            frames.append(enc.shape[1])
+    plain32 = read_counts(kernels)
+    del model32, oracle, cnn, asr, ctc_lin, enc, enc_o
+    peaks = [peak_c, torch.cuda.max_memory_allocated() / 2 ** 30]
+    torch.cuda.empty_cache()
+    ok = max(rel_enc + rel_ctc) <= REF_ORACLE_TOL
+    print(f"reference (c): converted model in float32 (exact GELU, plain path: "
+          f"(launches, plain calls) {plain32}) vs the oracle's forward, each of the "
+          f"{len(audio)} utterances alone (T = {min(frames)}-{max(frames)}): relative L2 "
+          f"encoder at most {max(rel_enc):.3e}, CTC log-probs at most {max(rel_ctc):.3e} "
+          f"(tol {REF_ORACLE_TOL:.0e}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("reference: the converted model disagrees with the oracle")
+
+    # (c) the recipe as written (bf16, tanh-GELU, both kernels) against its plain path
+    model, fbank, _, stats = common.restore_inference(cfg, save, 0, dev)
+    kernels = zero_counts()
+    with torch.no_grad():
+        hyps_k, out_k = greedy_ctc_decode(model, fbank, stats, wav_f, lens_f)
+        counted = read_counts(kernels)
+        with plain_kernels():
+            hyps_p, out_p = greedy_ctc_decode(model, fbank, stats, wav_f, lens_f)
+    torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    valid = (torch.arange(out_k["ctc_log_probs"].shape[1], device=dev)[None, :]
+             < out_k["enc_lengths"][:, None])
+    max_diff = float((out_k["ctc_log_probs"] - out_p["ctc_log_probs"]).abs().amax(-1)[valid].max())
+    frac = float((out_k["ctc_log_probs"].argmax(-1)
+                  == out_p["ctc_log_probs"].argmax(-1))[valid].float().mean())
+    ok = frac >= 0.95 and max_diff <= 1.0 and counted == {"summary_mixing": (n_layers, 0),
+                                                          "csgu": (n_layers, 0)}
+    print(f"reference (c): recipe as written, kernel path vs plain path on request 0: max "
+          f"|dlogp| {max_diff:.4f} (tol 1.0), greedy frame agreement {frac:.4f} (tol >= 0.95), "
+          f"identical token rows {sum(a == b for a, b in zip(hyps_k, hyps_p))}/{len(hyps_k)}, "
+          f"(launches, plain calls) {counted} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("reference: the converted recipe's kernel path disagrees with its plain path")
+    del model, out_k, out_p
+    torch.cuda.empty_cache()
+
+    # (b) evaluate three times and transcribe once, through the runners
+    lm_dir = os.path.join(run, "lm")
+    runs = {}
+    for label, skip in (("no skip", []),
+                        ("skip 1.0", ["decoding.ctc_blank_skip=1.0",
+                                      "decoding.ctc_frame_cap=1000000"]),
+                        (f"skip {REF_SKIP}", [f"decoding.ctc_blank_skip={REF_SKIP}"])):
+        out_dir = os.path.join(work, "eval_" + label.replace(" ", "_"))
+        summary, counts_e, secs, peak = run_stage(
+            f"evaluate --beam --nbest {REF_NBEST} ({label})", evaluate.main,
+            [recipe, "--test-manifest", manifest, "--ckpt", save, "--beam", "--nbest",
+             str(REF_NBEST), "--lm-ckpt", lm_dir, "--output", out_dir] + sets
+            + [a for kv in skip for a in ("--set", kv)])
+        check_eval(label, summary, len(rows))
+        want = {name: (n_layers, 0, 0) for name in counts_e}
+        if counts_e != want or summary["decode"] != "beam+lm" or summary["nbest"] != REF_NBEST:
+            fail(f"reference evaluate ({label}): (launches, plain calls, backwards) {counts_e}, "
+                 f"expected {want}; decode {summary['decode']}, nbest {summary.get('nbest')}")
+        nbest = read_nbest(os.path.join(out_dir, "nbest.jsonl"))
+        for utt, ranked in nbest.items():
+            scores = [sc for _, sc in ranked]
+            if (len(ranked) != REF_NBEST or scores != sorted(scores, reverse=True)
+                    or ranked[0][0].split() != summary["hyps"][utt]):
+                fail(f"reference evaluate ({label}): nbest.jsonl row {utt} is not {REF_NBEST} "
+                     "score-sorted entries led by the scored hypothesis")
+        if sorted(nbest) != sorted(r["ID"] for r in rows):
+            fail(f"reference evaluate ({label}): nbest.jsonl holds {sorted(nbest)}")
+        step = 1e3 * summary["search_s"] / max(summary["beam_steps"], 1)
+        runs[label] = dict(summary=summary, nbest=nbest, counts=counts_e, step_ms=step,
+                           seconds=secs)
+        peaks.append(peak)
+        print(f"reference evaluate ({label}): {summary['beam_steps']} steps, {step:.2f} ms per "
+              f"step, CTC scorer frames {summary['ctc_frames']}, {secs:.1f} s, WER "
+              f"{summary['WER']:.2f} (random weights), peak {peak:.2f} GiB")
+    base, exact = runs["no skip"], runs["skip 1.0"]
+    same = all(exact["summary"]["hyps"][u] == base["summary"]["hyps"][u]
+               and [t for t, _ in exact["nbest"][u]] == [t for t, _ in base["nbest"][u]]
+               for u in base["nbest"])
+    score_diff = max(abs(a - b) for u in base["nbest"]
+                     for (_, a), (_, b) in zip(base["nbest"][u], exact["nbest"][u]))
+    ok = same and score_diff <= REF_SKIP_SCORE_TOL
+    print(f"reference (c): blank-skip 1.0 (no cap) vs no skip: the same hypotheses and n-best "
+          f"texts {same}, max |dscore| {score_diff:.3e} (tol {REF_SKIP_SCORE_TOL:.0e}) "
+          f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("reference: blank-skip at 1.0 changed the search")
+    skip = runs[f"skip {REF_SKIP}"]
+    kept = sum(skip["summary"]["hyps"][u] == base["summary"]["hyps"][u] for u in base["nbest"])
+    print(f"reference (d): blank-skip {REF_SKIP} (cap min(max(T // 4, 32), T)): "
+          f"{skip['step_ms']:.2f} ms per step against {base['step_ms']:.2f} without, CTC scorer "
+          f"frames {skip['summary']['ctc_frames']} against {base['summary']['ctc_frames']}; "
+          f"rows whose hypothesis is unchanged {kept}/{len(base['nbest'])} (random weights are "
+          "not peaky: the cap, not the threshold, sets what is kept)")
+    out = os.path.join(work, "transcribe.jsonl")
+    with contextlib.redirect_stdout(io.StringIO()):   # its JSONL goes to --output too
+        res_t, counts_t, secs_t, peak_t = run_stage(
+            "transcribe (reference)", transcribe.main,
+            [recipe, *files, "--ckpt", save, "--batch-size", str(len(files)), "--output", out])
+    peaks.append(peak_t)
+    with open(out) as f:
+        texts = [json.loads(line)["text"] for line in f]
+    want = {name: (n_layers, 0, 0) for name in counts_t}
+    if len(texts) != len(files) or counts_t != want:
+        fail(f"reference transcribe: {len(texts)} lines for {len(files)} files, (launches, "
+             f"plain calls, backwards) {counts_t}, expected {want}")
+    print(f"reference transcribe: {len(files)} files greedy in {secs_t:.2f} s through "
+          f"tokenizer.model, (launches, plain calls, backwards) {counts_t}; first text "
+          f"{texts[0][:60]!r}")
+    for name in counts_t:
+        kernel_rows[name]["launches_by_path"]["reference_checkpoint"] = (
+            sum(r["counts"][name][0] for r in runs.values()) + counts_t[name][0])
+        kernel_rows[name]["plain_calls_by_path"]["reference_checkpoint"] = (
+            sum(r["counts"][name][1] for r in runs.values()) + counts_t[name][1])
+    print(f"phase 22 (reference checkpoint): peak memory {max(peaks):.2f} GiB, "
+          f"{time.perf_counter() - t_phase:.1f} s wall")
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     try:
@@ -3019,6 +3337,8 @@ def main() -> int:
         phase_remat(kernel_rows)
         print(f"phase 21 (Summary Decoder, AISHELL-1 runner, remat): "
               f"{time.perf_counter() - t_21:.1f} s wall")
+        torch.cuda.empty_cache()
+        phase_reference_checkpoint(kernel_rows, here, root)
     for row in kernel_rows.values():
         row["launches"] = sum(row["launches_by_path"].values())
         row["plain_calls"] = sum(row["plain_calls_by_path"].values())

@@ -1,11 +1,10 @@
 """Tokenizers — the port's copy of `summarymixing_tpu/data/tokenizer.py`:
-the character tokenizer (AISHELL-style recipes and the synthetic ones)
-and `load_tokenizer`. The subword recipes train their tokenizer with
-`data/subword.py` when no SentencePiece `.model` is given (as the JAX
-recipes do without the wheel). Reading a SentencePiece `.model` file is
-still to port: the JAX package's pure-Python ModelProto reader
-(`data/sentencepiece_model.py`) has no copy here yet, and neither machine
-has the `sentencepiece` wheel (ROADMAP.md, queue 1 item 7)."""
+the character tokenizer (AISHELL-style recipes and the synthetic ones),
+a trained SentencePiece `.model` (`SentencePieceTokenizer`, read by
+`data/sentencepiece_model.py`: neither machine has the `sentencepiece`
+wheel) and `load_tokenizer`. The subword recipes train their tokenizer
+with `data/subword.py` when no SentencePiece `.model` is given, as the JAX
+recipes do without the wheel."""
 
 from __future__ import annotations
 
@@ -53,12 +52,24 @@ class CharTokenizer:
 
 
 class SentencePieceTokenizer:
-    """A trained SentencePiece `.model` file: not ported yet."""
+    """A trained SentencePiece `.model` file (for example the reference
+    Pretrainer's `tokenizer.ckpt`), read by the pure-Python ModelProto
+    reader. Ids follow the model file's own layout."""
 
     def __init__(self, model_path: str):
-        raise NotImplementedError(
-            f"reading the SentencePiece model {model_path} is not ported (the JAX package's "
-            "data/sentencepiece_model.py); see ROADMAP.md queue 1 item 7")
+        from summarymixing_tpu_torch.data.sentencepiece_model import SentencePieceModel
+
+        self._model = SentencePieceModel.load(model_path)
+
+    @property
+    def vocab_size(self) -> int:
+        return self._model.vocab_size
+
+    def encode(self, text: str) -> List[int]:
+        return self._model.encode(text)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._model.decode(ids)
 
 
 def load_tokenizer(kind: str, **kwargs):

@@ -27,9 +27,10 @@ sentinels are the JAX package's: -1e5 is "log zero".
 
 Rows: with `beam` > 1 the N = B·beam hypotheses map to utterance n // beam
 of the UNtiled `[B, T, V]` lattice. The JAX package pads T to a size its
-associative scans like; nothing here needs that, so T is not padded.
-`compact_blank_frames` (blank-skip compaction, off in the flagship) is
-still to port.
+associative scans like; nothing here needs that, so T is not padded,
+except in `compact_blank_frames` (blank-skip compaction,
+`decoding.ctc_blank_skip` > 0), whose output keeps the JAX package's
+shape so that both give the same lattice.
 """
 
 from __future__ import annotations
@@ -39,6 +40,21 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 _NEG = -1e5
+# "log zero" of the compacted lattice's synthetic frames: -1e5 over hundreds
+# of frames of cumulative sums would cost float32 precision; -1e3 still
+# kills any path through one
+_GAP_NEG = -1e3
+
+
+def _pad_time_axis(n: int) -> int:
+    """The JAX package's compacted time axis: from 128 up, the next
+    multiple of 128; below, the next power of two."""
+    if n >= 128:
+        return -(-n // 128) * 128
+    p = 1
+    while p < n:
+        p *= 2
+    return p
 
 
 class CTCPrefixState(NamedTuple):
@@ -203,8 +219,75 @@ def ctc_prefix_select(cand_states: CTCPrefixState, hyp_idx: torch.Tensor,
     return CTCPrefixState(*(leaf[hyp_idx, cand_idx] for leaf in cand_states))
 
 
-def compact_blank_frames(*args, **kwargs):
-    """Blank-skip compaction of the lattice (`decoding.ctc_blank_skip` >
-    0); off in the flagship and not ported."""
-    raise NotImplementedError("compact_blank_frames (ctc_blank_skip > 0) is not ported; "
-                              "see ROADMAP.md")
+def compact_blank_frames(x: torch.Tensor, input_lengths: torch.Tensor, blank_id: int = 0,
+                         keep_cap: int = 0, blank_threshold: float = 0.95
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Shrink the CTC time axis by collapsing blank-dominated frames (the
+    JAX package's blank-skip pre-pass). A frame whose blank probability is
+    at least `blank_threshold` is treated as carrying no non-blank mass;
+    over a run of such frames the scorer's recurrence is exactly one
+    synthetic frame whose blank log-prob is the run's sum and whose other
+    entries are log zero. So: keep the other frames verbatim, replace each
+    dropped run by one synthetic blank frame, and append one trailing
+    synthetic frame holding the blank tail (eos scoring reads it). At
+    `blank_threshold` 1.0 with no cap every valid frame is kept and the
+    scores are those of the full lattice.
+
+    x `[B, T, V]` CTC log-probs, untiled (what is kept depends on the
+    utterance, not the hypothesis); `input_lengths` `[B]`; `keep_cap` the
+    most frames kept per row (0: T): a row with more candidates keeps the
+    ones with the most non-blank mass, the lower frame first among equals
+    (`jax.lax.top_k`'s order). Returns `(x2 [B, T2, V], lengths2 [B],
+    kept_count [B])`, T2 the JAX package's padded size of 2·cap + 1
+    (`_pad_time_axis`); slots past `lengths2` hold a blank of log-prob 0."""
+    b, t, v = x.shape
+    dev = x.device
+    cap = min(keep_cap, t) if keep_cap else t
+    lengths = input_lengths.to(torch.int64)
+    blank_lp = x[..., blank_id]
+    valid = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+    thresh = torch.log(torch.tensor(blank_threshold, dtype=x.dtype, device=dev))
+    keep = valid & (blank_lp < thresh)
+
+    # the cap: the `cap` frames with the most non-blank mass
+    score = torch.where(keep, -blank_lp, float("-inf"))
+    kept_t = torch.sort(score, dim=1, descending=True, stable=True).indices[:, :cap]
+    kept_valid = torch.gather(keep, 1, kept_t)
+    kept_count = kept_valid.sum(dim=1)
+    # time order, the slots not kept pushed past the end (sentinel t)
+    t_i = torch.sort(torch.where(kept_valid, kept_t, t), dim=1).values
+    i_idx = torch.arange(cap, device=dev)[None, :]
+    is_kept = i_idx < kept_count[:, None]
+    t_prev = torch.cat([torch.full((b, 1), -1, dtype=t_i.dtype, device=dev), t_i[:, :-1]], dim=1)
+
+    # blank log-prob sums over valid frames: cs_pad[:, j] sums frames < j
+    cs_pad = torch.cat([torch.zeros((b, 1), dtype=x.dtype, device=dev),
+                        torch.cumsum(torch.where(valid, blank_lp, 0.0), dim=1)], dim=1)
+    # the dropped run strictly between t_prev and t_i (past the kept slots
+    # t_prev is the sentinel: clamped, as JAX clamps a gather)
+    gap_sum = (torch.gather(cs_pad, 1, t_i)
+               - torch.gather(cs_pad, 1, torch.clamp(t_prev + 1, max=t)))
+    has_gap = is_kept & (t_i - t_prev > 1)
+    # kept frame i lands at i + (gaps at or before it); its gap frame, if
+    # any, just before it
+    gaps_incl = torch.cumsum(has_gap.to(torch.int64), dim=1)
+    pos = i_idx + gaps_incl
+    t2 = _pad_time_axis(2 * cap + 1)
+    # one slot more than the output: writes that the JAX scatter drops
+    # (slots not kept, rows without a gap) land there and are cut off
+    out = torch.full((b, t2 + 1, v), _GAP_NEG, dtype=x.dtype, device=dev)
+    out[:, :, blank_id] = 0.0
+    rows = torch.arange(b, device=dev)[:, None]
+    src = torch.gather(x, 1, torch.clamp(t_i, max=t - 1)[..., None].expand(b, cap, v))
+    out[rows, torch.where(is_kept, pos, t2)] = src
+    out[rows, torch.where(has_gap, pos - 1, t2), blank_id] = gap_sum
+
+    # the trailing synthetic frame: the blanks after the last kept frame
+    row1 = rows[:, 0]
+    last = torch.gather(t_i, 1, torch.clamp(kept_count - 1, min=0)[:, None])[:, 0]
+    last_kept_next = torch.where(kept_count > 0, last + 1, 0)
+    tail_sum = cs_pad[row1, lengths] - cs_pad[row1, last_kept_next]
+    pos_tail = kept_count + gaps_incl[:, -1]
+    out[row1, pos_tail] = _GAP_NEG
+    out[row1, pos_tail, blank_id] = tail_sum
+    return out[:, :t2], pos_tail + 1, kept_count

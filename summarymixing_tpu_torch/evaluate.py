@@ -15,10 +15,12 @@ encoder and the CTC head -> a joint CTC/attention beam search
 and `test_temperature`, with the KV-cached decoder step and, given an LM,
 its KV-cached step fused at `lm_weight` after a log-softmax at
 `lm_temperature`. Batches wider than `decoding.max_beam_rows` // beam
-utterances are searched in slices. `evaluate_beam` scores token ids as
-words; the runners (`recipes/evaluate.py`, `recipes/train.py`) score text
-through the run's tokenizer. Blank-skip compaction
-(`decoding.ctc_blank_skip` > 0) is not ported.
+utterances are searched in slices. With `decoding.ctc_blank_skip` > 0 the
+CTC prefix scorer reads a blank-compacted lattice (`maybe_compact_ctc`),
+while the decoder's cross-attention keeps every encoder frame.
+`evaluate_beam` scores token ids as words; the runners
+(`recipes/evaluate.py`, `recipes/train.py`) score text through the run's
+tokenizer.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
 
+from summarymixing_tpu_torch.decoding.ctc_prefix import compact_blank_frames
 from summarymixing_tpu_torch.decoding.s2s_beam import S2SBeamConfig, s2s_beam_search, tile_for_beam
 from summarymixing_tpu_torch.decoding.transducer_search import transducer_greedy_decode
 from summarymixing_tpu_torch.frontend.features import InputNormalization
@@ -120,8 +123,9 @@ def make_beam_step(cfg, model, enc_out: torch.Tensor, enc_lens: torch.Tensor, be
     carry), the LM cache at N rows, the cross-attention K/V and the
     encoder pad mask at B rows. The search gathers every N-row leaf by
     parent after each step. `cfg` keeps the JAX signature: its uncached
-    route for other decoders is not ported (ROADMAP.md queue 1 item 7), and
-    every decoder the port builds has a cached step. Returns
+    route for other decoders is not ported (ROADMAP.md queue 1 item 11: no
+    JAX runner reaches it), and every decoder the port builds has a cached
+    step. Returns
     `(step, cache, lm_cache)`."""
     n = enc_out.shape[0] * beam
     lm_cache = lm_make_cache(n, bc.max_length + 1) if lm_step else None
@@ -132,6 +136,23 @@ def make_beam_step(cfg, model, enc_out: torch.Tensor, enc_lens: torch.Tensor, be
         return model.decode_step_cached(last_tok, step_i, cache, enc_pad)
 
     return step, cache, lm_cache
+
+
+def maybe_compact_ctc(cfg, ctc_lp: torch.Tensor, enc_lens: torch.Tensor):
+    """The CTC prefix scorer's `(lattice, lengths)`: as they are, or with
+    `decoding.ctc_blank_skip` > 0 blank-compacted (`compact_blank_frames`
+    at that threshold, keeping at most `ctc_frame_cap` frames, by default
+    min(max(T // 4, 32), T)), as the JAX `recipes/train.py::
+    maybe_compact_ctc` does. The lengths are the scorer's only: the
+    decoder's cross-attention keeps the real encoder lengths."""
+    dec = cfg.decoding
+    if dec.ctc_blank_skip <= 0.0:
+        return ctc_lp, enc_lens
+    t = ctc_lp.shape[1]
+    cap = dec.ctc_frame_cap or min(max(t // 4, 32), t)
+    ctc_lp, scorer_lens, _ = compact_blank_frames(ctc_lp, enc_lens, cfg.model.blank_index, cap,
+                                                  dec.ctc_blank_skip)
+    return ctc_lp, scorer_lens
 
 
 def beam_slices(max_rows: int, beam: int, idx: Sequence, *tensors: torch.Tensor):
@@ -171,25 +192,25 @@ def _sync(device: torch.device) -> None:
 def evaluate_beam(model, fbank, norm_stats: Mapping, batches: Sequence, cfg, lm=None,
                   references: Optional[Mapping[int, Sequence[int]]] = None,
                   beam_size: Optional[int] = None, temperature: Optional[float] = None,
-                  max_length: Optional[int] = None) -> Dict:
+                  max_length: Optional[int] = None, nbest: int = 1) -> Dict:
     """Beam-search `batches` of `(indices, wav [B, N], wav_lens [B])` (as
     `transcribe.batch_waveforms` yields them) and score them. The search
     runs at `beam_config(cfg, ...)`: the test stage's beam and temperature
     unless `beam_size` and `temperature` say otherwise, and a decode-length
     cap of `max_length`, by default `static_decode_length` of the longest
-    waveform.
+    waveform. With `decoding.ctc_blank_skip` > 0 the CTC scorer reads the
+    blank-compacted lattice (`maybe_compact_ctc`).
 
     Returns a dict: `hyps` (utterance index -> token ids, without bos and
-    eos), `scores` (index -> length-normalised score), `summary`
+    eos), `scores` (index -> length-normalised score), with `nbest` > 1
+    `nbest` (index -> the top min(nbest, beam) `(token ids, score)`,
+    score-sorted, the first equal to `hyps` and `scores`), `summary`
     (`ErrorRateStats.summarize()` against `references`, index -> token
     ids, or None without them), `max_length`, `steps` (search steps run,
-    over all slices), and `encode_s`/`search_s`, the seconds spent in the
-    encoder and in the search on the host clock, each ending in a device
-    synchronisation."""
+    over all slices), `ctc_frames` (the CTC scorer's largest time axis), and
+    `encode_s`/`search_s`, the seconds spent in the encoder and in the
+    search on the host clock, each ending in a device synchronisation."""
     dec = cfg.decoding
-    if dec.ctc_blank_skip > 0.0:
-        raise NotImplementedError("ctc_blank_skip (compact_blank_frames) is not ported; "
-                                  "see ROADMAP.md")
     lmax = max_length
     if lmax is None:
         max_samples = max(int(lens.max()) for _, _, lens in batches)
@@ -200,7 +221,8 @@ def evaluate_beam(model, fbank, norm_stats: Mapping, batches: Sequence, cfg, lm=
     normalize = InputNormalization()
     hyps: Dict[int, List[int]] = {}
     scores: Dict[int, float] = {}
-    steps = 0
+    nbest_out: Dict[int, List] = {}
+    steps = ctc_frames = 0
     encode_s = search_s = 0.0
     for idx, wav, wav_lens in batches:
         device = wav.device
@@ -208,12 +230,13 @@ def evaluate_beam(model, fbank, norm_stats: Mapping, batches: Sequence, cfg, lm=
         t0 = time.perf_counter()
         feats, _ = normalize(fbank(wav), norm_stats)
         enc_out, enc_lens = model.encode(feats, fbank.frame_lengths(wav_lens))
-        ctc_lp = model.ctc_head(enc_out)
+        ctc_lp, sc_lens = maybe_compact_ctc(cfg, model.ctc_head(enc_out), enc_lens)
         _sync(device)
         t1 = time.perf_counter()
         encode_s += t1 - t0
-        for sub_idx, eo, el, cl in beam_slices(dec.max_beam_rows, beam, list(idx), enc_out,
-                                               enc_lens, ctc_lp):
+        ctc_frames = max(ctc_frames, ctc_lp.shape[1])
+        for sub_idx, eo, el, cl, sl in beam_slices(dec.max_beam_rows, beam, list(idx), enc_out,
+                                                   enc_lens, ctc_lp, sc_lens):
             step, cache, lm_cache = make_beam_step(cfg, model, eo, el, beam, bc, lm_step,
                                                    lm_make_cache)
             calls = [0]
@@ -222,11 +245,16 @@ def evaluate_beam(model, fbank, norm_stats: Mapping, batches: Sequence, cfg, lm=
                 calls[0] += 1
                 return step(tok, i, c)
 
-            toks, lens, best = s2s_beam_search(counted, eo, tile_for_beam(el, beam), cl, bc,
+            toks, lens, best = s2s_beam_search(counted, eo, tile_for_beam(sl, beam), cl, bc,
                                                lm_step_fn=lm_step, cache=cache,
-                                               lm_cache=lm_cache)
+                                               lm_cache=lm_cache, nbest=nbest)
             steps += calls[0]
             toks, lens, best = toks.cpu().numpy(), lens.cpu().numpy(), best.cpu().numpy()
+            if nbest > 1:
+                for i, u in enumerate(sub_idx):
+                    nbest_out[int(u)] = [([int(t) for t in toks[i, r, :lens[i, r]]],
+                                          float(best[i, r])) for r in range(toks.shape[1])]
+                toks, lens, best = toks[:, 0], lens[:, 0], best[:, 0]
             for i, u in enumerate(sub_idx):
                 hyps[int(u)] = [int(t) for t in toks[i, :lens[i]]]
                 scores[int(u)] = float(best[i])
@@ -239,8 +267,12 @@ def evaluate_beam(model, fbank, norm_stats: Mapping, batches: Sequence, cfg, lm=
         stats.append([[str(t) for t in references[u]] for u in order],
                      [[str(t) for t in hyps[u]] for u in order], ids=order)
         summary = stats.summarize()
-    return {"hyps": hyps, "scores": scores, "summary": summary, "max_length": lmax,
-            "steps": steps, "encode_s": encode_s, "search_s": search_s}
+    out = {"hyps": hyps, "scores": scores, "summary": summary, "max_length": lmax,
+           "steps": steps, "ctc_frames": ctc_frames, "encode_s": encode_s,
+           "search_s": search_s}
+    if nbest > 1:
+        out["nbest"] = nbest_out
+    return out
 
 
 @torch.inference_mode()

@@ -125,6 +125,20 @@ def error_rate_stats(cfg, keep_details: bool = False) -> ErrorRateStats:
                           remove_spaces=cfg.remove_spaces, keep_details=keep_details)
 
 
+def record_nbest(nbest_rows: Optional[Dict], tokenizer, idx: Sequence[int],
+                 ranked: Sequence[Sequence[Tuple[Sequence[int], float]]]) -> None:
+    """Store each utterance's n-best, `ranked[i]` a score-sorted list of
+    `(token ids, score)` for the utterance of index `idx[i]`, in
+    `nbest_rows` under that index as `[{"text", "score"}, ...]`, each
+    utterance once (the rows of the JAX runner's `nbest.jsonl`)."""
+    if nbest_rows is None:
+        return
+    for u, hyps in zip(idx, ranked):
+        if int(u) not in nbest_rows:
+            nbest_rows[int(u)] = [{"text": tokenizer.decode(h), "score": float(sc)}
+                                  for h, sc in hyps]
+
+
 def score_batch(stats: ErrorRateStats, tokenizer, batch: Dict, idx: Sequence[int], seen: set,
                 hyp_tokens, hyp_lens=None, record: Optional[Dict] = None) -> int:
     """Score one decoded batch into `stats`, each utterance once (evaluation
@@ -234,24 +248,32 @@ def transducer_greedy_score(stats: ErrorRateStats, trainer, state: Dict,
 @torch.no_grad()
 def transducer_beam_score(stats: ErrorRateStats, trainer, state: Dict,
                           manifest: Sequence[Utterance], tokenizer, cfg, device, lm=None,
-                          record: Optional[Dict] = None) -> int:
+                          record: Optional[Dict] = None, nbest: int = 1,
+                          nbest_rows: Optional[Dict] = None) -> int:
     """The transducer recipes' test decode over a manifest: the batched
     beam search at `decoding.beam_size`, `state_beam` and `expand_beam`,
-    with `lm` (an RNNLM) fused at `lm_weight`, scored into `stats`.
-    Returns the number of utterances scored."""
+    with `lm` (an RNNLM) fused at `lm_weight`, scored into `stats`. With
+    `nbest` > 1 each utterance's top `nbest` go into `nbest_rows`
+    (`record_nbest`) and rank 0 is scored. Returns the number of
+    utterances scored."""
     td, dec = trainer.transducer_model, cfg.decoding
     seen: set = set()
     n = 0
     for batch, idx in batches(manifest, tokenizer, cfg, False, 0, device):
         _, (enc_out, enc_lens) = trainer.eval_step(state, batch)
-        toks, lens, _ = transducer_beam_search_batched(
+        toks, lens, scores = (a.cpu().numpy() for a in transducer_beam_search_batched(
             td.encode_proj(enc_out), enc_lens, td.predictor_init, td.predictor_step,
             td.joint_step, blank_id=cfg.model.blank_index, bos_id=cfg.model.bos_index,
             beam_size=dec.beam_size, state_beam=dec.state_beam, expand_beam=dec.expand_beam,
             lm_step=None if lm is None else lm.step,
             lm_init=None if lm is None else lm.initial_state,
-            lm_weight=dec.lm_weight if lm is not None else 0.0)
-        n += score_batch(stats, tokenizer, batch, idx, seen, toks.cpu(), lens.cpu(), record=record)
+            lm_weight=dec.lm_weight if lm is not None else 0.0, nbest=nbest))
+        if nbest > 1:
+            record_nbest(nbest_rows, tokenizer, idx,
+                         [[(toks[i, r, :lens[i, r]], scores[i, r]) for r in range(toks.shape[1])]
+                          for i in range(len(idx))])
+            toks, lens = toks[:, 0], lens[:, 0]
+        n += score_batch(stats, tokenizer, batch, idx, seen, toks, lens, record=record)
     return n
 
 
@@ -265,14 +287,21 @@ def decode_length(cfg, manifest: Sequence[Utterance], fbank) -> int:
 def beam_score(stats: ErrorRateStats, cfg, model, fbank, norm_stats: Dict,
                manifest: Sequence[Utterance], tokenizer, device, lm=None,
                beam_size: Optional[int] = None, temperature: float = 1.0,
-               record: Optional[Dict] = None) -> int:
+               record: Optional[Dict] = None, nbest: int = 1,
+               nbest_rows: Optional[Dict] = None, totals: Optional[Dict] = None) -> int:
     """Joint CTC/attention beam search over a manifest, scored into
     `stats`: the JAX `recipes/train.py::beam_validate` (valid stage at
     `valid_beam_size` and temperature 1; with `test_beam_size` and
     `test_temperature`, the test stage), through `evaluate.evaluate_beam`
     batch by batch with one decode-length cap for the run, the KV-cached
-    decoder and, given an LM, its fusion at `lm_weight`. `record` as in
-    `score_batch`. Returns the number of utterances scored."""
+    decoder and, given an LM, its fusion at `lm_weight`; with
+    `decoding.ctc_blank_skip` > 0 the CTC scorer reads the blank-compacted
+    lattice. `record` as in `score_batch`; with `nbest` > 1 each
+    utterance's top `nbest` go into `nbest_rows` (`record_nbest`) and rank
+    0 is scored. `totals`, when given, gathers the search steps run
+    (`steps`), the search's seconds (`search_s`) and the CTC scorer's
+    largest time axis (`ctc_frames`). Returns the number of utterances
+    scored."""
     beam = beam_size or cfg.decoding.valid_beam_size
     lmax = decode_length(cfg, manifest, fbank)
     seen: set = set()
@@ -280,7 +309,13 @@ def beam_score(stats: ErrorRateStats, cfg, model, fbank, norm_stats: Dict,
     for batch, idx in batches(manifest, tokenizer, cfg, False, 0, device):
         out = evaluate_beam(model, fbank, norm_stats, [(idx, batch["wav"], batch["wav_lens"])],
                             cfg, lm, beam_size=beam, temperature=temperature,
-                            max_length=lmax)
+                            max_length=lmax, nbest=nbest)
+        if nbest > 1:
+            record_nbest(nbest_rows, tokenizer, idx, [out["nbest"][int(u)] for u in idx])
+        if totals is not None:
+            for key in ("steps", "search_s"):
+                totals[key] = totals.get(key, 0) + out[key]
+            totals["ctc_frames"] = max(totals.get("ctc_frames", 0), out["ctc_frames"])
         n += score_batch(stats, tokenizer, batch, idx, seen, [out["hyps"][int(u)] for u in idx],
                          record=record)
     return n
@@ -289,7 +324,7 @@ def beam_score(stats: ErrorRateStats, cfg, model, fbank, norm_stats: Dict,
 def build_or_load_tokenizer(cfg, out_dir: str, train_set: Sequence[Utterance]):
     """The run's tokenizer (the JAX `recipes/train.py` order): 1) a subword
     model trained earlier in `out_dir` (`tokenizer.json`); 2) a
-    SentencePiece `tokenizer.model` there (not ported: raises); 3) a
+    SentencePiece `tokenizer.model` there; 3) a
     unigram or BPE model trained now from the transcripts to
     `model.output_neurons` pieces; char recipes load or build a character
     map (`tokenizer_vocab.json`). What is built is written to `out_dir`, so

@@ -3,7 +3,7 @@ the port of the JAX package's `recipes/evaluate.py`, for CTC + attention
 recipes and transducer recipes.
 
     python -m summarymixing_tpu_torch.recipes.evaluate recipes/Synthetic/hard_synthetic.yaml \\
-        --test-manifest test.csv --ckpt RUN_DIR/save [--avg 10] [--beam] \\
+        --test-manifest test.csv --ckpt RUN_DIR/save [--avg 10] [--beam [--nbest 3]] \\
         [--lm-ckpt LM_RUN_DIR] [--output EVAL_DIR] [--set decoding.lm_weight=0.2] [--device cpu]
     python -m summarymixing_tpu_torch.recipes.evaluate recipes/Synthetic/hard_synthetic_transducer.yaml \\
         --test-manifest test.csv --ckpt RUN_DIR/save [--beam [--lm-ckpt RNNLM_RUN_DIR]] \\
@@ -15,7 +15,11 @@ Greedy CTC runs through `ASRTrainer.eval_step`; `--beam` runs the joint
 CTC/attention search at `test_beam_size` and `test_temperature` with the
 KV-cached decoder (`evaluate.evaluate_beam`, batches wider than
 `max_beam_rows` // beam searched in slices, one decode-length cap for the
-run), and with `--lm-ckpt` the Transformer LM fused at `lm_weight`.
+run), and with `--lm-ckpt` the Transformer LM fused at `lm_weight`;
+`--set decoding.ctc_blank_skip=0.95` has the CTC prefix scorer read a
+blank-compacted lattice (`evaluate.maybe_compact_ctc`). A run directory
+converted from a SpeechBrain checkpoint
+(`recipes.convert_checkpoint`) evaluates as a trained one does.
 
 A transducer recipe decodes through `TransducerTrainer.eval_step` (no
 augmentation, no DCT): greedily (`transducer_greedy`); with `--beam` by
@@ -34,12 +38,17 @@ The last line of standard output is the summary as JSON: WER, SER, error
 counts, utterances, wall_s, audio_s, rtf (wall over audio), the decode
 (with `chunk_frames` and `left_context_chunks` when streaming) and
 `kernels`, each kernel's launches and plain calls (cells or branches on
-the card whose configuration it does not take) in the run. `--output`
-also gets it as `eval.json`, with the per-utterance alignments in
-`wer_details.txt` (or `cer_details.txt`).
+the card whose configuration it does not take) in the run; a CTC +
+attention `--beam` adds `beam_steps` (search steps over all batches),
+`search_s` and `ctc_frames` (the CTC scorer's largest time axis, smaller
+with blank-skip); and with
+`--nbest N` above 1 (with `--beam`) `nbest`: N. `--output` also gets it as
+`eval.json`, with the per-utterance alignments in `wer_details.txt` (or
+`cer_details.txt`) and, with `--nbest`, `nbest.jsonl`: one line per
+utterance, `{"id", "nbest": [{"text", "score"}, ...]}`, score-sorted
+(rank 0 is the hypothesis scored).
 
-Not ported, and refused: `--nbest` above 1 and `--seq-parallel`
-(ROADMAP.md)."""
+Not ported, and refused: `--seq-parallel` (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -80,7 +89,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     dest="overrides", help="override a recipe value by dotted path")
     ap.add_argument("--device", default=None,
                     help="torch device; the card unless this says otherwise (e.g. cpu)")
-    ap.add_argument("--nbest", type=int, default=1, help="above 1: not ported")
+    ap.add_argument("--nbest", type=int, default=1,
+                    help="with --beam: also write the top N hypotheses per utterance "
+                         "(nbest.jsonl under --output; rank 0 is scored)")
     ap.add_argument("--seq-parallel", type=int, default=0, metavar="N", help="not ported")
     ap.add_argument("--streaming", action="store_true",
                     help="transducer: chunked streaming encode + carried greedy decode")
@@ -94,10 +105,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def refuse_unported(args: argparse.Namespace, cfg) -> None:
-    if args.nbest > 1:
-        if not args.beam:
-            raise SystemExit("--nbest requires --beam")
-        raise NotImplementedError("--nbest output is not ported; see ROADMAP.md queue 1 item 7")
+    if args.nbest > 1 and not args.beam:
+        raise SystemExit("--nbest requires --beam")
     if args.seq_parallel > 1:
         raise NotImplementedError("--seq-parallel is not ported; see ROADMAP.md queue 1 item 10")
     if (args.streaming or args.streaming_full) and cfg.transducer is None:
@@ -105,9 +114,9 @@ def refuse_unported(args: argparse.Namespace, cfg) -> None:
 
 
 def resolve_tokenizer(cfg, run_dir: str, fallback_texts: Optional[List[str]] = None):
-    """The tokenizer a training run wrote in `run_dir`: subword
-    (`tokenizer.json`), character map (`tokenizer_vocab.json`) or
-    SentencePiece (`tokenizer.model`, not ported: raises). A subword recipe
+    """The tokenizer a training run (or `recipes.convert_checkpoint`) wrote
+    in `run_dir`: subword (`tokenizer.json`), character map
+    (`tokenizer_vocab.json`) or SentencePiece (`tokenizer.model`). A subword recipe
     without one stops: decoding its ids through a rebuilt character map
     would score garbage. A char recipe falls back to a map rebuilt from
     `fallback_texts`, with a warning."""
@@ -159,14 +168,14 @@ def restore(args: argparse.Namespace, cfg, device):
 
 
 def decode_transducer(args: argparse.Namespace, cfg, device, trainer, state: Dict, lm,
-                      test_set, tokenizer, stats, record: Dict) -> Dict:
+                      test_set, tokenizer, stats, record: Dict, nbest_rows: Dict) -> Dict:
     """The transducer branch (the JAX `eval_transducer`): decode every batch
     as the flags say and score it; returns the decode's summary fields."""
     model, fbank, td = trainer.encoder_model, trainer.fbank, trainer.transducer_model
     blank = cfg.model.blank_index
     if args.beam:
         common.transducer_beam_score(stats, trainer, state, test_set, tokenizer, cfg, device, lm,
-                                     record)
+                                     record, nbest=args.nbest, nbest_rows=nbest_rows)
         return {"decode": "transducer_beam+lm" if lm is not None else "transducer_beam",
                 **({"lm_weight": cfg.decoding.lm_weight} if lm is not None else {})}
     if not (args.streaming or args.streaming_full):
@@ -220,20 +229,24 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                                   fallback_texts=[u.text for u in test_set])
     stats = common.error_rate_stats(cfg, keep_details=bool(args.output))
     record: Dict[int, list] = {}
+    nbest_rows: Dict[int, list] = {}
     model, fbank, state, lm = restore(args, cfg, device)
     counts0 = common.kernel_counts()
     t0 = time.time()
     if cfg.transducer is not None:
         decode = decode_transducer(args, cfg, device, model, state, lm, test_set, tokenizer,
-                                   stats, record)
+                                   stats, record, nbest_rows)
         n_utts = len(record)
     else:
         if args.beam:
+            totals: Dict = {}
             n_utts = common.beam_score(
                 stats, cfg, model, fbank, state["norm_stats"], test_set, tokenizer, device, lm,
                 beam_size=cfg.decoding.test_beam_size, temperature=cfg.decoding.test_temperature,
-                record=record)
-            decode = {"decode": "beam+lm" if lm is not None else "beam"}
+                record=record, nbest=args.nbest, nbest_rows=nbest_rows, totals=totals)
+            decode = {"decode": "beam+lm" if lm is not None else "beam",
+                      "beam_steps": totals["steps"], "search_s": round(totals["search_s"], 3),
+                      "ctc_frames": totals["ctc_frames"]}
         else:
             m = cfg.model
             trainer = ASRTrainer(model, None, fbank, TrainerConfig(
@@ -253,6 +266,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     summary["audio_s"] = round(audio_s, 1)
     summary["rtf"] = round(summary["wall_s"] / max(audio_s, 1e-9), 5)
     summary.update(decode)
+    if nbest_rows:
+        summary["nbest"] = args.nbest
     summary["kernels"] = common.kernel_counts(since=counts0)
     print(json.dumps(summary), flush=True)
     if args.output:
@@ -262,6 +277,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         path = os.path.join(args.output, f"{cfg.error_rate}_details.txt")
         stats.write_stats(path, id_map={i: u.utt_id for i, u in enumerate(test_set)})
         print("per-utterance details ->", path, file=sys.stderr)
+        if nbest_rows:
+            with open(os.path.join(args.output, "nbest.jsonl"), "w") as f:
+                for u, hyps_n in sorted(nbest_rows.items()):
+                    f.write(json.dumps({"id": test_set[u].utt_id, "nbest": hyps_n}) + "\n")
     return dict(summary, hyps={test_set[i].utt_id: h for i, h in record.items()})
 
 

@@ -228,8 +228,13 @@ def test_ctc_prefix_eos_scores_the_ctc_loss(rng):
 
 
 def test_compact_blank_frames_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tctc.compact_blank_frames(torch.zeros(1, 2, 3), torch.ones(1))
+    """It raised until blank-skip compaction was ported; now at threshold
+    1.0 with no cap it keeps every valid frame and appends the tail frame
+    (`tests/test_torch_blank_skip.py` holds it against the JAX function)."""
+    x = torch.log_softmax(torch.arange(6.0).reshape(1, 2, 3), dim=-1)
+    x2, lens2, kept = tctc.compact_blank_frames(x, torch.ones(1, dtype=torch.int64), 0, 0, 1.0)
+    assert x2.shape == (1, 8, 3) and lens2.tolist() == [2] and kept.tolist() == [1]
+    assert torch.equal(x2[0, 0], x[0, 0])
 
 
 # -- the search -----------------------------------------------------------------

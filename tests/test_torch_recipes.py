@@ -288,8 +288,8 @@ def test_runners_end_to_end_with_resume(corpus, tmp_path):
     ("train", "transducer", ["--profile", "prof"], "profile"),
     ("train", "synth", ["--profile", "prof"], "profile"),
     ("evaluate", "transducer", ["--seq-parallel", "2"], "seq-parallel"),
-    ("evaluate", "synth", ["--beam", "--nbest", "2"], "nbest"),
-    ("evaluate", "transducer", ["--beam", "--nbest", "2"], "nbest"),
+    ("evaluate", "synth", ["--set", "model.mode=SummaryMixing-lite"], "lite"),
+    ("evaluate", "synth", ["--set", "model.causal=true"], "causal"),
     ("evaluate", "synth", ["--seq-parallel", "2"], "seq-parallel"),
 ])
 def test_runners_refuse_what_is_not_ported(corpus, tmp_path, runner, recipe, args, match):
@@ -371,14 +371,24 @@ def test_runners_have_no_flag_that_nothing_reads(runner, flag, tmp_path):
 
 
 def test_subword_recipe_refuses_a_sentencepiece_model(corpus, tmp_path):
-    """A SentencePiece `.model` in the run directory is not read (no
-    reader is ported); the runner stops instead of training another
-    tokenizer over it."""
-    (tmp_path / "tokenizer.model").write_bytes(b"\n")
+    """A SentencePiece `.model` in the run directory was refused until its
+    reader was ported; now both the train and the evaluate runners read
+    it instead of training another tokenizer over it, and one that does
+    not parse stops them."""
+    from summarymixing_tpu_torch.data.sentencepiece_model import serialize_model_proto
+
     cfg = load_recipe(FLAGSHIP)
-    with pytest.raises(NotImplementedError, match="SentencePiece"):
+    (tmp_path / "tokenizer.model").write_bytes(serialize_model_proto(
+        [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3), ("\u2581hi", -1.0, 1)]))
+    for tok in (common.build_or_load_tokenizer(cfg, str(tmp_path),
+                                               read_manifest_csv(corpus["train"])),
+                evaluate.resolve_tokenizer(cfg, str(tmp_path))):
+        assert tok.vocab_size == 4 and tok.encode("hi") == [3]
+    assert not (tmp_path / "tokenizer.json").exists()
+    (tmp_path / "tokenizer.model").write_bytes(b"\n")   # a length with no bytes after it
+    with pytest.raises(IndexError):
         common.build_or_load_tokenizer(cfg, str(tmp_path), read_manifest_csv(corpus["train"]))
-    with pytest.raises(NotImplementedError, match="SentencePiece"):
+    with pytest.raises(IndexError):
         evaluate.resolve_tokenizer(cfg, str(tmp_path))
 
 
