@@ -222,16 +222,45 @@ Neither kernel lies on phases 14-16: both launch counters must stay 0.
    Reported: conversion seconds, ms per beam step without and with
    blank-skip at 0.95, the CTC scorer's frames, the rows whose hypotheses
    the 0.95 skip leaves unchanged, peak memory and the phase's wall time.
+23. The cell's lite and expdecay modes and the rest of the run tooling.
+   (a) The flagship recipe with `mode: SummaryMixing-lite` (18 layers, d512,
+   bf16, seed 3407; 70,052,072 parameters, the flax model's count): request
+   0 decoded greedily 3 times, each forward launching the cgMLP kernel 18
+   times and running the cell's counted plain path 18 times (the kernel
+   computes full mode only), held against the same request with the
+   cgMLP's plain version at phase 5's tolerances; then one training step at
+   phase 7's B=16 batch with the decoder (ms, peak memory, every parameter
+   a gradient; 18 cgMLP launches and backwards, 18 plain calls of the
+   cell). (b) The same with `SummaryMixing-expdecay`, and the device time
+   of the `[B, T, T]` float32 decay contraction at request 0's shapes from
+   one torch.profiler pass, beside its bound. Both print full mode's decode
+   and step from phases 4 and 7 beside theirs. (c) The Summary Decoder
+   recipe with `model.mode=SummaryMixing-expdecay`: request 0 at beam 66
+   with the LM (ms per step; the encoder's cells on the counted plain path,
+   18 cgMLP launches) and the cached expdecay step against the
+   whole-prefix decode in float32 within SD_STEP_TOL. (d) Phase 13's
+   flagship run through `recipes.train --profile DIR --profile-steps 3`
+   over 6 steps: the trace exists, the table names both kernels' passes
+   (`branch_pass`, `gate_pass`), and `device_memory_stats` is printed.
+   (e) The native loader: phase 4's 32 utterances as 16-bit WAVs in one
+   batch, and one FLAC body through `dataio.load_audio_bytes`, each equal
+   to the Python decoders bit for bit, with seconds both ways. (f) Phase
+   10's transducer exported offline without `--fixed` (a symbolic batch and
+   sample count), saved and loaded: its tokens, lengths and encoder lengths
+   at request 0 and at a batch of one 13.5 s utterance equal to the live
+   model's; export and load seconds, MB, and the artifact's latency beside
+   the live model's.
 
 `plain_calls` (cells or cgMLP branches on the card whose configuration the
 kernel does not take, run on the plain path) is set to 0 at phase 4 and
 must still be 0 after phases 4, 7 and 9: the flagship takes both kernels
 everywhere. The kernels line reports `launches` and `plain_calls` summed
-over phases 4, 7, 9, 10, 12-16 and 18-22, and each by path (`serve`,
+over phases 4, 7, 9, 10, 12-16 and 18-23, and each by path (`serve`,
 `transcribe`, `serve_streaming` and `export` for phases 18-20;
 `summary_decoder`, `runner_aishell` and `remat` for phase 21;
-`reference_checkpoint` for phase 22's runners), with the phase-17 rows
-under `serving_shapes`.
+`reference_checkpoint` for phase 22's runners; `lite`, `expdecay`,
+`summary_decoder_expdecay`, `runner_profile` and `export_transducer` for
+phase 23), with the phase-17 rows under `serving_shapes`.
 
 The line before the last holds nvidia-smi's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. No JAX is imported here.
@@ -247,6 +276,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -372,6 +402,16 @@ REF_ORACLE_TOL = 1e-4
 # n-best's length-normalised scores within this (the scorer's reductions
 # run over a longer, padded time axis)
 REF_SKIP_SCORE_TOL = 1e-3
+# the cell's lite and expdecay modes and the rest of the run tooling (phase 23)
+LITE, EXPDECAY = "SummaryMixing-lite", "SummaryMixing-expdecay"
+# the flagship in lite mode, as flax counts it (tests/test_torch_modes.py):
+# 88,954,088 less 18 x (local_proj 525,312 + summary_local_merging 524,800)
+FLAGSHIP_LITE_PARAMS = 70_052_072
+MODE_DECODES = 3        # timed greedy decodes of request 0 per mode
+PROFILE_STEPS = 6       # (d): 3 steps skipped, 3 traced
+# full mode's request-0 decode and training step of this run (phases 4 and
+# 7), printed beside the modes' (not compared: the same card, one call)
+FULL_MODE_MS = {}
 
 
 def fail(msg: str) -> None:
@@ -875,6 +915,7 @@ def phase_main_path(kernel_rows):
             fail(f"request 0 has {lp.shape[1]} encoder frames, not the {max(LENGTHS)} "
                  "the kernels were checked at")
         results.append((dt, audio_s, out, hyps))
+    FULL_MODE_MS["decode"] = results[0][0] * 1e3
     launches = {"summary_mixing": kernels[0].launches, "csgu": kernels[1].launches}
     plain = hold_no_plain_calls("decode")
     for name, n in launches.items():
@@ -889,28 +930,11 @@ def phase_main_path(kernel_rows):
     return model, fbank, stats, batches, results, n_params
 
 
-@contextlib.contextmanager
 def plain_kernels():
-    """Swap both wrappers for their plain versions on the bf16-cast weights
-    the kernels take (the model's modules call the wrappers through these
-    module attributes); autograd then differentiates the plain versions."""
-    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+    """Both wrappers swapped for their plain versions (`ops/plain.py`)."""
+    from summarymixing_tpu_torch.ops.plain import plain_kernels as swapped
 
-    saved = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
-
-    def cell(x, pad, weights, activation, keep=None, keep_prob=1.0, launch_weights=None):
-        return fused_summary.summary_mixing_reference(
-            x, pad, fused_summary.kernel_weights(weights), activation, keep, keep_prob)
-
-    def branch(x, mask, weights, eps, keep=None, keep_prob=1.0, launch_weights=None):
-        return fused_csgu.convolution_branch_reference(
-            x, mask, fused_csgu.kernel_weights(weights), eps, keep, keep_prob)
-
-    fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch = cell, branch
-    try:
-        yield
-    finally:
-        fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch = saved
+    return swapped()
 
 
 def phase_plain_path(model, fbank, stats, batches, results):
@@ -1076,6 +1100,7 @@ def phase_train(kernel_rows) -> tuple:
         if fn.launches == 0 or fn.backwards == 0:
             fail(f"kernel {name} was never launched or never differentiated in training")
     total = sum(times)
+    FULL_MODE_MS["train_step"] = float(np.median(times)) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"train: {TRAIN_STEPS} steps in {total * 1e3:.2f} ms, {total / TRAIN_STEPS * 1e3:.2f} ms "
           f"per step, {TRAIN_STEPS * audio_s / total:.1f} audio-s trained per second, peak "
@@ -2334,7 +2359,7 @@ def phase_serve(kernel_rows, here: str, root: str) -> None:
     if not np.array_equal(flac_audio, load_audio_bytes(wav_bytes(twin), sr)):
         fail("serve: the FLAC body's samples differ from its WAV twin's")
     print(f"serve: FLAC body of {len(twin) / sr:.2f} s ({len(flac_body) / 1e6:.2f} MB) decoded "
-          f"in {flac_s:.3f} s on the host (bit-serial Python codec), samples equal to its WAV "
+          f"in {flac_s:.3f} s on the host (the native loader), samples equal to its WAV "
           "twin's bit for bit")
 
     kernels = zero_counts()
@@ -2723,34 +2748,17 @@ def phase_export(kernel_rows, here: str, root: str, streaming) -> None:
         fail("export: the streaming artifact disagrees with run_stream on the live functions")
 
 
-def phase_summary_decoder(kernel_rows, here: str) -> None:
-    """Phase 21 (a): the Summary Decoder recipe at full width (18-layer
-    Branchformer, 6-layer Summary Decoder), random weights from its seed:
-    one training step at B=16, T=751 (bf16, dropout, speed perturbation and
-    SpecAugment), the joint CTC/attention beam search at beam 66 on request
-    0 with the Transformer LM at `LMConfig()`, and the cached step against
-    the whole-prefix decode in float32 on every row of a short prefix."""
+def summary_decoder_train_step(cfg, model, fbank) -> tuple:
+    """Phase 21 (a)'s training step of the Summary Decoder recipe (after a
+    warm-up step): its time, loss and peak memory; each kernel launched
+    and differentiated once per encoder layer, the decoder's causal cells
+    on the counted plain path. Returns the launches and plain calls by
+    kernel."""
     import torch
 
-    from summarymixing_tpu_torch.config import LMConfig, build_lm, build_model, build_trainer
-    from summarymixing_tpu_torch.config import load_recipe
-    from summarymixing_tpu_torch.decoding.s2s_beam import tile_for_beam
-    from summarymixing_tpu_torch.evaluate import evaluate_beam
-    from summarymixing_tpu_torch.frontend.features import InputNormalization
-    from summarymixing_tpu_torch.ops.layers import set_compute_dtype
-    from summarymixing_tpu_torch.ops.masks import length_to_mask
-    from summarymixing_tpu_torch.ops.summary_mixing import SummaryMixing
-    from summarymixing_tpu_torch.transcribe import batch_waveforms
+    from summarymixing_tpu_torch.config import build_trainer
 
-    cfg = load_recipe(os.path.join(here, SD_RECIPE))
-    m, dec = cfg.model, cfg.decoding
-    torch.cuda.reset_peak_memory_stats()
-    model, fbank = build_model(cfg)
-    dev = next(model.parameters()).device
-    cells = [layer.self_attn for layer in model.asr.decoder.layers()]
-    if len(cells) != m.num_decoder_layers or not all(isinstance(c, SummaryMixing)
-                                                     for c in cells):
-        fail("summary decoder: the decoder's self-attention is not SummaryMixing")
+    m = cfg.model
     n_params = sum(p.numel() for p in model.parameters())
     trainer = build_trainer(cfg, model, fbank)
     state = trainer.init_state(cfg.seed)
@@ -2779,11 +2787,51 @@ def phase_summary_decoder(kernel_rows, here: str) -> None:
         fail(f"summary decoder train: counts {counts}, expected {n_layers} launches and "
              f"backwards of each kernel and {m.num_decoder_layers} plain calls of the cell "
              "(the decoder's causal cells)")
-    launches = {"summary_mixing": counts[0][0], "csgu": counts[1][0]}
-    plain = {"summary_mixing": counts[0][2], "csgu": counts[1][2]}
     del trainer, state, metrics
     torch.cuda.empty_cache()
+    return ({"summary_mixing": counts[0][0], "csgu": counts[1][0]},
+            {"summary_mixing": counts[0][2], "csgu": counts[1][2]})
 
+
+def phase_summary_decoder(kernel_rows, here: str, mode: Optional[str] = None) -> None:
+    """Phase 21 (a): the Summary Decoder recipe at full width (18-layer
+    Branchformer, 6-layer Summary Decoder), random weights from its seed:
+    one training step at B=16, T=751 (bf16, dropout, speed perturbation and
+    SpecAugment), the joint CTC/attention beam search at beam 66 on request
+    0 with the Transformer LM at `LMConfig()`, and the cached step against
+    the whole-prefix decode in float32 on every row of a short prefix.
+    Phase 23 (c), with `mode`: the recipe with `model.mode` set, every cell
+    in that mode (the encoder's on the cell's counted plain path), the beam
+    and the cached-step check without the training step."""
+    import torch
+
+    from summarymixing_tpu_torch.config import LMConfig, build_lm, build_model
+    from summarymixing_tpu_torch.config import load_recipe
+    from summarymixing_tpu_torch.decoding.s2s_beam import tile_for_beam
+    from summarymixing_tpu_torch.evaluate import evaluate_beam
+    from summarymixing_tpu_torch.frontend.features import InputNormalization
+    from summarymixing_tpu_torch.ops.layers import set_compute_dtype
+    from summarymixing_tpu_torch.ops.masks import length_to_mask
+    from summarymixing_tpu_torch.ops.summary_mixing import SummaryMixing
+    from summarymixing_tpu_torch.transcribe import batch_waveforms
+
+    cfg = load_recipe(os.path.join(here, SD_RECIPE))
+    m, dec = cfg.model, cfg.decoding
+    m.mode = mode or m.mode
+    path = "summary_decoder" if mode is None else f"summary_decoder_{mode.split('-')[1]}"
+    torch.cuda.reset_peak_memory_stats()
+    model, fbank = build_model(cfg)
+    dev = next(model.parameters()).device
+    cells = [layer.self_attn for layer in model.asr.decoder.layers()]
+    if len(cells) != m.num_decoder_layers or not all(isinstance(c, SummaryMixing)
+                                                     and c.mode == m.mode for c in cells):
+        fail(f"{path}: the decoder's self-attention is not SummaryMixing in {m.mode} mode")
+    n_layers = m.num_encoder_layers
+    if mode is None:
+        launches, plain = summary_decoder_train_step(cfg, model, fbank)
+    else:
+        launches = plain = {"summary_mixing": 0, "csgu": 0}
+        print(f"{path}: {SD_RECIPE} with model.mode={mode}")
     # the beam test stage on request 0 with the LM at LMConfig()
     model.eval()
     lm = build_lm(LMConfig(), m.output_neurons, seed=cfg.seed)
@@ -2803,7 +2851,7 @@ def phase_summary_decoder(kernel_rows, here: str) -> None:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     rose = [(k.launches, k.plain_calls) for k in kernels]
     step_ms_ = out["search_s"] * 1e3 / max(out["steps"], 1)
-    print(f"summary decoder beam: request 0 ({BATCH} utterances, {audio_s:.2f} audio-s), beam "
+    print(f"{path} beam: request 0 ({BATCH} utterances, {audio_s:.2f} audio-s), beam "
           f"{dec.test_beam_size} ({BATCH * dec.test_beam_size} rows), LM at LMConfig() fused at "
           f"{dec.lm_weight}, temperatures {dec.test_temperature}/{dec.lm_temperature}: latency "
           f"{latency * 1e3:.1f} ms, {out['steps']} steps, {step_ms_:.2f} ms per step, encoder "
@@ -2812,13 +2860,17 @@ def phase_summary_decoder(kernel_rows, here: str) -> None:
           f"beside it, the MHA decoder's beam step on this request (PERF.md): "
           f"{MHA_BEAM_STEP_MS[0]}-{MHA_BEAM_STEP_MS[1]} ms, of which the cache gather "
           f"{MHA_GATHER_MS} ms (not compared)")
-    if rose != [(n_layers, 0)] * 2:
-        fail(f"summary decoder beam: (launches, plain calls) {rose}, expected ({n_layers}, 0)")
+    # the encoder's cells launch the kernel in full mode, and take the
+    # counted plain path in any other
+    full = m.mode == "SummaryMixing"
+    want = [(n_layers, 0) if full else (0, n_layers), (n_layers, 0)]
+    if rose != want:
+        fail(f"{path} beam: (launches, plain calls) {rose}, expected {want}")
     if not all(np.isfinite(out["scores"][i]) for i in idx):
-        fail("summary decoder beam: a non-finite score")
+        fail(f"{path} beam: a non-finite score")
     for name, (n, p) in zip(("summary_mixing", "csgu"), rose):
-        kernel_rows[name]["launches_by_path"]["summary_decoder"] = launches[name] + n
-        kernel_rows[name]["plain_calls_by_path"]["summary_decoder"] = plain[name] + p
+        kernel_rows[name]["launches_by_path"][path] = launches[name] + n
+        kernel_rows[name]["plain_calls_by_path"][path] = plain[name] + p
 
     # the cached step against the whole-prefix decode, float32, every row
     with torch.inference_mode():
@@ -2844,11 +2896,11 @@ def phase_summary_decoder(kernel_rows, here: str) -> None:
             err = max(err, float(((h - ref).abs() / (1 + ref.abs())).max()))
         set_compute_dtype(model, torch.bfloat16)
     ok = err <= SD_STEP_TOL
-    print(f"summary decoder check: cached step ((sum, denom) carry) vs whole-prefix decode over "
+    print(f"{path} check: cached step ((sum, denom) carry) vs whole-prefix decode over "
           f"{n_rows} rows x {SD_CHECK_POSITIONS} positions (float32, TF32 off): max "
           f"|dh|/(1+|h|) {err:.3e} (tol {SD_STEP_TOL:.0e}) {'ok' if ok else 'FAILED'}")
     if not ok:
-        fail("summary decoder: the cached step disagrees with the whole-prefix decode")
+        fail(f"{path}: the cached step disagrees with the whole-prefix decode")
 
 
 def phase_runner_aishell(kernel_rows, here: str, corpus: dict, root: str) -> None:
@@ -3278,6 +3330,309 @@ def phase_reference_checkpoint(kernel_rows, here: str, root: str) -> None:
           f"{time.perf_counter() - t_phase:.1f} s wall")
 
 
+def phase_mode(kernel_rows, mode: str) -> None:
+    """Phase 23 (a) and (b): the flagship recipe with its cells in `mode`,
+    random weights from its seed: request 0 decoded greedily (launches and
+    counted plain calls per forward, against the same request with the
+    cgMLP's plain version at phase 5's tolerances), one training step at
+    B=16 with every parameter getting a gradient, and for expdecay the
+    device time of the `[B, T, T]` float32 decay contraction."""
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model, build_trainer
+    from summarymixing_tpu_torch.transcribe import greedy_ctc_decode
+
+    label = mode.split("-")[1]
+    cfg = flagship_config()
+    cfg.model.mode = mode
+    n_layers = cfg.model.num_encoder_layers
+    torch.cuda.reset_peak_memory_stats()
+    model, fbank = build_model(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    if mode == LITE and n_params != FLAGSHIP_LITE_PARAMS:
+        fail(f"{label}: parameter count {n_params:,} != {FLAGSHIP_LITE_PARAMS:,} (flax's)")
+    stats = seeded_norm_stats()
+    wav, lens = request0(cfg.features.sample_rate)
+    greedy_ctc_decode(model, fbank, stats, wav, lens)   # warm-up
+    kernels = zero_counts()
+    times = []
+    for _ in range(MODE_DECODES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hyps, out = greedy_ctc_decode(model, fbank, stats, wav, lens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = read_counts(kernels)
+    want = {"summary_mixing": (0, MODE_DECODES * n_layers),
+            "csgu": (MODE_DECODES * n_layers, 0)}
+    lp = out["ctc_log_probs"]
+    ms = float(np.median(times)) * 1e3
+    print(f"{label}: flagship in {mode} mode, {n_params:,} parameters; request 0 greedy "
+          f"({tuple(wav.shape)}, T={lp.shape[1]}): {ms:.2f} ms median of {MODE_DECODES} "
+          f"(full mode in phase 4: {FULL_MODE_MS.get('decode', float('nan')):.2f} ms); "
+          f"(launches, plain calls) {counts} over {MODE_DECODES} forwards")
+    if counts != want:
+        fail(f"{label}: (launches, plain calls) {counts}, expected {want}: the cgMLP kernel "
+             f"{n_layers} times and the cell's counted plain path {n_layers} times per forward")
+    if not torch.isfinite(lp).all():
+        fail(f"{label}: non-finite CTC log-probs")
+    phase_plain_path(model, fbank, stats, [(None, wav, lens)], [(0.0, 0.0, out, hyps)])
+    for name, (n, p) in counts.items():
+        kernel_rows[name]["launches_by_path"][label] = n
+        kernel_rows[name]["plain_calls_by_path"][label] = p
+
+    # one cell's plain path at request 0's shapes, beside its bound: x and
+    # the pad mask read once, the float32 weights read once, the output
+    # written once; its bf16 products, and expdecay's float32 contraction
+    cell = model.asr.encoder.layer_0.mixer
+    b, t, d = wav.shape[0], lp.shape[1], cfg.model.d_model
+    pad = (torch.arange(t, device="cuda")[None, :] < out["enc_lengths"][:, None]).float()
+    x = torch.randn(b, t, d, device="cuda").to(torch.bfloat16)
+    weights = sum(p.numel() for p in cell.parameters())
+    mats = sum(p.numel() for p in cell.parameters() if p.dim() > 1)
+    n = cfg.model.summary_out_dim
+    fp32 = 2 * b * t * t * n if mode == EXPDECAY else 0
+    cell_bound, cell_by = bound(b * t * d * 2 + b * t * 4 + weights * 4 + b * t * n * 2,
+                                2 * b * t * mats, fp32)
+    with torch.no_grad():
+        cell_ms = sum(pass_us(lambda: cell(x, pad_mask=pad), calls=5).values()) / 1e3
+    print(f"{label}: one cell's plain path (B={b}, T={t}, d={d}, bf16): {cell_ms:.4f} ms device "
+          f"per call from torch.profiler, bound {cell_bound:.4f} ms ({cell_by}); the full-mode "
+          f"kernel's row of phase 3 is beside it in PERF.md")
+
+    if mode == EXPDECAY:
+        from summarymixing_tpu_torch.ops.summary_mixing import laplace_weights, summary_matmul
+
+        b, t = wav.shape[0], lp.shape[1]
+        f = cfg.model.summary_out_dim
+        pad = (torch.arange(t, device="cuda")[None, :] < out["enc_lengths"][:, None]).float()
+        summ = torch.randn(b, t, f, device="cuda").to(torch.bfloat16)
+
+        def contraction():
+            decay = laplace_weights(t, 0.995, "cuda")
+            return summary_matmul(decay[None] * pad[:, None, :], summ)
+
+        us = pass_us(contraction, calls=5)
+        dev_ms = sum(us.values()) / 1e3
+        bound_ms, by = bound(b * t * t * 4 + b * t * f * 2 * 2, 0, 2 * b * t * t * f)
+        print(f"{label}: the [B, T, T] float32 decay contraction (B={b}, T={t}, F={f}, TF32 "
+              f"off), one torch.profiler pass of 5 calls: {dev_ms:.4f} ms device per cell, "
+              f"{n_layers * dev_ms:.3f} ms per forward, bound {bound_ms:.4f} ms ({by}); "
+              f"kernels {[(k[:40], round(v / 1e3, 4)) for k, v in sorted(us.items())]}")
+    del model, out
+    torch.cuda.empty_cache()
+
+    cfg = flagship_config(decoder_layers=6)
+    cfg.model.mode = mode
+    model, fbank = build_model(cfg)
+    trainer = build_trainer(cfg, model, fbank)
+    state = trainer.init_state(cfg.seed)
+    batch = training_batch()
+    state, metrics = trainer.train_step(state, batch)      # warm-up
+    kernels = zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    no_grad = [n for n, p in model.named_parameters() if p.grad is None]
+    counts = [(k.launches, k.backwards, k.plain_calls) for k in kernels]
+    loss = float(metrics["loss"])
+    print(f"{label} train: one step at B={TRAIN_BATCH}, T=751 (bf16, dropout, augmentation): "
+          f"{dt:.2f} ms (full mode in phase 7: {FULL_MODE_MS.get('train_step', float('nan')):.2f}"
+          f" ms median), loss {loss:.4f}, grad norm {float(metrics['grad_norm']):.4f}, peak "
+          f"memory {peak:.2f} GiB; (launches, backwards, plain calls) summary_mixing "
+          f"{counts[0]} csgu {counts[1]}; parameters without a gradient: {len(no_grad)}")
+    if not np.isfinite(loss) or metrics["nonfinite_skipped"] or no_grad:
+        fail(f"{label} train: loss {loss}, skipped {metrics['nonfinite_skipped']}, no gradient "
+             f"for {no_grad[:6]}")
+    if counts != [(0, 0, n_layers), (n_layers, n_layers, 0)]:
+        fail(f"{label} train: counts {counts}, expected the cell's plain path {n_layers} times "
+             f"and the cgMLP kernel {n_layers} times forward and backward")
+    for name, (n, _, p) in zip(("summary_mixing", "csgu"), counts):
+        kernel_rows[name]["launches_by_path"][label] += n
+        kernel_rows[name]["plain_calls_by_path"][label] += p
+    del model, trainer, state, metrics
+    torch.cuda.empty_cache()
+
+
+def phase_profile_runner(kernel_rows, here: str, corpus: dict, root: str) -> None:
+    """Phase 23 (d): phase 13's flagship run with `--profile DIR
+    --profile-steps 3` over 6 steps: the trace and the table exist, the
+    table names both kernels' passes, and `device_memory_stats` is read."""
+    from summarymixing_tpu_torch.recipes import train
+    from summarymixing_tpu_torch.training.profiling import TABLE_FILE, device_memory_stats
+
+    recipe, _, sets, cfg = flagship_run(here, root)
+    prof = os.path.join(root, "flagship_profile")
+    res, counts, secs, peak = run_stage("flagship train --profile", train.main, [
+        recipe, "--train-manifest", corpus["train"], "--valid-manifest", corpus["dev"],
+        "--output", os.path.join(root, "flagship_profiled"), "--steps", str(PROFILE_STEPS),
+        "--profile", prof, "--profile-steps", "3"] + sets)
+    table = open(os.path.join(prof, TABLE_FILE)).read()
+    names = {"summary_mixing": "branch_pass", "csgu": "gate_pass"}
+    rows = {k: [line.strip() for line in table.splitlines() if v in line] for k, v in names.items()}
+    if res.get("profile") != os.path.join(prof, "trace.json") or not os.path.getsize(
+            res["profile"]):
+        fail(f"profile: no trace at {res.get('profile')}")
+    if not all(rows.values()):
+        fail(f"profile: the table names {[k for k, v in rows.items() if v]} of both kernels")
+    mem = device_memory_stats()["cuda:0"]
+    print(f"profile: {res['profile']} ({os.path.getsize(res['profile']) / 1e6:.1f} MB), "
+          f"steps 4-6 of {res['steps']}; the table's rows of the kernels: {rows}")
+    print("profile: device_memory_stats cuda:0: " + ", ".join(
+        f"{k} {mem.get(k, 0):,}" for k in ("allocated_bytes.all.peak", "reserved_bytes.all.peak",
+                                          "num_alloc_retries", "num_ooms")))
+    n_layers = cfg.model.num_encoder_layers
+    if counts["summary_mixing"][1] or counts["csgu"][1] or \
+            counts["csgu"][2] != n_layers * PROFILE_STEPS:
+        fail(f"profile: (launches, plain calls, backwards) {counts}")
+    for name in counts:
+        kernel_rows[name]["launches_by_path"]["runner_profile"] = counts[name][0]
+        kernel_rows[name]["plain_calls_by_path"]["runner_profile"] = counts[name][1]
+
+
+def phase_native_loader(root: str) -> None:
+    """Phase 23 (e): phase 4's 32 utterances as 16-bit WAVs through the
+    native loader in one batch, and one FLAC body through
+    `load_audio_bytes`, each against the Python decoders bit for bit."""
+    from summarymixing_tpu_torch.data import dataio, native_loader
+    from summarymixing_tpu_torch.data.flac import decode_flac, encode_flac
+
+    sr = 16000
+    folder = os.path.join(root, "native_wavs")
+    os.makedirs(folder, exist_ok=True)
+    wavs = synthetic_waveforms(N_REQUESTS * BATCH, seed=11)
+    paths = []
+    for i, w in enumerate(wavs):
+        paths.append(os.path.join(folder, f"u{i}.wav"))
+        with open(paths[-1], "wb") as f:
+            f.write(wav_bytes(w, sr))
+    t0 = time.perf_counter()
+    native_loader.build()
+    build_s = time.perf_counter() - t0
+    max_len = max(len(w) for w in wavs)
+    t0 = time.perf_counter()
+    out, lens = native_loader.load_wav_batch(paths, max_len, sr)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = [dataio.load_wav(p, sr) for p in paths]
+    python_s = time.perf_counter() - t0
+    same = all(np.array_equal(out[i, :lens[i]], r) and len(r) == lens[i] and
+               not out[i, lens[i]:].any() for i, r in enumerate(ref))
+    audio_s = sum(len(r) for r in ref) / sr
+    print(f"native loader: built in {build_s:.2f} s; {len(paths)} 16-bit WAVs "
+          f"({audio_s:.1f} audio-s) in one batch: native {native_s:.4f} s, Python "
+          f"{python_s:.4f} s; equal bit for bit: {same}")
+    if not same:
+        fail("native loader: a WAV row differs from the Python decoder's")
+    twin = min(wavs, key=lambda w: abs(len(w) - 17.7 * sr))
+    pcm = np.clip(np.round(twin * 32768.0), -32768, 32767).astype(np.int64)
+    body = encode_flac(pcm, sr)
+    t0 = time.perf_counter()
+    got = dataio.load_audio_bytes(body, sr)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    samples, _, bps = decode_flac(body)
+    want = samples.astype(np.float32) / float(1 << (bps - 1))
+    python_s = time.perf_counter() - t0
+    same = np.array_equal(got, want)
+    print(f"native loader: a FLAC body of {len(twin) / sr:.2f} s ({len(body) / 1e6:.2f} MB) "
+          f"through load_audio_bytes {native_s:.4f} s, the Python codec {python_s:.4f} s; "
+          f"equal bit for bit: {same}; rows retried in Python "
+          f"{native_loader.load_wav_batch.python_retries}")
+    if not same:
+        fail("native loader: the FLAC body differs from the Python codec's samples")
+
+
+def phase_export_transducer(kernel_rows, root: str) -> None:
+    """Phase 23 (f): the full-width transducer (phase 10's recipe, seed
+    3407) exported offline without `--fixed` on the card, saved, loaded
+    and run at request 0 (B=8, 30 s) and at one 13.5 s utterance: tokens,
+    lengths and encoder lengths equal to the live inference function's."""
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model
+    from summarymixing_tpu_torch.frontend.features import InputNormalization
+    from summarymixing_tpu_torch.utils.export import (
+        ExportedASR,
+        export_ctc_infer,
+        make_transducer_infer_fn,
+        save_artifact,
+    )
+
+    cfg = transducer_config()
+    model, fbank, td = build_model(cfg)
+    live = make_transducer_infer_fn(model, td, fbank, InputNormalization(), seeded_norm_stats(),
+                                    cfg.model.blank_index)
+    kernels = zero_counts()
+    t0 = time.perf_counter()
+    payload = export_ctc_infer(live)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(root, "transducer.smt")
+    save_artifact(path, payload, {"family": "transducer", "sample_rate": 16000,
+                                  "blank_id": cfg.model.blank_index, "time_multiple": 320,
+                                  "polymorphic": True,
+                                  "device": next(model.parameters()).device.type})
+    t0 = time.perf_counter()
+    art = ExportedASR.load(path)
+    load_s = time.perf_counter() - t0
+    wav0, lens0 = request0(16000)
+    one = torch.from_numpy(synthetic_waveforms(1, seed=5)[0][:int(13.5 * 16000)]).cuda()[None]
+    cases = ((wav0, lens0), (one, torch.tensor([one.shape[1]], dtype=torch.int32).cuda()))
+    for wav, lens in cases:
+        art(wav, lens)   # warm-up of each shape
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = art(wav, lens)
+        torch.cuda.synchronize()
+        art_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            want = live(wav, lens)
+        torch.cuda.synchronize()
+        live_ms = (time.perf_counter() - t0) * 1e3
+        same = all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want))
+        print(f"export transducer: {tuple(wav.shape)} -> tokens {tuple(got[0].shape)}, "
+              f"lengths {got[1].tolist()}; equal to the live model: {same}; artifact "
+              f"{art_ms:.1f} ms, live {live_ms:.1f} ms")
+        if not same:
+            fail(f"export transducer: the artifact's outputs differ from the live model's at "
+                 f"{tuple(wav.shape)}")
+    counts = read_counts(kernels)
+    print(f"export transducer: polymorphic artifact of {os.path.getsize(path) / 1e6:.1f} MB "
+          f"exported in {export_s:.1f} s, loaded in {load_s:.1f} s; (launches, plain calls) "
+          f"{counts} (the fast cells take the counted plain path)")
+    if counts["summary_mixing"][0] or counts["csgu"] != (0, 0):
+        fail(f"export transducer: a kernel was launched on the transducer path: {counts}")
+    for name, (n, p) in counts.items():
+        kernel_rows[name]["launches_by_path"]["export_transducer"] = n
+        kernel_rows[name]["plain_calls_by_path"]["export_transducer"] = p
+    del model, td, live, art
+    torch.cuda.empty_cache()
+
+
+def phase_modes_and_tooling(kernel_rows, here: str, corpus: dict, root: str) -> None:
+    """Phase 23: (a) lite, (b) expdecay, (c) the Summary Decoder recipe in
+    expdecay mode, (d) `--profile`, (e) the native loader and (f) the
+    polymorphic transducer artifact."""
+    import torch
+
+    t0 = time.perf_counter()
+    phase_mode(kernel_rows, LITE)
+    phase_mode(kernel_rows, EXPDECAY)
+    phase_summary_decoder(kernel_rows, here, mode=EXPDECAY)
+    torch.cuda.empty_cache()
+    phase_profile_runner(kernel_rows, here, corpus, root)
+    torch.cuda.empty_cache()
+    phase_native_loader(root)
+    phase_export_transducer(kernel_rows, root)
+    print(f"phase 23 (lite, expdecay, the expdecay Summary Decoder, --profile, the native "
+          f"loader, the transducer artifact): {time.perf_counter() - t0:.1f} s wall")
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     try:
@@ -3339,6 +3694,8 @@ def main() -> int:
               f"{time.perf_counter() - t_21:.1f} s wall")
         torch.cuda.empty_cache()
         phase_reference_checkpoint(kernel_rows, here, root)
+        torch.cuda.empty_cache()
+        phase_modes_and_tooling(kernel_rows, here, corpus, root)
     for row in kernel_rows.values():
         row["launches"] = sum(row["launches_by_path"].values())
         row["plain_calls"] = sum(row["plain_calls_by_path"].values())

@@ -2,9 +2,11 @@
 SpeechBrain-style CSV/JSON manifests (columns ID, duration, wav, spk_id,
 wrd) and audio loading on the host (16-bit and 32-bit PCM WAV through the
 standard library, other WAV through scipy) and FLAC through the port's
-pure-Python codec (`data/flac.py`). The JAX package's native FLAC decoder
-(`data/native_loader.py`) is not ported (ROADMAP.md, queue 1 item 9), so a
-FLAC body always takes the bit-serial codec."""
+pure-Python codec (`data/flac.py`). A FLAC body of the serving path
+(`load_audio_bytes`) whose STREAMINFO gives its length is decoded by the
+native threaded loader (`data/native_loader.py`) instead, as in the JAX
+package; the train runner's batches take that loader too
+(`recipes/common.py::batches`)."""
 
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from typing import List, Optional
 
 import numpy as np
 
-from summarymixing_tpu_torch.data.flac import decode_flac, decode_flac_file
+from summarymixing_tpu_torch.data import native_loader
+from summarymixing_tpu_torch.data.flac import _parse_metadata, decode_flac, decode_flac_file
 
 # exception types the stdlib wave / struct decoders leak for truncated or
 # corrupt input; callers are promised plain ValueError
@@ -74,10 +77,16 @@ def load_audio_bytes(data: bytes,
 
     if data[:4] == b"fLaC":
         try:
-            samples, rate, bps = decode_flac(data)
+            info, _ = _parse_metadata(data)
+            # a frame holds at most 65535 samples in at least 6 bytes: a
+            # header claiming more is not allocated, the codec judges it
+            if info.total_samples and info.total_samples * 6 <= 65535 * len(data):
+                audio, rate = _native_flac(data, info.total_samples), info.sample_rate
+            else:
+                samples, rate, bps = decode_flac(data)
+                audio = samples.astype(np.float32) / float(1 << (bps - 1))
         except _DECODE_ERRORS as e:
             raise ValueError(f"truncated or malformed FLAC: {e!r}") from e
-        audio = samples.astype(np.float32) / float(1 << (bps - 1))
     elif data[:4] == b"RIFF":
         try:
             with wave.open(io.BytesIO(data), "rb") as w:
@@ -99,6 +108,19 @@ def load_audio_bytes(data: bytes,
     if expected_rate is not None and rate != expected_rate:
         raise ValueError(f"sample rate {rate} != expected {expected_rate}")
     return audio
+
+
+def _native_flac(data: bytes, total_samples: int) -> np.ndarray:
+    """FLAC bytes through the native loader, whose interface takes paths:
+    the body is spooled to a temporary file."""
+    import tempfile
+
+    with tempfile.NamedTemporaryFile(suffix=".flac") as tf:
+        tf.write(data)
+        tf.flush()
+        out, lens = native_loader.load_wav_batch([tf.name], int(total_samples),
+                                                 expected_rate=0)
+    return out[0, :int(lens[0])]
 
 
 def load_wav(path: str, expected_rate: Optional[int] = None) -> np.ndarray:

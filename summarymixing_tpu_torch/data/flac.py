@@ -18,9 +18,10 @@ what the official `flac` encoder emits:
 The encoder writes FLAC (and gives the tests streams with forced code
 paths); it optimises lightly (fixed predictors by residual-energy search,
 per-partition Rice parameter search). Both ends are bit-serial Python:
-seconds for a 30 s utterance. The JAX package's threaded native decoder
-(`native/dataloader.cpp` through `data/native_loader.py`) is not ported
-yet (ROADMAP.md, queue 1 item 9).
+seconds for a 30 s utterance. The serving path's FLAC bodies and the
+train runner's batches take the threaded native decoder instead
+(`native/dataloader.cpp` through `data/native_loader.py`); this codec
+stays the reference it is held to, and decodes what that one rejects.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ serves as its oracle.
 Greedy: all rows advance together; every encoder frame runs a fixed
 `max_symbols_per_frame` emit steps, and per-row `torch.where` selects
 decide which rows take the emitted token and the predictor's new state,
-as the JAX `lax.scan`/`fori_loop` does. The argmax takes the lowest index
+as the JAX `lax.scan`/`fori_loop` does. Under `torch.export` the offline
+loop over frames is a `scan`, so an exported graph takes any number of
+frames. The argmax takes the lowest index
 among equal logits, as `jnp.argmax` does.
 
 Batched beam: fixed-width pools, the hypotheses kept `[B, beam]` and the
@@ -66,9 +68,11 @@ def transducer_greedy_decode(enc_proj: torch.Tensor, enc_lengths: torch.Tensor,
         lens = torch.zeros(b, dtype=torch.long, device=device)
     slots = torch.arange(umax, device=device)[None, :]
     in_frame = torch.arange(t, device=device)[:, None] < enc_lengths.to(device)[None, :]  # [T, B]
-    for ti in range(t):
-        enc_frame = enc_proj[:, ti]
-        active = in_frame[ti]
+
+    def frame(state, enc_frame, active):
+        """One encoder frame's `max_symbols_per_frame` emit steps over the
+        carry `(pred_state, dec_proj, tokens, lens)`."""
+        pred_state, dec_proj, tokens, lens = state
         for _ in range(max_symbols_per_frame):
             k = joint_step(enc_frame, dec_proj).argmax(dim=-1)
             emit = active & (k != blank_id) & (lens < umax)
@@ -79,6 +83,26 @@ def transducer_greedy_decode(enc_proj: torch.Tensor, enc_lengths: torch.Tensor,
             dec_proj = torch.where(emit[:, None], new_proj, dec_proj)
             lens = lens + emit.long()
             active = emit
+        return pred_state, dec_proj, tokens, lens
+
+    state = (tuple(pred_state), dec_proj, tokens, lens)
+    if torch.compiler.is_exporting() and carry is None:
+        # the offline graph under torch.export: the frames are a scan over
+        # the leading axis, so the graph keeps T symbolic (a Python loop
+        # would unroll it at the example's T); the body and its arithmetic
+        # are the same. A streaming step (a carry) has a fixed chunk of
+        # frames, and unrolls them
+        from torch._higher_order_ops.scan import scan
+
+        def body(carry, xs):
+            new = frame(carry, *xs)
+            return new, new[3].clone()   # scan stacks one output per frame: the lengths
+
+        state, _ = scan(body, state, (enc_proj.transpose(0, 1), in_frame))
+    else:
+        for ti in range(t):
+            state = frame(state, enc_proj[:, ti], in_frame[ti])
+    pred_state, dec_proj, tokens, lens = state
     if return_carry:
         return tokens, lens, (pred_state, dec_proj, tokens, lens)
     return tokens, lens

@@ -20,7 +20,8 @@ import torch
 
 from summarymixing_tpu_torch.config import yaml_lite
 from summarymixing_tpu_torch.data.batching import DynamicBucketBatcher, make_buckets, pad_batch
-from summarymixing_tpu_torch.data.dataio import Utterance, load_wav
+from summarymixing_tpu_torch.data import native_loader
+from summarymixing_tpu_torch.data.dataio import Utterance
 from summarymixing_tpu_torch.data.subword import SubwordTokenizer, train_subword
 from summarymixing_tpu_torch.data.tokenizer import CharTokenizer, SentencePieceTokenizer
 from summarymixing_tpu_torch.decoding.transducer_search import (
@@ -93,7 +94,8 @@ def estimate_steps_per_epoch(manifest: Sequence[Utterance], cfg) -> int:
 def batches(manifest: Sequence[Utterance], tokenizer, cfg, shuffle: bool, seed: int,
             device) -> Iterator[Tuple[Dict[str, torch.Tensor], np.ndarray]]:
     """Yield `(batch, indices)`: `batch` holds `wav` `[B, max_len]` float32,
-    `wav_lens`, `tokens` `[B, U]` and `token_lens` (int32) on `device`.
+    `wav_lens`, `tokens` `[B, U]` and `token_lens` (int32) on `device`,
+    the audio decoded by the native loader (`data/native_loader.py`).
     Training (`shuffle`) shuffles within buckets from `seed` and drops each
     bucket's short last batch; evaluation keeps every utterance, fills the
     last batch of a bucket by repetition, and pads the token axis to a
@@ -109,12 +111,8 @@ def batches(manifest: Sequence[Utterance], tokenizer, cfg, shuffle: bool, seed: 
             m = max(int(cfg.training.eval_token_multiple), 1)
             umax = -(-umax // m) * m
         tokens, token_lens = pad_batch(toks, umax)
-        wav = np.zeros((len(idx), spec.max_len), np.float32)
-        wav_lens = np.zeros((len(idx),), np.int32)
-        for row, i in enumerate(idx):
-            audio = load_wav(manifest[i].wav_path, sr)[:spec.max_len]
-            wav[row, :len(audio)] = audio
-            wav_lens[row] = len(audio)
+        wav, wav_lens = native_loader.load_wav_batch([manifest[i].wav_path for i in idx],
+                                                     spec.max_len, sr)
         host = {"wav": wav, "wav_lens": wav_lens, "tokens": tokens.astype(np.int32),
                 "token_lens": token_lens}
         yield {k: torch.from_numpy(v).to(device) for k, v in host.items()}, idx

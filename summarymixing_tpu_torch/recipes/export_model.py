@@ -9,8 +9,7 @@ port of the JAX package's `recipes/export_model.py`.
 The artifact (`utils/export.py`) holds the greedy inference graph with the
 trained weights: Fbank -> normalisation -> encoder -> greedy CTC markers
 (attention recipes) or the transducer's greedy decode (transducer
-recipes, at `--fixed B N` only: its loop over encoder frames unrolls),
-or with `--streaming` the chunked `init` / `step` pair of a transducer
+recipes), polymorphic in batch and samples unless `--fixed B N`, or with `--streaming` the chunked `init` / `step` pair of a transducer
 recipe. Exported on the card (the default), the graph calls the two
 kernels as registered ops; `--device cpu` exports the plain path. An
 artifact runs only on the device type it was exported on.

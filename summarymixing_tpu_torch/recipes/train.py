@@ -5,7 +5,8 @@
     python -m summarymixing_tpu_torch.recipes.train recipes/Synthetic/hard_synthetic.yaml \\
         --train-manifest train.csv --valid-manifest dev.csv [--test-manifest test.csv] \\
         [--output results/run1] [--steps N] [--num-buckets N] [--lm-ckpt LM_RUN_DIR] \\
-        [--max-hours H] [--set training.lr_adam=0.0005] [--device cpu]
+        [--max-hours H] [--profile DIR [--profile-steps N]] \\
+        [--set training.lr_adam=0.0005] [--device cpu]
 
 The tokenizer is resolved and written to the run directory; training
 resumes from the run's latest checkpoint at the epoch after the last one
@@ -37,8 +38,14 @@ a test manifest, the test stage decodes at `test_beam_size` and
 transducer with the batched beam search at `beam_size`, `state_beam` and
 `expand_beam` (with the RNNLM of `--lm-ckpt` fused at `lm_weight`).
 
-Not ported, and refused: `--profile` and a multi-process launch
-(ROADMAP.md)."""
+`--profile DIR` traces `--profile-steps` train steps (5) after the first 3
+of the call with `torch.profiler`, the card synchronised at both edges
+(`training/profiling.py::StepProfiler`): a Chrome trace
+`DIR/trace.json` and the operators' and kernels' table by device time,
+printed and in `DIR/key_averages.txt`; a window the epoch cuts short ends
+with the epoch. The summary's `profile` names the trace.
+
+Not ported, and refused: a multi-process launch (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -63,6 +70,7 @@ from summarymixing_tpu_torch.training.checkpoint import CheckpointManager
 from summarymixing_tpu_torch.training.logger import EpochCounter, FileTrainLogger
 from summarymixing_tpu_torch.training.optim import optimizer_stage
 from summarymixing_tpu_torch.training.preempt import TrainStopper
+from summarymixing_tpu_torch.training.profiling import StepProfiler
 from summarymixing_tpu_torch.utils.device import resolve_device
 
 # environment variables of the JAX package's multi-process launch
@@ -91,14 +99,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="torch device; the card unless this says otherwise (e.g. cpu)")
     ap.add_argument("--max-hours", type=float, default=None,
                     help="wall-clock budget: checkpoint and exit once it is spent")
-    ap.add_argument("--profile", default=None, metavar="DIR", help="not ported")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of a few train steps to DIR")
+    ap.add_argument("--profile-steps", type=int, default=5,
+                    help="train steps --profile traces, after the first 3")
     return ap.parse_args(argv)
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    if args.profile is not None:
-        raise NotImplementedError("--profile (a profiler trace of train steps) is not ported; "
-                                  "see ROADMAP.md queue 1 item 9")
     if any(os.environ.get(k) for k in _LAUNCH_ENV):
         raise NotImplementedError("the multi-process launch is not ported; see ROADMAP.md "
                                   "queue 1 item 10")
@@ -152,7 +160,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     `step_s` (the host time of each step this call ran, each ending in the
     step's one device synchronisation), `valid` (the last epoch's
     validation stats), `test` (the test stage's error-rate summary, or
-    None) and `kernels` (`common.kernel_counts` over this call; each
+    None), `profile` (the `--profile` trace's path, or None) and `kernels` (`common.kernel_counts` over this call; each
     epoch's line of the train log has its own)."""
     args = parse_args(argv)
     refuse_unported(args)
@@ -192,6 +200,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     valid_stats: Dict = {}
     epoch = state["epoch"]
     counts0 = common.kernel_counts()
+    profiler = StepProfiler(args.profile, args.profile_steps)
     # the stop handlers hold for the training loop only; the previous
     # ones come back after it
     with TrainStopper(max_hours=args.max_hours) as stopper:
@@ -208,6 +217,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                 state, metrics = trainer.train_step(state, batch)
                 step_s.append(time.perf_counter() - ts)
                 step += 1
+                profiler.step()
                 train_losses.append(metrics["loss"])
                 if valid_every and step % valid_every == 0:
                     ckpt.save(step, checkpoint_state(trainer.model, state))
@@ -228,6 +238,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                 if ckpt.should_save():
                     ckpt.save(step, checkpoint_state(trainer.model, state))
                 if stopper.should_stop():
+                    profiler.close()
                     ckpt.save(step, checkpoint_state(trainer.model, state))
                     print(f"[preempt] checkpoint saved at step {step} ({stopper.signame}); "
                           "resume with the same command", flush=True)
@@ -236,6 +247,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                             "kernels": common.kernel_counts(since=counts0)}
                 if args.steps and step >= args.steps:
                     break
+            profiler.close()
             # the epoch-end checkpoint comes before validation, so a failure
             # there costs the epoch's validation numbers, not its training;
             # validation runs at the epoch it follows (it gates the CTC aux)
@@ -283,7 +295,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         print("test", cfg.error_rate.upper(), test["WER"], flush=True)
     return {"steps": step, "epochs": epoch, "step_s": step_s, "valid": valid_stats,
             "test": test, "tokenizer_size": tokenizer.vocab_size, "opt_stages": opt_stages,
-            "kernels": common.kernel_counts(since=counts0)}
+            "profile": profiler.path, "kernels": common.kernel_counts(since=counts0)}
 
 
 if __name__ == "__main__":

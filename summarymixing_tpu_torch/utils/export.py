@@ -8,11 +8,11 @@ trained weights inside it. Loading needs the port's package for its two
 registered kernel ops (`summarymixing_torch::summary_mixing` and
 `::convolution_branch`), and no recipe, model code or checkpoint.
 
-The CTC graph is polymorphic by default: a symbolic batch `b` and a
-sample axis of `time_multiple · n`, so one artifact serves every bucket a
-server or batch decoder forms. The offline transducer graph unrolls its
-greedy loop over the encoder frames, so it is exported at one fixed
-`(B, N)` only (ROADMAP.md, queue 1). The streaming pair (`init`, `step`)
+Both offline graphs are polymorphic by default: a symbolic batch `b` and
+a sample axis of `time_multiple · n`, so one artifact serves every bucket
+a server or batch decoder forms (the transducer's greedy loop over the
+encoder frames is a `scan` under export: `decoding/transducer_search.py`).
+`fixed_shape=(B, N)` exports one static shape instead. The streaming pair (`init`, `step`)
 has a fixed chunk and a symbolic batch; its carry crosses the boundary as
 a flat list of tensors (`streaming.carry_tensors`).
 
@@ -51,9 +51,6 @@ from summarymixing_tpu_torch.utils.device import resolve_device
 MAGIC = b"SMTORCH1"
 JAX_MAGIC = b"SMTEXP01"    # the JAX package's artifacts
 MAX_BATCH, MAX_N = 4096, 100_000   # ranges of the symbolic dims (n: 320 · 100000 ≈ 33 min)
-_TODO_TRANSDUCER = ("the offline transducer artifact unrolls its greedy loop over the encoder "
-                    "frames, so it exports only at --fixed B N; a symbolic length is queued in "
-                    "ROADMAP.md queue 1 item 9")
 
 
 class _NormStats(nn.Module):
@@ -145,18 +142,16 @@ def _save(program) -> bytes:
 def export_ctc_infer(infer_fn: nn.Module, *, time_multiple: int = 320,
                      fixed_shape: Optional[Sequence[int]] = None) -> bytes:
     """`torch.export` the inference module, under `no_grad` so the kernel
-    route records the bare ops, to `torch.export.save` bytes. Polymorphic by
-    default: batch `b` and samples `time_multiple · n`, both symbolic;
-    `fixed_shape=(B, N)` exports one static shape. A transducer module
-    exports only at a fixed shape."""
+    route records the bare ops, to `torch.export.save` bytes: a CTC or a
+    transducer module. Polymorphic by default: batch `b` and samples
+    `time_multiple · n`, both symbolic; `fixed_shape=(B, N)` exports one
+    static shape."""
     device = _device_of(infer_fn)
     b, n = fixed_shape if fixed_shape is not None else (2, time_multiple * 50)
     wav = torch.zeros(b, n, device=device)
     lens = torch.full((b,), n, dtype=torch.int32, device=device)
     dynamic = None
     if fixed_shape is None:
-        if isinstance(infer_fn, TransducerInfer):
-            raise NotImplementedError(_TODO_TRANSDUCER)
         bd = torch.export.Dim("b", min=1, max=MAX_BATCH)
         nd = torch.export.Dim("n", min=2, max=MAX_N)
         dynamic = ({0: bd, 1: time_multiple * nd}, {0: bd})

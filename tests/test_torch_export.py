@@ -225,11 +225,17 @@ def test_loaders_refuse_other_artifacts(transducer, tmp_path):
         jexport.ExportedASR.load(str(ours))
     with pytest.raises(ValueError, match="exported on 'cuda'"):
         export.ExportedASR.load(str(ours), device="cpu")
+    # the offline transducer artifact, polymorphic since its frame loop is a
+    # scan under export (its equality with the live model:
+    # tests/test_torch_tooling.py), is refused by the streaming loader
     s = transducer
     infer = export.make_transducer_infer_fn(s["model"], s["td"], s["fbank"],
                                             InputNormalization(), s["stats"])
-    with pytest.raises(NotImplementedError, match="--fixed"):
-        export.export_ctc_infer(infer)
+    offline = str(tmp_path / "td.smt")
+    export.save_artifact(offline, export.export_ctc_infer(infer),
+                         {"family": "transducer", "device": "cpu", "polymorphic": True})
+    with pytest.raises(ValueError, match="not a streaming artifact"):
+        export.ExportedStreamingASR.load(offline, device="cpu")
 
 
 def _cell_args(keep: bool):

@@ -116,8 +116,14 @@ def test_summary_mixing_multihead_and_sum_mask_match_flax(rng):
                           pad_mask=jnp.asarray(pad))
         got = port(_t(x), sum_mask=None if sm is None else _t(sm), pad_mask=_t(pad))
         _close(got, want)
-    with pytest.raises(NotImplementedError):
-        SummaryMixing(d, mode="SummaryMixing-lite")
+    # lite (refused until it was ported): the multihead summary branch alone
+    lite = JSummaryMixing(enc_dim=d, nhead=4, summary_hid_dim=(24, 16), summary_out_dim=16,
+                          mode="SummaryMixing-lite")
+    params = lite.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    port = load_jax_params(SummaryMixing(d, 4, summary_hid_dim=(24, 16), summary_out_dim=16,
+                                         mode="SummaryMixing-lite"), params)
+    _close(port(_t(x), pad_mask=_t(pad)),
+           lite.apply(params, jnp.asarray(x), pad_mask=jnp.asarray(pad)))
 
 
 def _branch_params(rng, d, units, k):
