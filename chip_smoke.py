@@ -250,17 +250,46 @@ Neither kernel lies on phases 14-16: both launch counters must stay 0.
    at request 0 and at a batch of one 13.5 s utterance equal to the live
    model's; export and load seconds, MB, and the artifact's latency beside
    the live model's.
+24. The paper's self-attention and HyperMixer baselines, through the
+   flagship recipe's functions with `attention_type` and `nhead`
+   overridden (as `--set model.attention_type=... --set model.nhead=4`
+   gives them to the runners), bf16, seeded random weights. (a) The
+   Branchformer with regularMHA, RelPosMHAXL, hypermixing and cnnonly
+   (nhead 4): the parameter count (flax's: 74,779,880, 79,516,904,
+   98,418,920, 46,403,816), request 0 decoded greedily (one warm-up, the
+   median of 5), 18 cgMLP launches per forward and no cell, held against
+   the plain cgMLP at phase 5's tolerances. (b) Decode time against
+   length after `benchmarks/rtf_sweep.py`: batch 4 of 10, 30, 60 and 120 s,
+   the regularMHA Branchformer and the SummaryMixing flagship in turns: ms
+   per batch (the median of 6, the two models in turns), audio-s/s, ms per
+   audio-s and `max_memory_allocated`; at each length one regularMHA
+   mixer's ms beside `F.scaled_dot_product_attention` on its q, k, v and
+   that core's bound (a yardstick the port never calls), each from a CUDA
+   graph of 20 calls. (c) Training steps (B=16, T=751, the decoder) of
+   the SummaryMixing flagship and of the regularMHA one: a warm-up each,
+   then 6 each in turns: the median ms, and each model's peak memory as if
+   it were alone on the card. (d) The transducer recipe's
+   Conformer with RelPosMHAXL (nhead 4): request 0 greedy; check (a) as
+   in phase 10 (streamed chunks against the offline DCT encode, float32,
+   within STREAM_TOL); the causal form offline; no kernel on this path.
+   (e) `encoder_module="transformer"`, 12 layers d512 (47,039,720 and
+   40,742,120 parameters): full-mode SummaryMixing (12 cell launches per
+   forward and no plain call; held against the plain path at phase 5's
+   tolerances) and causal regularMHA, request 0 greedy. Prints each
+   section's seconds.
 
 `plain_calls` (cells or cgMLP branches on the card whose configuration the
 kernel does not take, run on the plain path) is set to 0 at phase 4 and
 must still be 0 after phases 4, 7 and 9: the flagship takes both kernels
 everywhere. The kernels line reports `launches` and `plain_calls` summed
-over phases 4, 7, 9, 10, 12-16 and 18-23, and each by path (`serve`,
+over phases 4, 7, 9, 10, 12-16 and 18-24, and each by path (`serve`,
 `transcribe`, `serve_streaming` and `export` for phases 18-20;
 `summary_decoder`, `runner_aishell` and `remat` for phase 21;
 `reference_checkpoint` for phase 22's runners; `lite`, `expdecay`,
 `summary_decoder_expdecay`, `runner_profile` and `export_transducer` for
-phase 23), with the phase-17 rows under `serving_shapes`.
+phase 23; `baselines`, `baseline_sweep`, `baseline_train` and
+`transformer_encoder` for phase 24), with the phase-17 rows under
+`serving_shapes`.
 
 The line before the last holds nvidia-smi's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. No JAX is imported here.
@@ -412,6 +441,19 @@ PROFILE_STEPS = 6       # (d): 3 steps skipped, 3 traced
 # full mode's request-0 decode and training step of this run (phases 4 and
 # 7), printed beside the modes' (not compared: the same card, one call)
 FULL_MODE_MS = {}
+# the paper's baselines (phase 24): the flagship Branchformer with each other
+# mixer at nhead 4 (bench.py's and benchmarks/rtf_sweep.py's configuration),
+# its parameters as flax counts them (tests/test_torch_baselines.py)
+BASELINES = {"regularMHA": 74_779_880, "RelPosMHAXL": 79_516_904, "hypermixing": 98_418_920,
+             "cnnonly": 46_403_816}
+BASELINE_NHEAD = 4
+BASELINE_DECODES = 5    # timed greedy decodes of request 0 per baseline, after one warm-up
+BASELINE_STEPS = 6      # timed training steps per model, after one warm-up, the two in turns
+SWEEP_BATCH, SWEEP_SECONDS = 4, (10, 30, 60, 120)   # benchmarks/rtf_sweep.py's defaults
+SWEEP_DECODES = 6       # per model and length, the two models in turns
+# the Transformer encoder at 12 layers, d512 (the flagship's other widths)
+TRANSFORMER_LAYERS = 12
+TRANSFORMER_PARAMS = {"SummaryMixing": 47_039_720, "regularMHA": 40_742_120}
 
 
 def fail(msg: str) -> None:
@@ -1496,6 +1538,37 @@ def max_rel(got, want, valid) -> float:
     return float(((g - w).abs() / (1.0 + w.abs())).amax(-1)[valid].max())
 
 
+def stream_vs_offline(model, fbank, stats, wav, lens) -> float:
+    """Check (a): a Conformer recognizer's `encode_streaming` chunk by chunk
+    (chunks of STREAM_CHUNK frames, STREAM_LEFT chunks of left context)
+    against its offline encode under the matching `DynChunkTrainConfig`, on
+    the same CNN output: max |stream - offline| / (1 + |offline|) over the
+    valid frames."""
+    import torch
+
+    from summarymixing_tpu_torch.frontend.features import InputNormalization
+    from summarymixing_tpu_torch.models.asr import DynChunkTrainConfig
+    from summarymixing_tpu_torch.ops.masks import length_to_mask
+
+    with torch.inference_mode():
+        feats, _ = InputNormalization()(fbank(wav), stats)
+        src = model.frontend(feats)
+        enc_lens = model.subsampled_length(fbank.frame_lengths(lens))
+        t_enc = src.shape[1]
+        n_chunks = -(-t_enc // STREAM_CHUNK)
+        src = torch.nn.functional.pad(src, (0, 0, 0, n_chunks * STREAM_CHUNK - t_enc))
+        dct = DynChunkTrainConfig(STREAM_CHUNK, STREAM_LEFT)
+        offline = model.asr.encode(src, dynchunktrain=dct)
+        state = model.streaming_init(wav.shape[0], dct)
+        outs = []
+        for c in range(n_chunks):
+            out, state = model.encode_streaming_chunk(
+                src[:, c * STREAM_CHUNK:(c + 1) * STREAM_CHUNK], state)
+            outs.append(out)
+        valid = length_to_mask(enc_lens, offline.shape[1]) > 0
+        return max_rel(torch.cat(outs, dim=1), offline, valid)
+
+
 def phase_transducer(kernel_rows) -> None:
     """The transducer recipe's inference: offline greedy over 4 requests,
     chunked streaming and the raw-audio pipeline over request 0, check (a)
@@ -1505,7 +1578,6 @@ def phase_transducer(kernel_rows) -> None:
     from summarymixing_tpu_torch.config import build_model
     from summarymixing_tpu_torch.evaluate import streaming_decode
     from summarymixing_tpu_torch.frontend.features import InputNormalization
-    from summarymixing_tpu_torch.models.asr import DynChunkTrainConfig
     from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
     from summarymixing_tpu_torch.ops.layers import set_compute_dtype
     from summarymixing_tpu_torch.ops.masks import length_to_mask
@@ -1604,27 +1676,8 @@ def phase_transducer(kernel_rows) -> None:
           "(reported, not held: the streamed top-dB clamp takes a running peak)")
 
     # (a): chunk by chunk against the offline Dynamic Chunk Training encode
-    def stream_vs_offline():
-        with torch.inference_mode():
-            feats, _ = InputNormalization()(fbank(wav), stats)
-            src = model.frontend(feats)
-            enc_lens = model.subsampled_length(fbank.frame_lengths(lens))
-            t_enc = src.shape[1]
-            n_chunks = -(-t_enc // STREAM_CHUNK)
-            src = torch.nn.functional.pad(src, (0, 0, 0, n_chunks * STREAM_CHUNK - t_enc))
-            dct = DynChunkTrainConfig(STREAM_CHUNK, STREAM_LEFT)
-            offline = model.asr.encode(src, dynchunktrain=dct)
-            state = model.streaming_init(BATCH, dct)
-            outs = []
-            for c in range(n_chunks):
-                out, state = model.encode_streaming_chunk(
-                    src[:, c * STREAM_CHUNK:(c + 1) * STREAM_CHUNK], state)
-                outs.append(out)
-            valid = length_to_mask(enc_lens, offline.shape[1]) > 0
-            return max_rel(torch.cat(outs, dim=1), offline, valid)
-
     set_compute_dtype(model, None)
-    err_fp32 = stream_vs_offline()
+    err_fp32 = stream_vs_offline(model, fbank, stats, wav, lens)
     agree32 = agreement(
         *streaming_decode(model, td, fbank, stats, wav, lens, STREAM_CHUNK, STREAM_LEFT),
         *run_stream(init_fn, step_fn, wav, lens, info["chunk_samples"]))
@@ -1634,7 +1687,7 @@ def phase_transducer(kernel_rows) -> None:
         feats, _ = InputNormalization()(fbank(wav), stats)
         enc32, enc_lens = model.encode(feats, fbank.frame_lengths(lens))
     set_compute_dtype(model, torch.bfloat16)
-    err_bf16 = stream_vs_offline()
+    err_bf16 = stream_vs_offline(model, fbank, stats, wav, lens)
     with torch.inference_mode():
         enc16, _ = model.encode(feats, fbank.frame_lengths(lens))
     err_enc = max_rel(enc16, enc32, length_to_mask(enc_lens, enc32.shape[1]) > 0)
@@ -3633,6 +3686,353 @@ def phase_modes_and_tooling(kernel_rows, here: str, corpus: dict, root: str) -> 
           f"loader, the transducer artifact): {time.perf_counter() - t0:.1f} s wall")
 
 
+def baseline_config(attention_type: str, encoder: str = "branchformer", layers: int = 18,
+                    causal: bool = False, decoder_layers: int = 0):
+    """The flagship recipe with another mixer (nhead 4 for the attention
+    mixers, 1 for SummaryMixing), encoder, depth or causality, as `--set
+    model.attention_type=... --set model.nhead=4` gives it to the runners."""
+    cfg = flagship_config(decoder_layers)
+    m = cfg.model
+    m.attention_type, m.encoder_module = attention_type, encoder
+    m.nhead = 1 if attention_type == "SummaryMixing" else BASELINE_NHEAD
+    m.num_encoder_layers, m.causal = layers, causal
+    return cfg
+
+
+def timed_decodes(model, fbank, stats, wav, lens, n: int) -> tuple:
+    """One warm-up greedy decode, then `n` timed: (median ms, hyps, out)."""
+    import torch
+
+    from summarymixing_tpu_torch.transcribe import greedy_ctc_decode
+
+    greedy_ctc_decode(model, fbank, stats, wav, lens)
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hyps, out = greedy_ctc_decode(model, fbank, stats, wav, lens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not torch.isfinite(out["ctc_log_probs"]).all():
+        fail("non-finite CTC log-probs")
+    return float(np.median(times)) * 1e3, hyps, out
+
+
+def add_counts(kernel_rows, path: str, counts: dict) -> None:
+    for name, (n, p) in counts.items():
+        kernel_rows[name]["launches_by_path"][path] = (
+            kernel_rows[name]["launches_by_path"].get(path, 0) + n)
+        kernel_rows[name]["plain_calls_by_path"][path] = (
+            kernel_rows[name]["plain_calls_by_path"].get(path, 0) + p)
+
+
+def phase_baselines_decode(kernel_rows, stats, wav, lens):
+    """Phase 24 (a): each Branchformer baseline at full width, bf16, seeded
+    random weights: its parameter count (flax's), request 0 decoded greedily
+    (the cgMLP kernel 18 times per forward, no cell), held against the same
+    request with the cgMLP's plain version at phase 5's tolerances. Returns
+    the regularMHA model for (b)."""
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model
+
+    kept = None
+    for at, want_params in BASELINES.items():
+        cfg = baseline_config(at)
+        n_layers = cfg.model.num_encoder_layers
+        model, fbank = build_model(cfg)
+        n_params = sum(p.numel() for p in model.parameters())
+        if n_params != want_params:
+            fail(f"baseline {at}: parameter count {n_params:,} != {want_params:,} (flax's)")
+        kernels = zero_counts()
+        ms, hyps, out = timed_decodes(model, fbank, stats, wav, lens, BASELINE_DECODES)
+        counts = read_counts(kernels)
+        forwards = BASELINE_DECODES + 1
+        lp = out["ctc_log_probs"]
+        print(f"baseline {at} (nhead {cfg.model.nhead}): {n_params:,} parameters; request 0 "
+              f"greedy ({tuple(wav.shape)}, T={lp.shape[1]}): {ms:.2f} ms median of "
+              f"{BASELINE_DECODES} (SummaryMixing in phase 4: "
+              f"{FULL_MODE_MS.get('decode', float('nan')):.2f} ms); (launches, plain calls) "
+              f"{counts} over {forwards} forwards")
+        if counts != {"summary_mixing": (0, 0), "csgu": (forwards * n_layers, 0)}:
+            fail(f"baseline {at}: (launches, plain calls) {counts}, expected the cgMLP kernel "
+                 f"{n_layers} times per forward and no cell")
+        phase_plain_path(model, fbank, stats, [(None, wav, lens)], [(0.0, 0.0, out, hyps)])
+        add_counts(kernel_rows, "baselines", counts)
+        if at == "regularMHA":
+            kept = (model, fbank)
+        else:
+            del model
+        torch.cuda.empty_cache()
+    return kept
+
+
+def phase_baselines_sweep(kernel_rows, stats, mha):
+    """Phase 24 (b): decode time against utterance length after
+    `benchmarks/rtf_sweep.py` (batch 4 of full-length noise, 10-120 s), the
+    regularMHA Branchformer against the SummaryMixing flagship in turns
+    (one warm-up each, then alternating which goes first); at each length
+    one regularMHA mixer's plain path beside `F.scaled_dot_product_attention`
+    on the same q, k, v (a yardstick the port never calls), each timed as a
+    CUDA graph of 20 calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from summarymixing_tpu_torch.config import build_model
+    from summarymixing_tpu_torch.transcribe import greedy_ctc_decode
+
+    models = {"SummaryMixing": build_model(flagship_config()), "regularMHA": mha}
+    mixer = mha[0].asr.encoder.layer_0.mixer
+    h, d = mixer.nhead, mixer.d_model
+    kernels = zero_counts()
+    rows = {}
+    for secs in SWEEP_SECONDS:
+        n = secs * 16000
+        rng = np.random.default_rng(secs)
+        wav = torch.from_numpy(0.1 * rng.standard_normal((SWEEP_BATCH, n)).astype(np.float32))
+        wav = wav.cuda()
+        lens = torch.full((SWEEP_BATCH,), n, dtype=torch.int32).cuda()
+        audio_s = SWEEP_BATCH * secs
+        times = {label: [] for label in models}
+        peaks = dict.fromkeys(models, 0.0)
+        for label, (model, fbank) in models.items():   # warm-up
+            _, out = greedy_ctc_decode(model, fbank, stats, wav, lens)
+        t = out["ctc_log_probs"].shape[1]
+        for i in range(SWEEP_DECODES):
+            for label in (list(models) if i % 2 == 0 else list(models)[::-1]):
+                model, fbank = models[label]
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, out = greedy_ctc_decode(model, fbank, stats, wav, lens)
+                torch.cuda.synchronize()
+                times[label].append(time.perf_counter() - t0)
+                peaks[label] = max(peaks[label], torch.cuda.max_memory_allocated() / 2 ** 30)
+                if not torch.isfinite(out["ctc_log_probs"]).all():
+                    fail(f"sweep {label} {secs} s: non-finite CTC log-probs")
+        for label in models:
+            ms = float(np.median(times[label])) * 1e3
+            rows[(label, secs)] = ms
+            print(f"sweep {label} {secs} s x {SWEEP_BATCH} (T={t}): {ms:.2f} ms per batch "
+                  f"(median of {SWEEP_DECODES}, in turns), {audio_s / ms * 1e3:.1f} audio-s/s, "
+                  f"{ms / audio_s:.4f} ms per audio-s, peak memory {peaks[label]:.2f} GiB")
+        x = torch.randn(SWEEP_BATCH, t, d).to(torch.bfloat16).cuda()
+
+        def heads(y):
+            return y.reshape(SWEEP_BATCH, t, h, d // h).transpose(1, 2)
+
+        with torch.inference_mode():
+            q, k, v = (heads(proj(x)) for proj in (mixer.q_proj, mixer.k_proj, mixer.v_proj))
+            plain = mixer(x, x, x)
+            sdpa = mixer.out_proj(F.scaled_dot_product_attention(q, k, v).transpose(1, 2)
+                                  .reshape(SWEEP_BATCH, t, d))
+            _, err = rel_err(sdpa, plain)
+            plain_ms = graph_ms(lambda: mixer(x, x, x))
+            core_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        flops = 4 * SWEEP_BATCH * t * t * d
+        core_bound, core_by = bound(4 * SWEEP_BATCH * t * d * 2, flops)
+        print(f"sweep {secs} s: one regularMHA mixer (B={SWEEP_BATCH}, T={t}, {h} heads, bf16 "
+              f"operands, float32 scores and softmax, TF32 off) {plain_ms:.4f} ms (graph); "
+              f"F.scaled_dot_product_attention on its q, k, v {core_ms:.4f} ms (graph; the "
+              f"core's bound {core_bound:.4f} ms, {core_by}), {plain_ms / core_ms:.1f}x less; "
+              f"the mixer through SDPA against the plain mixer: max |diff|/(1+|plain|) "
+              f"{err:.3e} (a yardstick, not on the port's path)")
+    counts = read_counts(kernels)
+    n_layers = 18
+    forwards = len(SWEEP_SECONDS) * (SWEEP_DECODES + 1)
+    if counts != {"summary_mixing": (forwards * n_layers, 0),
+                  "csgu": (2 * forwards * n_layers, 0)}:
+        fail(f"sweep: (launches, plain calls) {counts}, expected the cell {n_layers} times per "
+             "SummaryMixing forward and the cgMLP 18 times per forward of either model")
+    add_counts(kernel_rows, "baseline_sweep", counts)
+    for secs in SWEEP_SECONDS:
+        r = {label: rows[(label, secs)] / rows[(label, SWEEP_SECONDS[0])] * SWEEP_SECONDS[0]
+             / secs for label in models}
+        ratio = rows[("regularMHA", secs)] / rows[("SummaryMixing", secs)]
+        print(f"sweep: cost per audio-second at {secs} s over that at {SWEEP_SECONDS[0]} s: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in r.items())
+              + f"; regularMHA over SummaryMixing per batch {ratio:.3f}")
+    del models
+    torch.cuda.empty_cache()
+
+
+def phase_baselines_train(kernel_rows):
+    """Phase 24 (c): training steps of the SummaryMixing flagship and of the
+    regularMHA one (both with the 6-layer decoder) on phase 7's batch: one
+    warm-up step each, then `BASELINE_STEPS` each in turns (alternating
+    which goes first): the median ms, and each model's peak memory as if it
+    were alone on the card (its resident state after the warm-up plus its
+    steps' high-water mark above the memory in use when each began)."""
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model, build_trainer
+
+    batch = training_batch()
+    base = torch.cuda.memory_allocated()
+    runs = {}
+    for at in ("SummaryMixing", "regularMHA"):
+        before = torch.cuda.memory_allocated()
+        cfg = baseline_config(at, decoder_layers=6)
+        model, fbank = build_model(cfg)
+        trainer = build_trainer(cfg, model, fbank)
+        state, _ = trainer.train_step(trainer.init_state(cfg.seed), batch)   # warm-up
+        torch.cuda.synchronize()
+        runs[at] = dict(model=model, trainer=trainer, state=state,
+                        layers=cfg.model.num_encoder_layers, nhead=cfg.model.nhead,
+                        resident=torch.cuda.memory_allocated() - before, times=[], transient=0,
+                        losses=[], skipped=0, counts=[(0, 0, 0), (0, 0, 0)])
+    for i in range(BASELINE_STEPS):
+        for at in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            r = runs[at]
+            kernels = zero_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            r["state"], metrics = r["trainer"].train_step(r["state"], batch)
+            torch.cuda.synchronize()
+            r["times"].append(time.perf_counter() - t0)
+            r["transient"] = max(r["transient"], torch.cuda.max_memory_allocated() - start)
+            r["losses"].append(float(metrics["loss"]))
+            r["skipped"] += metrics["nonfinite_skipped"]
+            r["counts"] = [tuple(a + b for a, b in zip(c, (k.launches, k.backwards, k.plain_calls)))
+                           for c, k in zip(r["counts"], kernels)]
+    ms = {}
+    for at, r in runs.items():
+        n_layers, n = r["layers"], BASELINE_STEPS
+        ms[at] = float(np.median(r["times"])) * 1e3
+        peak = (base + r["resident"] + r["transient"]) / 2 ** 30
+        no_grad = [name for name, p in r["model"].named_parameters() if p.grad is None]
+        counts = r["counts"]
+        print(f"baseline train {at} (nhead {r['nhead']}): {n} steps at B={TRAIN_BATCH}, T=751 "
+              f"(bf16, dropout, augmentation, the decoder), in turns: {ms[at]:.2f} ms median "
+              f"(range {min(r['times']) * 1e3:.2f}-{max(r['times']) * 1e3:.2f}), last loss "
+              f"{r['losses'][-1]:.4f}, peak memory alone {peak:.2f} GiB (resident "
+              f"{r['resident'] / 2 ** 30:.2f}; phase 7's SummaryMixing step: "
+              f"{FULL_MODE_MS.get('train_step', float('nan')):.2f} ms median); (launches, "
+              f"backwards, plain calls) summary_mixing {counts[0]} csgu {counts[1]}")
+        want_cell = (n * n_layers, n * n_layers, 0) if at == "SummaryMixing" else (0, 0, 0)
+        if not np.isfinite(r["losses"]).all() or r["skipped"] or no_grad:
+            fail(f"baseline train {at}: losses {r['losses']}, {r['skipped']} steps skipped, no "
+                 f"gradient for {no_grad[:6]}")
+        if counts != [want_cell, (n * n_layers, n * n_layers, 0)]:
+            fail(f"baseline train {at}: counts {counts}, expected the cell {want_cell} and "
+                 f"the cgMLP {n_layers} times per step forward and backward")
+        add_counts(kernel_rows, "baseline_train",
+                   {"summary_mixing": counts[0][::2], "csgu": counts[1][::2]})
+    print(f"baseline train: regularMHA's median step over SummaryMixing's "
+          f"{ms['regularMHA'] / ms['SummaryMixing']:.3f}")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def phase_baselines_conformer(kernel_rows, stats, wav, lens):
+    """Phase 24 (d): the transducer recipe's Conformer with RelPosMHAXL at
+    nhead 4: offline greedy on request 0, check (a) (streamed chunk by
+    chunk against the offline DCT encode, float32, TF32 off), and the
+    causal form offline. No hand-written kernel lies on this path."""
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model
+    from summarymixing_tpu_torch.ops.layers import set_compute_dtype
+    from summarymixing_tpu_torch.transcribe import transducer_greedy_transcribe
+
+    kernels = zero_counts()
+    for causal in (False, True):
+        cfg = transducer_config()
+        cfg.model.attention_type, cfg.model.nhead, cfg.model.causal = "RelPosMHAXL", 4, causal
+        model, fbank, td = build_model(cfg)
+        n_params = sum(p.numel() for p in model.parameters()) + sum(
+            p.numel() for p in td.parameters())
+        transducer_greedy_transcribe(model, td, fbank, stats, wav, lens)   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hyps, out = transducer_greedy_transcribe(model, td, fbank, stats, wav, lens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        enc = out["enc_out"]
+        if not torch.isfinite(enc).all() or enc.shape[:2] != (BATCH, 751):
+            fail(f"conformer RelPosMHAXL causal={causal}: encoder output "
+                 f"{tuple(enc.shape)} not finite or not [8, 751, .]")
+        line = (f"conformer RelPosMHAXL (nhead 4, causal {causal}): {n_params:,} parameters; "
+                f"request 0 greedy transducer decode {ms:.2f} ms, tokens per row "
+                f"{[len(x) for x in hyps]}")
+        if not causal:
+            set_compute_dtype(model, None)
+            err = stream_vs_offline(model, fbank, stats, wav, lens)
+            set_compute_dtype(model, torch.bfloat16)
+            ok = err <= STREAM_TOL
+            line += (f"; check (a) streamed chunks of {STREAM_CHUNK} with {STREAM_LEFT} of left "
+                     f"context against the offline DCT encode, float32: {err:.3e} (tol "
+                     f"{STREAM_TOL:.0e}) {'ok' if ok else 'FAILED'}")
+        print(line)
+        if not causal and not ok:
+            fail("conformer RelPosMHAXL: chunked streaming disagrees with the offline DCT encode")
+        del model, td
+        torch.cuda.empty_cache()
+    counts = read_counts(kernels)
+    if counts != {"summary_mixing": (0, 0), "csgu": (0, 0)}:
+        fail(f"conformer RelPosMHAXL: a kernel or its plain path ran: {counts}")
+
+
+def phase_baselines_transformer(kernel_rows, stats, wav, lens):
+    """Phase 24 (e): `encoder_module="transformer"`, 12 layers d512, with
+    the full-mode SummaryMixing mixer (every cell launches the kernel)
+    against its plain version, and with causal regularMHA: request 0
+    greedy."""
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model
+
+    for at, causal in (("SummaryMixing", False), ("regularMHA", True)):
+        cfg = baseline_config(at, encoder="transformer", layers=TRANSFORMER_LAYERS, causal=causal)
+        model, fbank = build_model(cfg)
+        n_params = sum(p.numel() for p in model.parameters())
+        if n_params != TRANSFORMER_PARAMS[at]:
+            fail(f"transformer {at}: parameter count {n_params:,} != "
+                 f"{TRANSFORMER_PARAMS[at]:,} (flax's)")
+        kernels = zero_counts()
+        ms, hyps, out = timed_decodes(model, fbank, stats, wav, lens, BASELINE_DECODES)
+        counts = read_counts(kernels)
+        forwards = BASELINE_DECODES + 1
+        print(f"transformer encoder {at} (nhead {cfg.model.nhead}, causal {causal}, "
+              f"{TRANSFORMER_LAYERS} layers): {n_params:,} parameters; request 0 greedy "
+              f"{ms:.2f} ms median of {BASELINE_DECODES}; (launches, plain calls) {counts} over "
+              f"{forwards} forwards")
+        if at == "SummaryMixing":
+            if counts != {"summary_mixing": (forwards * TRANSFORMER_LAYERS, 0), "csgu": (0, 0)}:
+                fail(f"transformer {at}: counts {counts}, expected the cell kernel "
+                     f"{TRANSFORMER_LAYERS} times per forward, no plain call and no cgMLP")
+            phase_plain_path(model, fbank, stats, [(None, wav, lens)], [(0.0, 0.0, out, hyps)])
+        elif counts != {"summary_mixing": (0, 0), "csgu": (0, 0)}:
+            fail(f"transformer {at}: a kernel or its plain path ran: {counts}")
+        add_counts(kernel_rows, "transformer_encoder", counts)
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_baselines(kernel_rows) -> None:
+    """Phase 24: the paper's self-attention and HyperMixer baselines."""
+    stats = seeded_norm_stats()
+    wav, lens = request0(16000)
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    mha = phase_baselines_decode(kernel_rows, stats, wav, lens)
+    print(f"phase 24 (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_baselines_sweep(kernel_rows, stats, mha)
+    del mha
+    print(f"phase 24 (b): {time.perf_counter() - t0:.1f} s")
+    for label, fn in (("c", lambda: phase_baselines_train(kernel_rows)),
+                      ("d", lambda: phase_baselines_conformer(kernel_rows, stats, wav, lens)),
+                      ("e", lambda: phase_baselines_transformer(kernel_rows, stats, wav, lens))):
+        t0 = time.perf_counter()
+        fn()
+        print(f"phase 24 ({label}): {time.perf_counter() - t0:.1f} s")
+    print(f"phase 24 (the paper's baselines): {time.perf_counter() - t_all:.1f} s wall")
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     try:
@@ -3696,6 +4096,8 @@ def main() -> int:
         phase_reference_checkpoint(kernel_rows, here, root)
         torch.cuda.empty_cache()
         phase_modes_and_tooling(kernel_rows, here, corpus, root)
+    torch.cuda.empty_cache()
+    phase_baselines(kernel_rows)
     for row in kernel_rows.values():
         row["launches"] = sum(row["launches_by_path"].values())
         row["plain_calls"] = sum(row["plain_calls_by_path"].values())

@@ -1,15 +1,16 @@
-"""`TransformerASR` with the Branchformer or Conformer encoder — the port
-of `summarymixing_tpu/models/asr.py`: `_src_masks` (non-causal, with the
-Dynamic Chunk Training mask for the Conformer), `_encode_inner` with the
-source dropout, `encode`, the target embedding and the attention
+"""`TransformerASR` with the Transformer, Conformer or Branchformer encoder —
+the port of `summarymixing_tpu/models/asr.py`: `_src_masks` (the lookahead
+mask of a causal encoder, or the Dynamic Chunk Training mask for the
+Conformer), `_encode_inner` with the source dropout and the positions (the
+absolute sine, none for hypermixing, RelPosMHAXL's relative table), `encode`,
+the target embedding and the attention
 decoder (`_decode_inner`; regularMHA, or the paper's Summary Decoder with
 `decoder_attention_type="SummaryMixing"`), `forward` with or without targets,
 the decoder's search surface (`decode_prefix`, the uncached oracle, and
 the cached `decode_cache_init`/`decode_step_cached`: KV caches, or the
 Summary Decoder's running-mean carry), and the
 Conformer's chunked streaming (`DynChunkTrainConfig`, `ASRStreamingState`,
-`init_streaming_state`, `encode_streaming`). The transformer encoder and
-the causal encoder are still to port.
+`init_streaming_state`, `encode_streaming`).
 """
 
 from __future__ import annotations
@@ -22,7 +23,11 @@ from torch import nn
 
 from summarymixing_tpu_torch.models.branchformer import BranchformerEncoder
 from summarymixing_tpu_torch.models.conformer import ConformerEncoder, ConformerStreamingState
-from summarymixing_tpu_torch.models.transformer import NormalizedEmbedding, TransformerDecoder
+from summarymixing_tpu_torch.models.transformer import (
+    NormalizedEmbedding,
+    TransformerDecoder,
+    TransformerEncoder,
+)
 from summarymixing_tpu_torch.ops.layers import Dense, Dropout
 from summarymixing_tpu_torch.ops.masks import (
     chunked_context_mask,
@@ -31,9 +36,11 @@ from summarymixing_tpu_torch.ops.masks import (
     lookahead_mask,
     rel_length_to_mask,
 )
-from summarymixing_tpu_torch.ops.positional import positional_encoding, positional_row
-
-_TODO = "see ROADMAP.md, 'Modules still to port'"
+from summarymixing_tpu_torch.ops.positional import (
+    positional_encoding,
+    positional_row,
+    relpos_xl_table,
+)
 
 
 @dataclass(frozen=True)
@@ -77,27 +84,37 @@ class TransformerASR(nn.Module):
                  conformer_activation: str = "swish", max_length: int = 2500,
                  remat: bool = False):
         super().__init__()
-        if encoder_module not in ("branchformer", "conformer"):
-            raise NotImplementedError(f"encoder {encoder_module!r} is not ported; {_TODO}")
-        if causal:
-            raise NotImplementedError(f"the causal encoder is not ported; {_TODO}")
+        if decoder_attention_type not in ("regularMHA", "vanillaMHA", "SummaryMixing"):
+            # RelPosMHAXL needs position tables the decode paths do not
+            # build, and its rel-shift is square attention only
+            raise ValueError(
+                "decoder_attention_type must be regularMHA (the reference, "
+                "Transformer.py:274) or SummaryMixing (the paper's Summary "
+                f"Decoder); got {decoder_attention_type!r}")
         self.tgt_vocab = tgt_vocab
         self.d_model = d_model
         self.num_decoder_layers = num_decoder_layers
         self.positional_encoding = positional_encoding
         self.attention_type = attention_type
         self.encoder_module = encoder_module
+        self.causal = causal
         self.max_length = max_length
         self.src_proj = Dense(input_size, d_model)
         self.src_dropout = Dropout(dropout_rate)
-        if encoder_module == "conformer":
+        if encoder_module == "transformer":
+            self.encoder = TransformerEncoder(
+                num_encoder_layers, d_model, d_ffn, nhead, dropout_rate, activation,
+                normalize_before, attention_type, remat=remat, causal=causal,
+                local_proj_hid_dim=local_proj_hid_dim, local_proj_out_dim=local_proj_out_dim,
+                summary_hid_dim=summary_hid_dim, mode=mode)
+        elif encoder_module == "conformer":
             self.encoder = ConformerEncoder(
                 num_encoder_layers, d_model, d_ffn, nhead, kernel_size=kernel_size,
-                dropout_rate=dropout_rate, attention_type=attention_type,
+                dropout_rate=dropout_rate, causal=causal, attention_type=attention_type,
                 local_proj_hid_dim=local_proj_hid_dim, local_proj_out_dim=local_proj_out_dim,
                 summary_hid_dim=summary_hid_dim, mode=mode, activation=conformer_activation,
                 remat=remat)
-        else:
+        elif encoder_module == "branchformer":
             self.encoder = BranchformerEncoder(
                 num_encoder_layers, d_model, nhead, kernel_size=kernel_size,
                 attention_type=attention_type, csgu_linear_units=csgu_linear_units,
@@ -105,6 +122,8 @@ class TransformerASR(nn.Module):
                 local_proj_hid_dim=local_proj_hid_dim, local_proj_out_dim=local_proj_out_dim,
                 summary_hid_dim=summary_hid_dim, summary_out_dim=summary_out_dim, mode=mode,
                 activation=branchformer_activation, dropout_rate=dropout_rate, remat=remat)
+        else:
+            raise ValueError(f"unknown encoder_module {encoder_module!r}")
         if num_decoder_layers > 0:
             self.tgt_emb = NormalizedEmbedding(d_model, tgt_vocab)
             # the Summary Decoder's cell: the encoder's hidden widths, its
@@ -122,11 +141,15 @@ class TransformerASR(nn.Module):
         pad_mask = None if wav_len is None else rel_length_to_mask(wav_len, t)
         src_mask = None
         if dynchunktrain is not None:
+            if self.causal:
+                raise ValueError("dynchunktrain is incompatible with causal")
             if self.encoder_module != "conformer":
                 raise ValueError("Dynamic Chunk Training requires encoder_module='conformer', "
                                  f"got {self.encoder_module!r}")
             src_mask = chunked_context_mask(t, dynchunktrain.chunk_size,
                                             dynchunktrain.left_context_size, device=device)
+        elif self.causal:
+            src_mask = lookahead_mask(t, device=device)
         return pad_mask, src_mask
 
     def _encode_inner(self, src: torch.Tensor, pad_mask: Optional[torch.Tensor],
@@ -136,11 +159,15 @@ class TransformerASR(nn.Module):
             src = src.reshape(b, t, f * c)
         t = src.shape[1]
         src = self.src_dropout(self.src_proj(src))
-        if self.positional_encoding == "fixed_abs_sine" and self.attention_type != "hypermixing":
+        pos_embs = None
+        if self.attention_type == "RelPosMHAXL":
+            pos_embs = relpos_xl_table(t, self.d_model, src.dtype, src.device)
+        elif (self.positional_encoding == "fixed_abs_sine"
+              and self.attention_type != "hypermixing"):
             src = src + positional_encoding(t, self.d_model, src.dtype, src.device)
         if self.encoder_module == "conformer":
-            return self.encoder(src, src_mask, pad_mask, chunk_size)
-        return self.encoder(src, src_mask, pad_mask)
+            return self.encoder(src, src_mask, pad_mask, pos_embs, chunk_size)
+        return self.encoder(src, src_mask, pad_mask, pos_embs)
 
     def _decode_inner(self, tgt: torch.Tensor, enc_out: torch.Tensor,
                       enc_pad_mask: Optional[torch.Tensor],
@@ -229,6 +256,10 @@ class TransformerASR(nn.Module):
             start = torch.clamp(state.frame_offset, 0, self.max_length - chunk)
             pos = start[:, None] + torch.arange(chunk, device=src.device)[None, :]
             src = src + positional_row(pos, self.d_model, src.dtype)
-        out, enc_state = self.encoder.streaming_step(src, state.encoder)
+        pos_embs = None
+        if self.attention_type == "RelPosMHAXL":
+            total = chunk + state.encoder.layers[0].mha_left.shape[1]
+            pos_embs = relpos_xl_table(total, self.d_model, src.dtype, src.device)
+        out, enc_state = self.encoder.streaming_step(src, state.encoder, pos_embs)
         return out, ASRStreamingState(encoder=enc_state, frame_offset=state.frame_offset + chunk,
                                       chunk_size=state.chunk_size)

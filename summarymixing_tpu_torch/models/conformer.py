@@ -1,12 +1,15 @@
-"""Conformer encoder with a SummaryMixing mixer, Dynamic Chunk Training
-masks and chunked streaming — the port of `ConformerEncoderLayer`,
-`ConformerEncoder` and their streaming state from
+"""Conformer encoder with any token mixer of `models.mixers`, Dynamic Chunk
+Training masks, a causal form and chunked streaming — the port of
+`ConformerEncoderLayer`, `ConformerEncoder` and their streaming state from
 `summarymixing_tpu/models/conformer.py` (the Conformer decoder is still to
-port; no recipe uses it).
+port; no recipe uses it: ROADMAP.md queue 1, item 11).
 
 A layer is: x += ½·ffn1(norm_ffn1(x)); x = mixer(norm1(x)) + x;
 x += convolution_module(x); x = norm2(x + ½·ffn2(norm_ffn2(x))). The
-SummaryMixing mixer's output width is d_model. The stack ends in a
+SummaryMixing mixer's output width is d_model; HyperMixing's hypernetwork
+is d_ffn wide. With `causal` the RelPosMHAXL mixer masks future keys
+(`mask_pos_future`) and the depthwise conv is causal; RelPosMHAXL takes the
+`[1, 2T-1, D]` position table as `pos_embs`. The stack ends in a
 LayerNorm with eps 1e-6; the layers' norms use 1e-5. With `remat` each
 layer's activations are recomputed in the backward pass
 (`ops.layers.remat_call`); streaming is untouched.
@@ -15,7 +18,8 @@ Streaming carries, per layer, the last `left_context_frames` mixer inputs
 (post-ffn1), the last kernel//2 conv-module inputs and a per-row count of
 frames seen, so rows of one batch may be independent streams at other
 positions. A chunk's mixer sees [left buffer | chunk] with the buffer's
-unfilled positions masked out; its depthwise conv sees the last kernel//2
+unfilled positions masked out (RelPosMHAXL with the table of left + chunk
+positions); its depthwise conv sees the last kernel//2
 real frames and zeros past the chunk, which is what the Dynamic Chunk
 Convolution computes offline.
 """
@@ -57,7 +61,8 @@ def _buffer_valid(seen: torch.Tensor, size: int, chunk: int) -> torch.Tensor:
 
 class ConformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, nhead: int, kernel_size: int = 31,
-                 dropout_rate: float = 0.0, attention_type: str = "SummaryMixing",
+                 dropout_rate: float = 0.0, causal: bool = False,
+                 attention_type: str = "SummaryMixing",
                  local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
                  summary_hid_dim: Sequence[int] = (1024,), mode: str = "SummaryMixing",
                  activation: str = "swish"):
@@ -68,10 +73,10 @@ class ConformerEncoderLayer(nn.Module):
         self.mixer = make_mixer(
             attention_type, d_model, nhead, local_proj_hid_dim=local_proj_hid_dim,
             local_proj_out_dim=local_proj_out_dim, summary_hid_dim=summary_hid_dim,
-            summary_out_dim=d_model, mode=mode, activation=activation,
-            dropout_rate=dropout_rate)
+            summary_out_dim=d_model, mode=mode, activation=activation, hypernet_size=d_ffn,
+            mask_pos_future=causal, dropout_rate=dropout_rate)
         self.convolution_module = ConvolutionModule(d_model, kernel_size, activation,
-                                                    dropout_rate)
+                                                    dropout_rate, causal)
         self.ffn1 = PositionalwiseFeedForward(d_ffn, d_model, dropout_rate, activation)
         self.ffn2 = PositionalwiseFeedForward(d_ffn, d_model, dropout_rate, activation)
         for name in ("norm_ffn1", "norm_ffn2", "norm1", "norm2"):
@@ -79,10 +84,11 @@ class ConformerEncoderLayer(nn.Module):
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
-                pad_mask: Optional[torch.Tensor] = None, chunk_size=None) -> torch.Tensor:
+                pad_mask: Optional[torch.Tensor] = None,
+                pos_embs: Optional[torch.Tensor] = None, chunk_size=None) -> torch.Tensor:
         x = x + 0.5 * self.dropout(self.ffn1(self.norm_ffn1(x)))
         x = apply_mixer(self.mixer, self.attention_type, self.norm1(x), attn_mask=src_mask,
-                        pad_mask=pad_mask) + x
+                        pad_mask=pad_mask, pos_embs=pos_embs) + x
         x = x + self.convolution_module(x, pad_mask=pad_mask, chunk_size=chunk_size)
         return self.norm2(x + 0.5 * self.dropout(self.ffn2(self.norm_ffn2(x))))
 
@@ -96,10 +102,12 @@ class ConformerEncoderLayer(nn.Module):
             conv_left=torch.zeros(batch, pad, self.d_model, dtype=dtype, device=device),
             frames_seen=torch.zeros(batch, dtype=torch.int32, device=device))
 
-    def streaming_step(self, x: torch.Tensor, state: ConformerLayerStreamingState
+    def streaming_step(self, x: torch.Tensor, state: ConformerLayerStreamingState,
+                       pos_embs: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, ConformerLayerStreamingState]:
         """One chunk `[B, C, D]` through the layer with the carried left
-        context; returns the chunk's output and the next state."""
+        context (`pos_embs`: RelPosMHAXL's table over left + C positions);
+        returns the chunk's output and the next state."""
         orig = x.shape[1]
         l_buf = state.mha_left.shape[1]
         pad = state.conv_left.shape[1]
@@ -108,7 +116,8 @@ class ConformerEncoderLayer(nn.Module):
         x = x + 0.5 * self.ffn1(self.norm_ffn1(x))
         xcat = torch.cat([state.mha_left, x], dim=1)
         valid = _buffer_valid(seen, l_buf, orig).to(xcat.dtype)
-        mixed = apply_mixer(self.mixer, self.attention_type, self.norm1(xcat), pad_mask=valid)
+        mixed = apply_mixer(self.mixer, self.attention_type, self.norm1(xcat), pad_mask=valid,
+                            pos_embs=pos_embs)
         x = (mixed + xcat)[:, -orig:]
 
         conv_in = torch.cat([state.conv_left, x], dim=1)
@@ -139,10 +148,11 @@ class ConformerEncoder(nn.Module):
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
 
     def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
-                pad_mask: Optional[torch.Tensor] = None, chunk_size=None) -> torch.Tensor:
+                pad_mask: Optional[torch.Tensor] = None,
+                pos_embs: Optional[torch.Tensor] = None, chunk_size=None) -> torch.Tensor:
         for layer in self.layers():
-            x = (remat_call(layer, x, src_mask, pad_mask, chunk_size) if self.remat
-                 else layer(x, src_mask, pad_mask, chunk_size))
+            x = (remat_call(layer, x, src_mask, pad_mask, pos_embs, chunk_size) if self.remat
+                 else layer(x, src_mask, pad_mask, pos_embs, chunk_size))
         return self.norm(x)
 
     def init_streaming_state(self, batch: int, left_context_frames: int,
@@ -152,10 +162,11 @@ class ConformerEncoder(nn.Module):
             layer.init_streaming_state(batch, left_context_frames, dtype, device)
             for layer in self.layers()))
 
-    def streaming_step(self, x: torch.Tensor, state: ConformerStreamingState
+    def streaming_step(self, x: torch.Tensor, state: ConformerStreamingState,
+                       pos_embs: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, ConformerStreamingState]:
         new_states = []
         for layer, lstate in zip(self.layers(), state.layers):
-            x, new = layer.streaming_step(x, lstate)
+            x, new = layer.streaming_step(x, lstate, pos_embs)
             new_states.append(new)
         return self.norm(x), ConformerStreamingState(layers=tuple(new_states))

@@ -1,11 +1,19 @@
-"""Transformer encoder and decoder — the port of `TransformerEncoderLayer`,
-`TransformerEncoder` (the regularMHA route, the causal LM's stack),
-`TransformerDecoderLayer` (the regularMHA route and the Summary Decoder's
-SummaryMixing route), `TransformerDecoder` and `NormalizedEmbedding` from
-`summarymixing_tpu/models/transformer.py`, with the cached
-`init_cache`/`step` of beam search. The RelPosMHAXL route, the encoder's
-SummaryMixing route (the flagship's encoder is the Branchformer), the 1-D
-CNN feed-forward and layerdrop are still to port.
+"""Transformer encoder and decoder — the port of `Conv1dFFN`,
+`TransformerEncoderLayer`, `TransformerEncoder` (any token mixer of
+`models.mixers`: the causal LM's regularMHA stack, and the ASR encoder with
+regularMHA, RelPosMHAXL, hypermixing or SummaryMixing; the "1dcnn"
+feed-forward; layerdrop), `TransformerDecoderLayer` (the regularMHA route
+and the Summary Decoder's SummaryMixing route), `TransformerDecoder` and
+`NormalizedEmbedding` from `summarymixing_tpu/models/transformer.py`, with
+the cached `init_cache`/`step` of beam search.
+
+The encoder layer's mixer is `self_att`; a SummaryMixing mixer's output is
+d_model wide (it feeds the residual) and keeps the erf GELU, HyperMixing's
+hypernetwork is d_ffn wide, and with `causal` RelPosMHAXL masks future
+keys and the "1dcnn" convolutions pad on the left only. Layerdrop skips
+each layer of a training forward with probability `layerdrop_prob`, drawn
+once per forward from the model's dropout generator; the layer is still
+computed and its output dropped, as the JAX encoder does.
 
 A cache is a list with one dict of tensors per layer. Self-attention
 caches are head-major `[rows, H, max_len, hd]` (`ops/attention.py`); the
@@ -22,11 +30,12 @@ import math
 from typing import List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from summarymixing_tpu_torch.models.mixers import apply_mixer, make_mixer
 from summarymixing_tpu_torch.ops.attention import MultiheadAttention, PositionalwiseFeedForward
-from summarymixing_tpu_torch.ops.layers import Dropout, LayerNorm
+from summarymixing_tpu_torch.ops.layers import Conv1d, Dropout, LayerNorm, remat_call
 
 _MHA = ("regularMHA", "vanillaMHA")
 
@@ -38,32 +47,68 @@ def _self_attn_cache(rows: int, max_len: int, nhead: int, d_model: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+class Conv1dFFN(nn.Module):
+    """The "1dcnn" feed-forward: Conv1d(d -> d_ffn, k0) -> ReLU ->
+    Conv1d(d_ffn -> d, k1) over `[B, T, D]`, each padded SAME (flax's
+    (k-1)//2 frames before) or, with `causal`, k-1 frames before."""
+
+    def __init__(self, d_ffn: int, d_model: int, kernel_sizes: Sequence[int] = (3, 3),
+                 causal: bool = False):
+        super().__init__()
+        self.causal = causal
+        self.conv_0 = Conv1d(d_model, d_ffn, kernel_sizes[0])
+        self.conv_1 = Conv1d(d_ffn, d_model, kernel_sizes[1])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.transpose(1, 2)
+        for i, conv in enumerate((self.conv_0, self.conv_1)):
+            k = conv.kernel_size[0]
+            left = k - 1 if self.causal else (k - 1) // 2
+            x = conv(F.pad(x, (left, k - 1 - left)))
+            if i == 0:
+                x = F.relu(x)
+        return x.transpose(1, 2)
+
+
 class TransformerEncoderLayer(nn.Module):
-    """Self-attention (`self_att`) and the feed-forward block, each with a
-    LayerNorm (eps 1e-6) before it, or after it without `normalize_before`
-    (the LM's post-LN), and dropout before its residual."""
+    """The mixer (`self_att`) and the feed-forward block (`pos_ffn`), each
+    with a LayerNorm (eps 1e-6) before it, or after it without
+    `normalize_before` (the LM's post-LN), and dropout before its
+    residual."""
 
     def __init__(self, d_model: int, d_ffn: int, nhead: int, dropout_rate: float = 0.0,
                  activation: str = "gelu", normalize_before: bool = True,
-                 attention_type: str = "regularMHA"):
+                 attention_type: str = "regularMHA", ffn_type: str = "regularFFN",
+                 ffn_cnn_kernel_size_list: Sequence[int] = (3, 3), causal: bool = False,
+                 local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
+                 summary_hid_dim: Sequence[int] = (1024,), mode: str = "SummaryMixing"):
         super().__init__()
-        if attention_type not in _MHA:
-            raise NotImplementedError(
-                f"encoder attention {attention_type!r} is not ported; see ROADMAP.md")
         self.d_model, self.nhead = d_model, nhead
+        self.attention_type = attention_type
         self.normalize_before = normalize_before
-        self.self_att = MultiheadAttention(d_model, nhead, dropout_rate)
-        self.pos_ffn = PositionalwiseFeedForward(d_ffn, d_model, dropout_rate, activation)
+        self.self_att = make_mixer(
+            attention_type, d_model, nhead, local_proj_hid_dim=local_proj_hid_dim,
+            local_proj_out_dim=local_proj_out_dim, summary_hid_dim=summary_hid_dim,
+            summary_out_dim=d_model, mode=mode, hypernet_size=d_ffn, mask_pos_future=causal,
+            dropout_rate=dropout_rate)
+        if ffn_type == "regularFFN":
+            self.pos_ffn = PositionalwiseFeedForward(d_ffn, d_model, dropout_rate, activation)
+        elif ffn_type == "1dcnn":
+            self.pos_ffn = Conv1dFFN(d_ffn, d_model, tuple(ffn_cnn_kernel_size_list), causal)
+        else:
+            raise ValueError(f"unknown ffn_type {ffn_type!r}")
         self.norm1 = LayerNorm(d_model, eps=1e-6)
         self.norm2 = LayerNorm(d_model, eps=1e-6)
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pad_mask: Optional[torch.Tensor] = None,
+                pos_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
         pre = self.normalize_before
         src1 = self.norm1(x) if pre else x
-        x = x + self.dropout(self.self_att(src1, src1, src1, attn_mask=src_mask,
-                                           pad_mask=pad_mask))
+        x = x + self.dropout(apply_mixer(self.self_att, self.attention_type, src1,
+                                         attn_mask=src_mask, pad_mask=pad_mask,
+                                         pos_embs=pos_embs))
         if not pre:
             x = self.norm1(x)
         src1 = self.norm2(x) if pre else x
@@ -71,6 +116,8 @@ class TransformerEncoderLayer(nn.Module):
         return x if pre else self.norm2(x)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32, device=None) -> dict:
+        if self.attention_type not in _MHA:
+            raise ValueError("KV-cached stepping requires regularMHA")
         return _self_attn_cache(batch, max_len, self.nhead, self.d_model, dtype, device)
 
     def step(self, x_t: torch.Tensor, pos: int, cache: dict):
@@ -87,26 +134,34 @@ class TransformerEncoderLayer(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    """`layer_0` ... `layer_{n-1}`, then a LayerNorm (eps 1e-6)."""
+    """`layer_0` ... `layer_{n-1}`, then a LayerNorm (eps 1e-6). `layer_kwargs`:
+    `TransformerEncoderLayer`'s keywords past `attention_type`."""
 
     def __init__(self, num_layers: int, d_model: int, d_ffn: int, nhead: int,
                  dropout_rate: float = 0.0, activation: str = "gelu",
-                 normalize_before: bool = True, attention_type: str = "regularMHA"):
+                 normalize_before: bool = True, attention_type: str = "regularMHA",
+                 layerdrop_prob: float = 0.0, remat: bool = False, **layer_kwargs):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         for i in range(num_layers):
             self.add_module(f"layer_{i}", TransformerEncoderLayer(
                 d_model, d_ffn, nhead, dropout_rate, activation, normalize_before,
-                attention_type))
+                attention_type, **layer_kwargs))
+        self.layerdrop = Dropout(layerdrop_prob)
         self.norm = LayerNorm(d_model, eps=1e-6)
 
     def layers(self) -> List[TransformerEncoderLayer]:
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
 
     def forward(self, x: torch.Tensor, src_mask: Optional[torch.Tensor] = None,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        for layer in self.layers():
-            x = layer(x, src_mask, pad_mask)
+                pad_mask: Optional[torch.Tensor] = None,
+                pos_embs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        keep = self.layerdrop.keep_mask((self.num_layers,), x.device)
+        for i, layer in enumerate(self.layers()):
+            out = (remat_call(layer, x, src_mask, pad_mask, pos_embs) if self.remat
+                   else layer(x, src_mask, pad_mask, pos_embs))
+            x = out if keep is None else torch.where(keep[i], out, x)
         return self.norm(x)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32, device=None) -> list:

@@ -10,7 +10,8 @@ torch layers do the same: their parameters stay float32, and when
   compute dtype, then the bias is added in it (flax `Dense`);
 - `LayerNorm`: statistics and normalisation in float32 with float32 scale
   and bias, one rounding of the output (flax `LayerNorm`);
-- `Conv2d`: input and kernel cast, the bias added after the convolution.
+- `Conv1d`, `Conv2d`: input and kernel cast, the bias added after the
+  convolution.
 
 `set_compute_dtype(model, dtype)` sets it on every such layer. With no
 compute dtype they are the plain torch layers. Without autograd (decoding)
@@ -75,6 +76,18 @@ class LayerNorm(nn.LayerNorm):
             return super().forward(x)
         return F.layer_norm(x.to(torch.float32), self.normalized_shape, self.weight,
                             self.bias, self.eps).to(cd)
+
+
+class Conv1d(nn.Conv1d):
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        if cd is None:
+            return super().forward(x)
+        w, b = cast_params(self, cd, ("weight", "bias"))
+        y = F.conv1d(x.to(cd), w, None, self.stride, self.padding)
+        return y + b[:, None]
 
 
 class Conv2d(nn.Conv2d):

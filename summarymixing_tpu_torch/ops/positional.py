@@ -1,8 +1,10 @@
-"""Absolute sinusoidal positional encoding — the port of the `sinusoid_table`
-and `positional_encoding` functions of `summarymixing_tpu/ops/positional.py`,
-with `positional_row`, the table's rows at given positions (the JAX
-package gathers those rows from a `max_length` table in its cached decode
-steps and its streaming encoder).
+"""Sinusoidal positional encodings — the port of `sinusoid_table`,
+`positional_encoding` and `relpos_xl_table` from
+`summarymixing_tpu/ops/positional.py`, with `positional_row`, the table's
+rows at given positions (the JAX package gathers those rows from a
+`max_length` table in its cached decode steps and its streaming encoder).
+Every table is computed in float32 (sin in the even columns, cos in the
+odd), then cast.
 """
 
 from __future__ import annotations
@@ -45,3 +47,13 @@ def positional_encoding(length: int, dim: int, dtype: torch.dtype = torch.float3
                         device=None) -> torch.Tensor:
     """`[1, length, dim]` table to add to the inputs."""
     return sinusoid_table(length, dim, dtype, device)[None]
+
+
+def relpos_xl_table(length: int, dim: int, dtype: torch.dtype = torch.float32,
+                    device=None) -> torch.Tensor:
+    """`[1, 2·length - 1, dim]`: the encodings of the relative positions
+    length-1, ..., 1, 0, -1, ..., -(length-1) (query index minus key
+    index), from the most-past key to the most-future, as `RelPosMHAXL`'s
+    rel-shift reads them."""
+    pos = torch.arange(length - 1, -length, -1, dtype=torch.float32, device=device)
+    return _sinusoids(pos[:, None], dim, dtype)[None]

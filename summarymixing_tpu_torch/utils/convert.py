@@ -31,13 +31,18 @@ LM's: `emb.emb`, `encoder.layer_i.{self_att,pos_ffn,norm1,norm2}`,
 `encoder.norm`, `out`, with `out_proj` and `out_norm` for the "sb" head;
 the Conformer's `ffn1`, `ffn2`, `norm_ffn1`, `norm_ffn2`, `norm1`,
 `norm2`, `mixer.global_proj`, `convolution_module.{layer_norm,bottleneck,
-after_norm,pointwise_out}`; the transducer's `proj_enc`, `predictor.lstm`,
+after_norm,pointwise_out}`; the encoders' attention mixers'
+`{q,k,v,out}_proj`, RelPosMHAXL's bias-free `pos_proj` and its `pos_bias_u`,
+`pos_bias_v`, HyperMixing's `hyper_in`, `hyper_out`, the Branchformer's
+Dense `merge_proj` beside an attention mixer; the transducer's `proj_enc`, `predictor.lstm`,
 `predictor.proj_dec`, `joint.transducer_lin`, `proj_ctc`, `dec_lin`; the
 RNNLM's `emb`, `lstm_0`, `lstm_1`, ..., `dnn`, `out`), so the bridge is a
 tree walk with these layout rules:
 
 - `torch.nn.Linear`: the Dense `kernel` `[in, out]` becomes `weight`
   `[out, in]`;
+- `torch.nn.Conv1d` (`Conv1dFFN`'s `conv_0`, `conv_1`): the `kernel`
+  `[K, in, out]` becomes `weight` `[out, in, K]`;
 - `torch.nn.Conv2d`: the `kernel` `HWIO` becomes `weight` `OIHW`;
 - `torch.nn.LayerNorm`: `scale` becomes `weight`;
 - `torch.nn.Embedding`: `embedding` becomes `weight`;
@@ -87,6 +92,9 @@ def _leaf_rules(mod: nn.Module) -> Dict[str, tuple]:
     """port parameter name -> (flax names it consumes, reader of the subtree)."""
     if isinstance(mod, nn.Linear):
         return {"weight": _leaf("kernel", lambda a: a.T), "bias": _leaf("bias")}
+    if isinstance(mod, nn.Conv1d):
+        return {"weight": _leaf("kernel", lambda a: a.transpose(2, 1, 0)),
+                "bias": _leaf("bias")}
     if isinstance(mod, nn.Conv2d):
         return {"weight": _leaf("kernel", lambda a: a.transpose(3, 2, 0, 1)),
                 "bias": _leaf("bias")}

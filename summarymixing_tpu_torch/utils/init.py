@@ -35,7 +35,7 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Draw every parameter from `generator`: Linear and Conv2d weights
+    """Draw every parameter from `generator`: Linear and Conv weights
     `lecun_normal_` (fan-in: the weight's size over its output axis) with
     zero biases, LayerNorms at (1, 0), embeddings normal with std
     1/sqrt(width), and `FanInDense` and the port's own modules through
@@ -43,7 +43,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     for mod in model.modules():
         if isinstance(mod, FanInDense):
             mod.reset_parameters(generator)
-        elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+        elif isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
             if mod.bias is not None:
                 nn.init.zeros_(mod.bias)

@@ -288,12 +288,13 @@ def test_runners_end_to_end_with_resume(corpus, tmp_path):
     ("train", "transducer", ["--profile-steps", "2"]),
     ("train", "synth", ["--profile-steps", "2"]),
     ("evaluate", "synth", ["--set", "model.mode=SummaryMixing-lite"]),
+    ("evaluate", "synth", ["--set", "model.causal=true"]),
 ])
 def test_runners_take_what_was_refused(corpus, tmp_path, runner, recipe, args):
     """These were refused until they were ported. `--profile` traces steps
     4-5 of a 5-step run: the trace and the table land in the directory and
-    the summary names the trace. A lite run trains (2 steps) and the
-    evaluate runner decodes it greedily to its end."""
+    the summary names the trace. A lite or a causal run trains (2 steps)
+    and the evaluate runner decodes it greedily to its end."""
     recipe = {"synth": SYNTH, "transducer": SYNTH_TRANSDUCER}[recipe]
     run = str(tmp_path / "run")
     train_args = [recipe, "--train-manifest", corpus["train"], "--valid-manifest", corpus["dev"],
@@ -314,7 +315,6 @@ def test_runners_take_what_was_refused(corpus, tmp_path, runner, recipe, args):
 
 @pytest.mark.parametrize("runner,recipe,args,match", [
     ("evaluate", "transducer", ["--seq-parallel", "2"], "seq-parallel"),
-    ("evaluate", "synth", ["--set", "model.causal=true"], "causal"),
     ("evaluate", "synth", ["--seq-parallel", "2"], "seq-parallel"),
 ])
 def test_runners_refuse_what_is_not_ported(corpus, tmp_path, runner, recipe, args, match):
