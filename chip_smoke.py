@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`summarymixing_tpu_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase, on one card
+    python3 chip_smoke.py --processes 4    # phase 25 alone, 4 processes, one card each
 
 Phases (any failure exits non-zero):
 
@@ -278,6 +279,39 @@ Neither kernel lies on phases 14-16: both launch counters must stay 0.
    tolerances) and causal regularMHA, request 0 greedy. Prints each
    section's seconds.
 
+25. Several processes (`summarymixing_tpu_torch/parallel/`), two on the
+   one card over gloo (NCCL refuses two processes on one device), started
+   with `spawn` (CUDA cannot fork) after the kernels are built. First, in
+   this process, both kernels at the sharded shapes against their plain
+   versions: the cell's split route (`sm_partial` on each half of B=8,
+   T=751, the sums and counts added, `sm_finish` on each; also against
+   the whole-T kernel) and the cgMLP on T/2 + 30 frames (15 halo frames
+   each side) against the whole-T plain version's frames, each timed by
+   CUDA graph beside its bound. (a) The train runner on the flagship
+   recipe (phase 12's corpus, 20-row buckets, dropout 0, no augmentation,
+   4 steps) as one process and as two: each process's validation loss
+   (the two within P25_RANK_AGREE, against the single run within
+   TRAIN_LOSS_TOL), ms per step of both runs (two processes on one card:
+   a correctness run, not a scaling number), peak memory and launches per
+   process, the one-writer files. (b) Request 0 of phase 4 (waveform
+   padded so the frame count is even) through
+   `parallel.sequence.sequence_parallel_ctc_decode` in each process
+   against the whole-T decode in that process: max |dlogp| over the
+   valid frames and the greedy frame agreement at phase 5's tolerances,
+   identical rows, both decodes' ms; 18 `sm_partial`, 18 `sm_finish`, 18
+   halo cgMLP launches and no plain call per process and forward; the
+   collectives of one sharded decode counted, and each kind timed alone
+   (the flagship's gradient all-reduce, a cell's sums, a halo exchange).
+   (c) `recipes.evaluate --seq-parallel 2` on (a)'s checkpoint against
+   the single-process greedy run: the WER, the decode and the hypotheses
+   row by row (at least P25_ROW_AGREE the same); beside it, as a witness
+   of the batch shape alone, one process on the same checkpoint with
+   the rows per batch of a data shard (half of them on one card) against
+   the full batches, and the rows that differ in each. About 50 s. With
+   `--processes N` the script runs phases 1, 2 and 25 alone with N
+   processes, one card each over NCCL: (b) over N shards, (c) over
+   P25_SEQ shards and a data axis of N / P25_SEQ.
+
 `plain_calls` (cells or cgMLP branches on the card whose configuration the
 kernel does not take, run on the plain path) is set to 0 at phase 4 and
 must still be 0 after phases 4, 7 and 9: the flagship takes both kernels
@@ -288,8 +322,10 @@ over phases 4, 7, 9, 10, 12-16 and 18-24, and each by path (`serve`,
 `reference_checkpoint` for phase 22's runners; `lite`, `expdecay`,
 `summary_decoder_expdecay`, `runner_profile` and `export_transducer` for
 phase 23; `baselines`, `baseline_sweep`, `baseline_train` and
-`transformer_encoder` for phase 24), with the phase-17 rows under
-`serving_shapes`.
+`transformer_encoder` for phase 24; `dist_train`, `seq_parallel` and
+`seq_parallel_runner` for phase 25, both processes and the single-process
+runs they are held against), with the phase-17 rows under
+`serving_shapes` and phase 25's under `split_route` and `halo_route`.
 
 The line before the last holds nvidia-smi's name and power limit; the last
 line is `{"ok": true, "device": {...}}`. No JAX is imported here.
@@ -454,6 +490,22 @@ SWEEP_DECODES = 6       # per model and length, the two models in turns
 # the Transformer encoder at 12 layers, d512 (the flagship's other widths)
 TRANSFORMER_LAYERS = 12
 TRANSFORMER_PARAMS = {"SummaryMixing": 47_039_720, "regularMHA": 40_742_120}
+# phase 25: two processes on the one card (gloo), the flagship recipe at
+# dropout 0 without augmentation; 20-row buckets, so the bucket sizes of one
+# process already divide by two and both runs draw the same batches
+P25_RANKS = 2               # processes on the one card; `--processes N`: one card each
+P25_SEQ = 2                 # (c): `evaluate --seq-parallel`, the rest a data axis
+P25_STEPS = 4
+P25_MAX_BATCH = 20
+P25_SETTINGS = ("training.max_batch_length=72.0", "training.num_buckets=2",
+                f"training.max_batch_ex={P25_MAX_BATCH}", "model.transformer_dropout=0.0",
+                "augment.speed_perturb=false", "augment.fea_augment=false")
+P25_RANK_AGREE = 1e-6       # |valid loss rank 0 - rank 1|: one all-reduced value
+# phase 5's tolerances of the kernel path against the plain path (a sharded
+# decode sums the pooled mean in another order and rounds it to bf16 again)
+PATH_LOGP_TOL, PATH_FRAME_AGREE = 1.0, 0.95
+P25_ROW_AGREE = 0.95        # (c): share of utterances with the same hypothesis
+P25_TIMEOUT = 300
 
 
 def fail(msg: str) -> None:
@@ -4033,6 +4085,459 @@ def phase_baselines(kernel_rows) -> None:
     print(f"phase 24 (the paper's baselines): {time.perf_counter() - t_all:.1f} s wall")
 
 
+def phase_split_kernels(kernel_rows) -> None:
+    """The kernels at phase 25's shapes against their plain versions: the
+    cell's split route (`sm_partial` on each of two time shards of B=8,
+    T=751, the sums and counts added, `sm_finish` on each) and the cgMLP
+    on a shard extended by 15 halo frames each side (T/2 + 30 = 406
+    frames), into the kernels' rows under `split_route` and `halo_route`."""
+    import torch
+
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(2525)
+    b, t, d, c2, k = BATCH, max(LENGTHS), 512, 3072, 31
+    bf = torch.bfloat16
+
+    def w(*shape, scale=None, dtype=bf):
+        s = scale if scale is not None else (shape[-1] if len(shape) > 1 else 512) ** -0.5
+        return ((torch.rand(*shape, generator=g, device=dev) * 2 - 1) * s).to(dtype)
+
+    x = torch.randn(b, t, d, generator=g, device=dev).to(bf)
+    lens = torch.tensor(LENGTHS, device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).to(torch.float32)
+    pad = mask[..., None].contiguous()
+    merge = w(d, 2 * d)
+    cell = (w(d, d), w(d, scale=0.1), w(d, d), w(d, scale=0.1), w(d, d), w(d, scale=0.1),
+            w(d, d), w(d, scale=0.1), merge[:, :d], merge[:, d:], w(d, scale=0.1))
+    half = -(-t // P25_RANKS)
+    shards = [(x[:, i:i + half].contiguous(), pad[:, i:i + half].contiguous())
+              for i in range(0, t, half)]
+
+    def split(partial, finish):
+        parts = [partial(xs, ps, cell, "gelu") for xs, ps in shards]
+        total = sum(p[0] for p in parts)
+        count = sum(p[1] for p in parts)
+        return torch.cat([finish(p[2], ps, total, count, cell, "gelu", bf)
+                          for p, (_, ps) in zip(parts, shards)], dim=1)
+
+    got = split(fused_summary.fused_summary_partial, fused_summary.fused_summary_finish)
+    want = split(fused_summary.summary_partial_reference,
+                 lambda pre, _, total, count, *rest: fused_summary.summary_finish_reference(
+                     pre, total, count, *rest))
+    whole = fused_summary.fused_summary_mixing(x, pad, cell, "gelu")
+    torch.cuda.synchronize()
+    abs_err, err = rel_err(got, want)
+    _, err_whole = rel_err(got, whole)
+    ok = err <= CELL_TOL and err_whole <= CELL_TOL
+    print(f"kernel summary_mixing split route (2 shards of B={b}, T={t}): max_abs_err "
+          f"{abs_err:.3e} max_rel_err {err:.3e} against the plain split, {err_whole:.3e} against "
+          f"the whole-T kernel, tol {CELL_TOL:.3e} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("the cell's split route disagrees with its plain version")
+    xs0, ps0 = shards[0]
+    pre0 = fused_summary.fused_summary_partial(xs0, ps0, cell, "gelu")
+    one = lambda: fused_summary.fused_summary_finish(  # noqa: E731
+        fused_summary.fused_summary_partial(xs0, ps0, cell, "gelu")[2], ps0, pre0[0], pre0[1],
+        cell, "gelu", bf)
+    ms = graph_ms(one)
+    plain_ms = cuda_ms(lambda: fused_summary.summary_finish_reference(
+        fused_summary.summary_partial_reference(xs0, ps0, cell, "gelu")[2], pre0[0], pre0[1],
+        cell, "gelu", bf))
+    valid0 = int(ps0.sum())
+    split_bound = bound(xs0.numel() * 2 + ps0.numel() * 4 + xs0.numel() * 2
+                        + sum(v.numel() * 2 for v in cell) + 2 * b * d * 4,
+                        2 * valid0 * d * d * 5 + 2 * b * d * d)
+    print(f"kernel summary_mixing split route, shard 0 (B={b}, T={half}, {valid0} valid frames): "
+          f"{ms:.4f} ms (graph, sm_partial + sm_finish), plain {plain_ms:.4f} ms, bound "
+          f"{split_bound[0]:.4f} ms ({split_bound[1]})")
+
+    branch = (w(c2, d), w(c2, scale=0.1, dtype=torch.float32),
+              1.0 + w(c2 // 2, scale=0.1, dtype=torch.float32),
+              w(c2 // 2, scale=0.1, dtype=torch.float32),
+              w(k, c2 // 2, scale=k ** -0.5, dtype=torch.float32),
+              1.0 + w(c2 // 2, scale=0.1, dtype=torch.float32),
+              w(d, c2 // 2), w(d, scale=0.1, dtype=torch.float32))
+    h = (k - 1) // 2
+    xw = torch.cat([x.new_zeros(b, h, d), x[:, :half + h]], dim=1).contiguous()
+    mw = torch.cat([mask.new_zeros(b, h), mask[:, :half + h]], dim=1).contiguous()
+    got = fused_csgu.fused_convolution_branch(xw, mw, branch)[:, h:h + half]
+    want = fused_csgu.convolution_branch_reference(x, mask, branch)[:, :half]
+    torch.cuda.synchronize()
+    c_abs, c_err = rel_err(got, want)
+    ok = c_err <= CSGU_TOL
+    print(f"kernel csgu halo route (B={b}, T={half} + {2 * h} halo frames): max_abs_err "
+          f"{c_abs:.3e} max_rel_err {c_err:.3e} against the whole-T plain version's frames, tol "
+          f"{CSGU_TOL:.3e} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("the cgMLP halo route disagrees with its plain version")
+    c_ms = graph_ms(lambda: fused_csgu.fused_convolution_branch(xw, mw, branch))
+    c_plain = cuda_ms(lambda: fused_csgu.convolution_branch_reference(xw, mw, branch))
+    m = b * xw.shape[1]
+    halo_bound = bound(xw.numel() * 2 + mw.numel() * 4 + m * d * 2
+                       + sum(v.numel() * v.element_size() for v in branch),
+                       2 * m * d * c2 + 2 * m * (c2 // 2) * d, 2 * m * (c2 // 2) * k)
+    print(f"kernel csgu halo route: {c_ms:.4f} ms (graph), plain {c_plain:.4f} ms, bound "
+          f"{halo_bound[0]:.4f} ms ({halo_bound[1]})")
+    kernel_rows["summary_mixing"]["split_route"] = dict(
+        shape=f"B={b}, T={t} on {P25_RANKS} shards", max_abs_err=abs_err, ms=ms,
+        plain_ms=plain_ms, bound_ms=split_bound[0], bound_by=split_bound[1])
+    kernel_rows["csgu"]["halo_route"] = dict(
+        shape=f"B={b}, T={half}+{2 * h}", max_abs_err=c_abs, ms=c_ms, plain_ms=c_plain,
+        bound_ms=halo_bound[0], bound_by=halo_bound[1])
+
+
+def p25_train_args(here: str, corpus: dict, out: str) -> list:
+    sets = [a for kv in P25_SETTINGS for a in ("--set", kv)]
+    return [os.path.join(here, FLAGSHIP_RECIPE), "--train-manifest", corpus["train"],
+            "--valid-manifest", corpus["dev"], "--output", out, "--steps", str(P25_STEPS)] + sets
+
+
+def p25_eval_args(here: str, corpus: dict, ckpt: str) -> list:
+    sets = [a for kv in P25_SETTINGS for a in ("--set", kv)]
+    return [os.path.join(here, FLAGSHIP_RECIPE), "--test-manifest", corpus["test"],
+            "--ckpt", ckpt] + sets
+
+
+def p25_counters() -> dict:
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+
+    cell, branch = fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch
+    return {"summary_mixing": {"launches": cell.launches, "plain_calls": cell.plain_calls,
+                               "backwards": cell.backwards, "partial": cell.partial_launches,
+                               "finish": cell.finish_launches},
+            "csgu": {"launches": branch.launches, "plain_calls": branch.plain_calls,
+                     "backwards": branch.backwards, "halo": branch.halo_launches}}
+
+
+def p25_zero_counters() -> None:
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+
+    for fn in (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch):
+        for key in ("launches", "plain_calls", "backwards", "partial_launches",
+                    "finish_launches", "halo_launches"):
+            if hasattr(fn, key):
+                setattr(fn, key, 0)
+
+
+def p25_seq_decode(rank: int, ranks: int) -> dict:
+    """(b), in each process: request 0 through the time-sharded greedy CTC
+    decode, and the whole-T decode on this process for comparison."""
+    import torch
+    import torch.nn.functional as F
+
+    from summarymixing_tpu_torch.config import build_model
+    from summarymixing_tpu_torch.decoding.ctc import collapse_ctc, ctc_greedy_decode
+    from summarymixing_tpu_torch.frontend.features import InputNormalization
+    from summarymixing_tpu_torch.parallel import sequence
+
+    cfg = flagship_config()
+    model, fbank = build_model(cfg)
+    model.eval()
+    wav, lens = request0(cfg.features.sample_rate)
+    rem = (-(1 + wav.shape[1] // fbank.hop_length)) % ranks
+    wav = F.pad(wav, (0, rem * fbank.hop_length))
+    with torch.no_grad():
+        feats, _ = InputNormalization()(fbank(wav), seeded_norm_stats())
+    feat_lens = fbank.frame_lengths(lens)
+    mesh = sequence.make_seq_mesh(n_data=1, n_seq=ranks, device="cuda")
+    decode = sequence.sequence_parallel_ctc_decode(model, mesh)
+    encode = sequence.sequence_parallel_encode(model, mesh)
+    decode(feats, feat_lens)
+    torch.cuda.synchronize()
+    p25_zero_counters()
+    t0 = time.perf_counter()
+    ids, keep, enc_len = decode(feats, feat_lens)
+    torch.cuda.synchronize()
+    sharded_ms = (time.perf_counter() - t0) * 1e3
+    counts = p25_counters()
+
+    def whole():
+        with torch.no_grad():
+            enc, out_len = model.encode(feats, feat_lens)
+            return model.ctc_head(enc), out_len
+
+    whole()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp, out_len = whole()
+    torch.cuda.synchronize()
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    w_ids, w_keep = ctc_greedy_decode(lp, out_len)
+    enc_local, _ = encode(feats, feat_lens)
+    with torch.no_grad():
+        lp_local = model.ctc_head(enc_local)
+    start = rank * -(-lp.shape[1] // ranks)
+    pos = start + torch.arange(lp_local.shape[1], device=lp.device)
+    valid = pos[None, :] < out_len[:, None]
+    seg = lp[:, start:start + lp_local.shape[1]]
+    dlogp = float((lp_local - seg).abs().amax(-1)[valid].max())
+    frames = float((lp_local.argmax(-1) == seg.argmax(-1))[valid].float().mean())
+    hyps, w_hyps = collapse_ctc(ids, keep), collapse_ctc(w_ids, w_keep)
+    collectives = p25_collectives(lambda: decode(feats, feat_lens))
+    return {"collectives": collectives, "frames": int(lp.shape[1]), "local_frames": int(lp_local.shape[1]),
+            "lengths_equal": bool((enc_len == out_len).all()), "max_dlogp": dlogp,
+            "frame_agree": frames, "same_rows": sum(a == b for a, b in zip(hyps, w_hyps)),
+            "rows": len(hyps), "sharded_ms": sharded_ms, "whole_ms": whole_ms,
+            "counts": counts}
+
+
+def p25_collectives(decode) -> dict:
+    """The collectives of one sharded decode (`decode()`), counted by
+    wrapping `parallel.comm`'s two, and each kind timed alone between the
+    two processes: the flagship's gradient all-reduce (float32, as many
+    values as its trainable parameters with the decoder), one cell's
+    `[8, 512]` sums and `[8]` counts, and one cgMLP halo exchange
+    (`[1, 8, 30, 512]` bf16 edges)."""
+    import torch
+    import torch.distributed as dist
+
+    from summarymixing_tpu_torch.parallel import comm
+
+    calls = {"all_reduce_": 0, "all_gather_rows": 0}
+    real = {name: getattr(comm, name) for name in calls}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in calls:
+        setattr(comm, name, counted(name))
+    try:
+        decode()
+    finally:
+        for name, fn in real.items():
+            setattr(comm, name, fn)
+
+    def timed(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    grads = torch.zeros(FLAGSHIP_TRAIN_PARAMS, device="cuda")
+    sums = torch.zeros(BATCH * 512 + BATCH, device="cuda")
+    edges = torch.zeros(1, BATCH, 30, 512, dtype=torch.bfloat16, device="cuda")
+    return {"per_decode": calls, "grad_allreduce_ms": timed(lambda: comm.all_reduce_(grads), 3),
+            "sum_allreduce_ms": timed(lambda: comm.all_reduce_(sums), 20),
+            "halo_allgather_ms": timed(lambda: comm.all_gather_rows(edges), 20)}
+
+
+def p25_rank(rank: int, ranks: int, port: int, here: str, corpus: dict, root: str) -> None:
+    """One of phase 25's `ranks` processes (started with `spawn`): (a) the
+    train runner, (b) the time-sharded decode over every process, (c)
+    `evaluate --seq-parallel P25_SEQ`; writes its results to
+    `root/p25_rank<rank>.json`."""
+    os.environ.update(SMT_COORDINATOR=f"127.0.0.1:{port}", SMT_NUM_PROCESSES=str(ranks),
+                      SMT_PROCESS_ID=str(rank))
+    sys.path.insert(0, here)
+    import torch
+    import torch.distributed as dist
+
+    from summarymixing_tpu_torch.recipes import evaluate, train
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank}
+    p25_zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.main(p25_train_args(here, corpus, os.path.join(root, "p25_dist")))
+    torch.cuda.synchronize()
+    out["a"] = {"valid_loss": res["valid"]["loss"], "steps": res["steps"], "step_s": res["step_s"],
+                "dist": res["dist"], "seconds": time.perf_counter() - t0,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "counts": p25_counters()}
+    out["b"] = p25_seq_decode(rank, ranks)
+    p25_zero_counters()
+    summary = evaluate.main(p25_eval_args(here, corpus, os.path.join(root, "p25_dist", "save"))
+                            + ["--seq-parallel", str(P25_SEQ)])
+    out["c"] = {"WER": summary["WER"], "decode": summary["decode"],
+                "seq_parallel": summary.get("seq_parallel"), "hyps": summary["hyps"],
+                "utterances": summary["utterances"], "counts": p25_counters()}
+    with open(os.path.join(root, f"p25_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_distributed(kernel_rows, here: str, corpus: dict, root: str,
+                      ranks: int = P25_RANKS) -> None:
+    """Phase 25: multi-process training and sequence-parallel decoding,
+    `ranks` processes: two on the one card over gloo (NCCL refuses two
+    processes on one device), or one per card (`--processes N`)."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from summarymixing_tpu_torch.config import load_recipe
+    from summarymixing_tpu_torch.data.batching import DynamicBucketBatcher
+    from summarymixing_tpu_torch.data.dataio import read_manifest_csv
+    from summarymixing_tpu_torch.recipes import common, evaluate, train
+
+    t_all = time.perf_counter()
+    phase_split_kernels(kernel_rows)
+    single, counts_1, secs_1, peak_1 = run_stage(
+        "p25 single-process train", train.main,
+        p25_train_args(here, corpus, os.path.join(root, "p25_single")))
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    # spawn: CUDA cannot fork; the kernels are already built (phase 2)
+    ctx = mp.start_processes(p25_rank, args=(ranks, port, here, corpus, root), nprocs=ranks,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + P25_TIMEOUT
+    while not ctx.join(timeout=5):
+        if time.perf_counter() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            fail(f"phase 25: the {ranks} processes did not finish in {P25_TIMEOUT} s")
+    spawn_s = time.perf_counter() - t0
+    procs = []
+    for r in range(ranks):
+        with open(os.path.join(root, f"p25_rank{r}.json")) as f:
+            procs.append(json.load(f))
+    n_layers = 18
+    # (a)
+    cfg = load_recipe(os.path.join(here, FLAGSHIP_RECIPE),
+                      overrides=common.parse_overrides(list(P25_SETTINGS)))
+    dev = read_manifest_csv(corpus["dev"])
+    lengths, buckets = common.build_buckets(dev, cfg, valid=True, batch_multiple=ranks)
+    n_valid = DynamicBucketBatcher(lengths, buckets, shuffle=False, drop_last=False).num_batches()
+    want = n_layers * (P25_STEPS + n_valid)
+    losses = [rk["a"]["valid_loss"] for rk in procs]
+    base = single["valid"]["loss"]
+    rel = abs(losses[0] - base) / abs(base)
+    for rk in procs:
+        a = rk["a"]
+        print(f"p25 (a) rank {rk['rank']}: {a['dist']}, valid loss {a['valid_loss']:.8f}, "
+              f"{step_ms(a['step_s'])}, peak memory {a['peak_gib']:.2f} GiB, counts {a['counts']}")
+    spread = max(losses) - min(losses)
+    print(f"p25 (a) single process: valid loss {base:.8f}, {step_ms(single['step_s'])}, peak "
+          f"memory {peak_1:.2f} GiB; the processes differ by {spread:.3e} (tol "
+          f"{P25_RANK_AGREE:g}), against the single run {rel:.3e} relative (tol "
+          f"{TRAIN_LOSS_TOL:g}); {n_valid} validation batches; "
+          + ("two processes on one card: a correctness run, not a scaling number"
+             if torch.cuda.device_count() < ranks else f"{ranks} cards"))
+    if spread > P25_RANK_AGREE or rel > TRAIN_LOSS_TOL:
+        fail("phase 25 (a): the processes disagree with each other or with the single run")
+    for rk in procs:
+        c = rk["a"]["counts"]
+        got = [(c[k]["launches"], c[k]["plain_calls"], c[k]["backwards"]) for k in c]
+        if (rk["a"]["steps"] != P25_STEPS or rk["a"]["dist"]["processes"] != ranks
+                or got != [(want, 0, n_layers * P25_STEPS)] * 2):
+            fail(f"phase 25 (a) rank {rk['rank']}: steps {rk['a']['steps']}, counts {c}, "
+                 f"expected {want} launches and {n_layers * P25_STEPS} backwards each")
+    dist_dir = os.path.join(root, "p25_dist")
+    files = {name: os.path.exists(os.path.join(dist_dir, name))
+             for name in ["train_log.txt", "save"] + [f"train_log.p{r}.txt"
+                                                      for r in range(1, ranks)]}
+    print(f"p25 (a) one-writer files: {files}; save steps "
+          f"{sorted(os.listdir(os.path.join(dist_dir, 'save')))}")
+    if not all(files.values()):
+        fail(f"phase 25 (a): one-writer files {files}")
+    # (b)
+    for rk in procs:
+        bb = rk["b"]
+        cs, cc = bb["counts"]["summary_mixing"], bb["counts"]["csgu"]
+        ok = (bb["lengths_equal"] and bb["max_dlogp"] <= PATH_LOGP_TOL
+              and bb["frame_agree"] >= PATH_FRAME_AGREE)
+        print(f"p25 (b) rank {rk['rank']}: T'={bb['frames']} ({bb['local_frames']} here), max "
+              f"|dlogp| {bb['max_dlogp']:.4f} (tol {PATH_LOGP_TOL}), frame agreement "
+              f"{bb['frame_agree']:.4f} (tol >= {PATH_FRAME_AGREE}), identical rows "
+              f"{bb['same_rows']}/{bb['rows']}, sharded {bb['sharded_ms']:.2f} ms, whole-T "
+              f"{bb['whole_ms']:.2f} ms, launches {cs['launches']} + {cc['launches']}: sm_partial "
+              f"{cs['partial']}, sm_finish {cs['finish']}, halo cgMLP {cc['halo']}, plain calls "
+              f"{cs['plain_calls']} + {cc['plain_calls']} "
+              f"{'ok' if ok else 'FAILED'}")
+        print(f"p25 (b) rank {rk['rank']}: collectives {bb['collectives']}")
+        if not ok:
+            fail("phase 25 (b): the sharded decode disagrees with the whole-T decode")
+        if (cs["launches"], cs["partial"], cs["finish"], cc["launches"], cc["halo"],
+                cs["plain_calls"], cc["plain_calls"]) != (
+                2 * n_layers, n_layers, n_layers, n_layers, n_layers, 0, 0):
+            fail(f"phase 25 (b) rank {rk['rank']}: counts {bb['counts']}, expected "
+                 f"{n_layers} of each route and no plain call")
+    # (c)
+    ref, counts_r, secs_r, peak_r = run_stage(
+        "p25 single-process evaluate greedy", evaluate.main,
+        p25_eval_args(here, corpus, os.path.join(dist_dir, "save")))
+    # a witness of the batch shape alone: one process, the same checkpoint,
+    # the data shard's rows per batch (half of them on one card)
+    half_rows = P25_MAX_BATCH // max(2, ranks // P25_SEQ)
+    half, counts_h, _, _ = run_stage(
+        f"p25 single-process evaluate greedy, {half_rows}-row batches", evaluate.main,
+        p25_eval_args(here, corpus, os.path.join(dist_dir, "save"))
+        + ["--set", f"training.max_batch_ex={half_rows}"])
+    c0 = procs[0]["c"]
+    same = sum(ref["hyps"][u] == h for u, h in c0["hyps"].items())
+    share = same / max(len(c0["hyps"]), 1)
+    agree = all(rk["c"]["hyps"] == c0["hyps"] for rk in procs)
+    flipped = sorted(u for u, h in c0["hyps"].items() if ref["hyps"][u] != h)
+    flipped_h = sorted(u for u, h in half["hyps"].items() if ref["hyps"][u] != h)
+    print(f"p25 (c) evaluate --seq-parallel {P25_SEQ} over {ranks} processes: WER "
+          f"{c0['WER']:.2f} over "
+          f"{c0['utterances']} utterances ({c0['decode']}, seq_parallel {c0['seq_parallel']}) "
+          f"against the single process's {ref['WER']:.2f}; identical hypotheses {same}/"
+          f"{len(c0['hyps'])} (tol >= {P25_ROW_AGREE}); the processes agree: {agree}; counts "
+          f"{[rk['c']['counts'] for rk in procs]}")
+    print(f"p25 (c) witness, one process: {half_rows}-row batches against "
+          f"{P25_MAX_BATCH}-row ones, WER {half['WER']:.2f}, identical hypotheses "
+          f"{len(half['hyps']) - len(flipped_h)}/{len(half['hyps'])}; rows that differ from "
+          f"the {P25_MAX_BATCH}-row run: sharded {flipped}, {half_rows}-row {flipped_h}, both "
+          f"{sorted(set(flipped) & set(flipped_h))}")
+    if (c0["decode"] != "greedy_ctc_seq_parallel" or c0["seq_parallel"] != P25_SEQ
+            or share < P25_ROW_AGREE or not agree or c0["utterances"] != ref["utterances"]):
+        fail("phase 25 (c): the sharded evaluation disagrees with the single process")
+    print(f"p25: backend {procs[0]['a']['dist']['backend']} on CUDA tensors (torch "
+          f"{torch.__version__}); the {ranks} processes took {spawn_s:.1f} s; phase 25 "
+          f"{time.perf_counter() - t_all:.1f} s wall")
+    for name in ("summary_mixing", "csgu"):
+        rows = kernel_rows[name]
+        rows["launches_by_path"]["dist_train"] = counts_1[name][0] + sum(
+            rk["a"]["counts"][name]["launches"] for rk in procs)
+        rows["plain_calls_by_path"]["dist_train"] = counts_1[name][1] + sum(
+            rk["a"]["counts"][name]["plain_calls"] for rk in procs)
+        rows["launches_by_path"]["seq_parallel"] = sum(
+            rk["b"]["counts"][name]["launches"] for rk in procs)
+        rows["plain_calls_by_path"]["seq_parallel"] = 0
+        rows["launches_by_path"]["seq_parallel_runner"] = counts_r[name][0] + counts_h[name][
+            0] + sum(rk["c"]["counts"][name]["launches"] for rk in procs)
+        rows["plain_calls_by_path"]["seq_parallel_runner"] = counts_r[name][1] + counts_h[name][
+            1] + sum(rk["c"]["counts"][name]["plain_calls"] for rk in procs)
+
+
+def main_processes(n: int, smi: str, here: str) -> int:
+    """`--processes N`: phase 25 alone with N processes, one card each
+    (NCCL), after the build; the same last lines as the whole script."""
+    import torch
+
+    if torch.cuda.device_count() < n:
+        fail(f"--processes {n} needs {n} cards, found {torch.cuda.device_count()}")
+    rows = {name: {"name": name, "launches_by_path": {}, "plain_calls_by_path": {}}
+            for name in ("summary_mixing", "csgu")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_") as root:
+        corpus = make_corpus(here, os.path.join(root, "corpus"))
+        phase_distributed(rows, here, corpus, root, ranks=n)
+    print(json.dumps({"kernels": [rows["summary_mixing"], rows["csgu"]]}))
+    print(f"nvidia-smi: {smi}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     try:
@@ -4045,8 +4550,15 @@ def main() -> int:
         import summarymixing_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"the port package is not next to this script: {e}")
+    processes = 0
+    if sys.argv[1:2] == ["--processes"] and len(sys.argv) == 3:
+        processes = int(sys.argv[2])
+    elif len(sys.argv) > 1:
+        fail(f"usage: python3 chip_smoke.py [--processes N]; got {sys.argv[1:]}")
     smi = phase_device()
     phase_build()
+    if processes:
+        return main_processes(processes, smi, here)
     kernel_rows = phase_kernels()
     phase_masked_kernels(kernel_rows)
     model, fbank, stats, batches, results, n_params = phase_main_path(kernel_rows)
@@ -4096,6 +4608,8 @@ def main() -> int:
         phase_reference_checkpoint(kernel_rows, here, root)
         torch.cuda.empty_cache()
         phase_modes_and_tooling(kernel_rows, here, corpus, root)
+        torch.cuda.empty_cache()
+        phase_distributed(kernel_rows, here, corpus, root)
     torch.cuda.empty_cache()
     phase_baselines(kernel_rows)
     for row in kernel_rows.values():

@@ -34,7 +34,10 @@ tokenizers, recipes read by `config/yaml_lite.py`). Serving and shipping
 a trained run: `serving.py` (the dynamic batcher and the streaming session
 server), the `serve`, `transcribe` and `export_model` runners,
 `utils/export.py` (`torch.export` artifacts, the kernels as registered
-`torch.library` ops) and FLAC input (`data/flac.py`). Parameters are
+`torch.library` ops) and FLAC input (`data/flac.py`). Several devices
+(`parallel/`): the multi-process launch, data parallelism in both
+trainers and the time-sharded greedy CTC decode (`evaluate
+--seq-parallel`), on `torch.distributed`. Parameters are
 float32; the layers compute in bf16 for `precision: bf16`, as the flax
 modules do. On the card a configuration a kernel does not take runs the
 plain PyTorch path, counted in the wrapper's `plain_calls`.

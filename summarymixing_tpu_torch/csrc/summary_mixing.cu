@@ -42,9 +42,20 @@
 //       frame (pre is taken as 0 on a padded frame, as (c) does), so (c)
 //       then reads pre on every frame.
 //
-// C interface: sm_forward(...) returns 0, a CUDA error after the launches,
-// or cudaErrorInvalidValue for an unknown activation or a tensor map that
-// cannot be encoded.
+// The split route (a time-sharded encode, one shard of T per process):
+// the cell's only coupling across frames is the pooled mean, so
+//   sm_partial runs (a) and then partial_sum_pass, which reduces the tile
+//     partials of each utterance, in tile order, to one fp32 row [B, OS]
+//     and counts its valid frames [B] (fp32); pre [B, T, N] stays on the
+//     device;
+//   the caller all-reduces the sums and the counts over the shards;
+//   sm_finish runs (b) on the reduced row (one "tile", the count given)
+//     and (c).
+// No keep-mask: the route serves inference.
+//
+// C interface: sm_forward(...), sm_partial(...) and sm_finish(...) return
+// 0, a CUDA error after the launches, or cudaErrorInvalidValue for an
+// unknown activation or a tensor map that cannot be encoded.
 
 #include "gemm_sm90.cuh"
 
@@ -246,17 +257,10 @@ __global__ void __launch_bounds__(kCoreThreads, 1) branch_pass(
 
 constexpr int kPoolCols = 32;
 
-// With `scaled` (dropout), no fold: pooled * scale to `pooled_out` [B, OS]
-// (by the column-block-0 blocks) and bias = mb; pooled_pass adds the rest.
-__global__ void __launch_bounds__(kThreads) pool_pass(
-    const float* __restrict__ partial, const float* __restrict__ pad, int T, int n_tiles, int OS,
-    int N, const bf16* __restrict__ m2, int ldm2, const bf16* __restrict__ mb,
-    float* __restrict__ bias, int scaled, float scale, bf16* __restrict__ pooled_out) {
-  extern __shared__ __align__(16) float pooled[];  // [OS]
-  __shared__ float red[kThreads / 32];
-  const int b = blockIdx.y, n_first = blockIdx.x * kPoolCols;
+// Valid frames of utterance b: the sum of its pad row, in a fixed order.
+__device__ __forceinline__ float pad_count(const float* __restrict__ pad, int T, int b,
+                                           float* red) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-
   float cnt = 0.0f;
   for (int t = threadIdx.x; t < T; t += kThreads) cnt += pad[(size_t)b * T + t];
   cnt = warp_sum(cnt);
@@ -264,7 +268,24 @@ __global__ void __launch_bounds__(kThreads) pool_pass(
   __syncthreads();
   float count = 0.0f;
   for (int w = 0; w < kThreads / 32; ++w) count += red[w];
-  count = fmaxf(count, 1.0f);
+  return count;
+}
+
+// With `scaled` (dropout), no fold: pooled * scale to `pooled_out` [B, OS]
+// (by the column-block-0 blocks) and bias = mb; pooled_pass adds the rest.
+// With `count_in` (the split route) the count is read from it, else
+// counted from pad.
+__global__ void __launch_bounds__(kThreads) pool_pass(
+    const float* __restrict__ partial, const float* __restrict__ pad, int T, int n_tiles, int OS,
+    int N, const bf16* __restrict__ m2, int ldm2, const bf16* __restrict__ mb,
+    float* __restrict__ bias, int scaled, float scale, bf16* __restrict__ pooled_out,
+    const float* __restrict__ count_in) {
+  extern __shared__ __align__(16) float pooled[];  // [OS]
+  __shared__ float red[kThreads / 32];
+  const int b = blockIdx.y, n_first = blockIdx.x * kPoolCols;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+
+  const float count = fmaxf(count_in != nullptr ? count_in[b] : pad_count(pad, T, b, red), 1.0f);
 
   for (int o = threadIdx.x; o < OS; o += kThreads) {
     float s = 0.0f;
@@ -285,6 +306,22 @@ __global__ void __launch_bounds__(kThreads) pool_pass(
     for (int o = lane; o < OS; o += 32) acc += pooled[o] * bf(m2[(size_t)n * ldm2 + o]);
     acc = warp_sum(acc);
     if (lane == 0) bias[(size_t)b * N + n] = acc + bf(mb[n]);
+  }
+}
+
+// The split route's reduction: per utterance (block b), the sum of the tile
+// partials in tile order -> sum [B, OS], and the valid-frame count -> count [B].
+__global__ void __launch_bounds__(kThreads) partial_sum_pass(
+    const float* __restrict__ partial, const float* __restrict__ pad, int T, int n_tiles, int OS,
+    float* __restrict__ sum, float* __restrict__ count) {
+  __shared__ float red[kThreads / 32];
+  const int b = blockIdx.x;
+  const float c = pad_count(pad, T, b, red);
+  if (threadIdx.x == 0) count[b] = c;
+  for (int o = threadIdx.x; o < OS; o += kThreads) {
+    float s = 0.0f;
+    for (int i = 0; i < n_tiles; ++i) s += partial[((size_t)b * n_tiles + i) * OS + o];
+    sum[(size_t)b * OS + o] = s;
   }
 }
 
@@ -395,12 +432,7 @@ __global__ void __launch_bounds__(kThreads) finish_pass(const float* __restrict_
 }
 
 template <int ACT>
-static cudaError_t launch(const bf16* x, const float* pad, int B, int T, int D, int HL, int OL,
-                          int HS, int OS, int N, const bf16* w1, const bf16* b1, const bf16* w2,
-                          const bf16* b2, const bf16* s1, const bf16* c1, const bf16* s2,
-                          const bf16* c2, const bf16* m1, int ldm1, const bf16* m2, int ldm2,
-                          const bf16* mb, const uint8_t* keep, float scale, float* partial,
-                          float* bias, bf16* pooled, float* pre, bf16* out, cudaStream_t stream) {
+static cudaError_t set_attributes() {
   static bool attribute_set = false;
   if (!attribute_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -411,8 +443,21 @@ static cudaError_t launch(const bf16* x, const float* pad, int B, int T, int D, 
     if (err != cudaSuccess) return err;
     attribute_set = true;
   }
-  if (keep != nullptr && OS > kMaxWidth) return cudaErrorInvalidValue;
-  CUtensorMap mx, mw1, mw2, ms1, ms2, mm1, mm2;
+  return cudaSuccess;
+}
+
+// (a) on x [B, T, D]; with a keep-mask also the M2 map for (d), into *mm2.
+template <int ACT>
+static cudaError_t launch_branches(const bf16* x, const float* pad, int B, int T, int D, int HL,
+                                   int OL, int HS, int OS, int N, const bf16* w1, const bf16* b1,
+                                   const bf16* w2, const bf16* b2, const bf16* s1, const bf16* c1,
+                                   const bf16* s2, const bf16* c2, const bf16* m1, int ldm1,
+                                   const bf16* m2, int ldm2, const uint8_t* keep, float scale,
+                                   float* partial, float* pre, CUtensorMap* mm2,
+                                   cudaStream_t stream) {
+  cudaError_t err = set_attributes<ACT>();
+  if (err != cudaSuccess) return err;
+  CUtensorMap mx, mw1, mw2, ms1, ms2, mm1;
   const uint64_t xdims[3] = {(uint64_t)D, (uint64_t)T, (uint64_t)B};
   const uint64_t xstrides[2] = {(uint64_t)D * 2, (uint64_t)T * D * 2};
   const uint32_t xbox[3] = {(uint32_t)kBK, (uint32_t)kTile, 1};
@@ -422,20 +467,73 @@ static cudaError_t launch(const bf16* x, const float* pad, int B, int T, int D, 
       !smt_host::matrix_map(&ms1, s1, HS, D, D, kChunk) ||
       !smt_host::matrix_map(&ms2, s2, OS, HS, HS, kChunk) ||
       !smt_host::matrix_map(&mm1, m1, N, OL, ldm1, kChunk) ||
-      (keep != nullptr && !smt_host::matrix_map(&mm2, m2, N, OS, ldm2, kChunk)))
+      (keep != nullptr && !smt_host::matrix_map(mm2, m2, N, OS, ldm2, kChunk)))
     return cudaErrorInvalidValue;
-  const int n_tiles = (T + kTile - 1) / kTile, ldk = OL + OS;
+  const int n_tiles = (T + kTile - 1) / kTile;
   branch_pass<ACT><<<dim3(n_tiles, B, 2), kCoreThreads, kBranchSmem, stream>>>(
-      mx, mw1, mw2, ms1, ms2, mm1, pad, T, D, HL, OL, HS, OS, N, b1, b2, c1, c2, keep, ldk,
+      mx, mw1, mw2, ms1, ms2, mm1, pad, T, D, HL, OL, HS, OS, N, b1, b2, c1, c2, keep, OL + OS,
       scale, partial, pre);
-  pool_pass<<<dim3(N / kPoolCols, B), kThreads, OS * sizeof(float), stream>>>(
-      partial, pad, T, n_tiles, OS, N, m2, ldm2, mb, bias, keep != nullptr, scale, pooled);
-  if (keep != nullptr)
-    pooled_pass<<<dim3(n_tiles, B), kCoreThreads, kPooledSmem, stream>>>(
-        mm2, keep, ldk, OL, pooled, pad, T, OS, N, pre);
+  return cudaSuccess;
+}
+
+template <int ACT>
+static void launch_finish_pass(const float* pre, const float* pad, const float* bias, int B,
+                               int T, int N, int pre_all, bf16* out, cudaStream_t stream) {
   const size_t total = (size_t)B * T * N;
   finish_pass<ACT><<<(unsigned)((total / 4 + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      pre, pad, bias, T, N, total, keep != nullptr, out);
+      pre, pad, bias, T, N, total, pre_all, out);
+}
+
+template <int ACT>
+static cudaError_t launch(const bf16* x, const float* pad, int B, int T, int D, int HL, int OL,
+                          int HS, int OS, int N, const bf16* w1, const bf16* b1, const bf16* w2,
+                          const bf16* b2, const bf16* s1, const bf16* c1, const bf16* s2,
+                          const bf16* c2, const bf16* m1, int ldm1, const bf16* m2, int ldm2,
+                          const bf16* mb, const uint8_t* keep, float scale, float* partial,
+                          float* bias, bf16* pooled, float* pre, bf16* out, cudaStream_t stream) {
+  if (keep != nullptr && OS > kMaxWidth) return cudaErrorInvalidValue;
+  CUtensorMap mm2;
+  cudaError_t err = launch_branches<ACT>(x, pad, B, T, D, HL, OL, HS, OS, N, w1, b1, w2, b2, s1,
+                                         c1, s2, c2, m1, ldm1, m2, ldm2, keep, scale, partial,
+                                         pre, &mm2, stream);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (T + kTile - 1) / kTile;
+  pool_pass<<<dim3(N / kPoolCols, B), kThreads, OS * sizeof(float), stream>>>(
+      partial, pad, T, n_tiles, OS, N, m2, ldm2, mb, bias, keep != nullptr, scale, pooled,
+      nullptr);
+  if (keep != nullptr)
+    pooled_pass<<<dim3(n_tiles, B), kCoreThreads, kPooledSmem, stream>>>(
+        mm2, keep, OL + OS, OL, pooled, pad, T, OS, N, pre);
+  launch_finish_pass<ACT>(pre, pad, bias, B, T, N, keep != nullptr, out, stream);
+  return cudaGetLastError();
+}
+
+// The split route's first half: (a), then each utterance's sum [B, OS] and count [B].
+template <int ACT>
+static cudaError_t launch_partial(const bf16* x, const float* pad, int B, int T, int D, int HL,
+                                  int OL, int HS, int OS, int N, const bf16* w1, const bf16* b1,
+                                  const bf16* w2, const bf16* b2, const bf16* s1, const bf16* c1,
+                                  const bf16* s2, const bf16* c2, const bf16* m1, int ldm1,
+                                  float* partial, float* sum, float* count, float* pre,
+                                  cudaStream_t stream) {
+  cudaError_t err = launch_branches<ACT>(x, pad, B, T, D, HL, OL, HS, OS, N, w1, b1, w2, b2, s1,
+                                         c1, s2, c2, m1, ldm1, nullptr, 0, nullptr, 1.0f,
+                                         partial, pre, nullptr, stream);
+  if (err != cudaSuccess) return err;
+  partial_sum_pass<<<B, kThreads, 0, stream>>>(partial, pad, T, (T + kTile - 1) / kTile, OS, sum,
+                                               count);
+  return cudaGetLastError();
+}
+
+// The split route's second half, on the sums and counts reduced over the shards.
+template <int ACT>
+static cudaError_t launch_finish(const float* pre, const float* pad, int B, int T, int OS, int N,
+                                 const bf16* m2, int ldm2, const bf16* mb, const float* sum,
+                                 const float* count, float* bias, bf16* out,
+                                 cudaStream_t stream) {
+  pool_pass<<<dim3(N / kPoolCols, B), kThreads, OS * sizeof(float), stream>>>(
+      sum, pad, T, 1, OS, N, m2, ldm2, mb, bias, 0, 1.0f, nullptr, count);
+  launch_finish_pass<ACT>(pre, pad, bias, B, T, N, 0, out, stream);
   return cudaGetLastError();
 }
 
@@ -459,4 +557,34 @@ extern "C" int sm_forward(const void* x, const void* pad, int B, int T, int D, i
                  (const bf16*)m1, ldm1, (const bf16*)m2, ldm2, (const bf16*)mb,
                  (const uint8_t*)keep, scale, (float*)partial, (float*)bias, (bf16*)pooled,
                  (float*)pre, (bf16*)out, (cudaStream_t)stream);
+}
+
+extern "C" int sm_partial(const void* x, const void* pad, int B, int T, int D, int HL, int OL,
+                          int HS, int OS, int N, const void* w1, const void* b1, const void* w2,
+                          const void* b2, const void* s1, const void* c1, const void* s2,
+                          const void* c2, const void* m1, int ldm1, void* partial, void* sum,
+                          void* count, void* pre, int act, void* stream) {
+  using smt::bf16;
+  auto fn = act == smt::ACT_GELU_ERF ? smt::launch_partial<smt::ACT_GELU_ERF>
+          : act == smt::ACT_GELU_TANH ? smt::launch_partial<smt::ACT_GELU_TANH>
+                                      : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)fn((const bf16*)x, (const float*)pad, B, T, D, HL, OL, HS, OS, N,
+                 (const bf16*)w1, (const bf16*)b1, (const bf16*)w2, (const bf16*)b2,
+                 (const bf16*)s1, (const bf16*)c1, (const bf16*)s2, (const bf16*)c2,
+                 (const bf16*)m1, ldm1, (float*)partial, (float*)sum, (float*)count, (float*)pre,
+                 (cudaStream_t)stream);
+}
+
+extern "C" int sm_finish(const void* pre, const void* pad, int B, int T, int OS, int N,
+                         const void* m2, int ldm2, const void* mb, const void* sum,
+                         const void* count, void* bias, void* out, int act, void* stream) {
+  using smt::bf16;
+  auto fn = act == smt::ACT_GELU_ERF ? smt::launch_finish<smt::ACT_GELU_ERF>
+          : act == smt::ACT_GELU_TANH ? smt::launch_finish<smt::ACT_GELU_TANH>
+                                      : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)fn((const float*)pre, (const float*)pad, B, T, OS, N, (const bf16*)m2, ldm2,
+                 (const bf16*)mb, (const float*)sum, (const float*)count, (float*)bias,
+                 (bf16*)out, (cudaStream_t)stream);
 }

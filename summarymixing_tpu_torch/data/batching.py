@@ -8,8 +8,9 @@ inversely with length to keep the audio per batch near the reference's
 duration budget. The JAX package needs the fixed shapes so that XLA
 compiles once per bucket; the port keeps them so that both packages draw
 the same batches from the same seed, and so that the card sees few
-shapes (the library kernels pick their algorithms per shape). The port
-runs on one card, so its callers pass `batch_multiple` 1."""
+shapes (the library kernels pick their algorithms per shape). The
+runners pass the process count as `batch_multiple`
+(`recipes/common.py::build_buckets`), 1 in one process."""
 
 from __future__ import annotations
 

@@ -125,14 +125,23 @@ class NormStats:
                 "m2": torch.zeros(dim, dtype=torch.float32, device=device)}
 
     @staticmethod
-    def update(stats: dict, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> dict:
-        """x `[B, T, F]`; pad_mask `[B, T]`, 1 = valid."""
+    def update(stats: dict, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+               reduce=None) -> dict:
+        """x `[B, T, F]`; pad_mask `[B, T]`, 1 = valid. `reduce`, given, sums
+        tensors over the data-parallel processes (`GradientSync.sum_`): the
+        batch's count, sum and squared deviations are then the whole global
+        batch's, as one process would see them."""
         if pad_mask is None:
             pad_mask = torch.ones(x.shape[:2], dtype=x.dtype, device=x.device)
         w = pad_mask[..., None].to(torch.float32)
         n_b = w.sum()
-        mean_b = (x * w).sum(dim=(0, 1)) / n_b.clamp_min(1.0)
+        s_b = (x * w).sum(dim=(0, 1))
+        if reduce is not None:
+            n_b, s_b = reduce(n_b, s_b)
+        mean_b = s_b / n_b.clamp_min(1.0)
         m2_b = (((x - mean_b) ** 2) * w).sum(dim=(0, 1))
+        if reduce is not None:
+            (m2_b,) = reduce(m2_b)
         n_a, mean_a, m2_a = stats["count"], stats["mean"], stats["m2"]
         n = n_a + n_b
         delta = mean_b - mean_a
@@ -162,9 +171,10 @@ class InputNormalization:
         self.std_norm = std_norm
 
     def __call__(self, x: torch.Tensor, stats: dict, pad_mask: Optional[torch.Tensor] = None,
-                 epoch: Optional[int] = None, update: bool = False) -> Tuple[torch.Tensor, dict]:
+                 epoch: Optional[int] = None, update: bool = False,
+                 reduce=None) -> Tuple[torch.Tensor, dict]:
         if update and (epoch is None or epoch + 1 < self.update_until_epoch):
-            stats = NormStats.update(stats, x, pad_mask)
+            stats = NormStats.update(stats, x, pad_mask, reduce)
         mean, std = NormStats.mean_std(stats)
         out = x - mean
         return (out / std if self.std_norm else out), stats

@@ -28,6 +28,7 @@ from summarymixing_tpu_torch.models.transformer import (
     TransformerDecoder,
     TransformerEncoder,
 )
+from summarymixing_tpu_torch.ops import time_shard
 from summarymixing_tpu_torch.ops.layers import Dense, Dropout
 from summarymixing_tpu_torch.ops.masks import (
     chunked_context_mask,
@@ -138,6 +139,15 @@ class TransformerASR(nn.Module):
 
     def _src_masks(self, t: int, wav_len: Optional[torch.Tensor],
                    dynchunktrain: Optional[DynChunkTrainConfig], device):
+        """(pad mask `[B, t]` or None, attention mask or None). In a
+        time-sharded encode `t` is the shard's; the pad mask is this
+        shard's frames of the whole T' one (`parallel/sequence.py`)."""
+        shard = time_shard.current()
+        if shard is not None:
+            if dynchunktrain is not None or self.causal or wav_len is None:
+                raise NotImplementedError("a time-sharded encode is offline, not causal, and "
+                                          "takes relative lengths")
+            return shard.set_pad(rel_length_to_mask(wav_len, shard.frames)), None
         pad_mask = None if wav_len is None else rel_length_to_mask(wav_len, t)
         src_mask = None
         if dynchunktrain is not None:
@@ -164,7 +174,12 @@ class TransformerASR(nn.Module):
             pos_embs = relpos_xl_table(t, self.d_model, src.dtype, src.device)
         elif (self.positional_encoding == "fixed_abs_sine"
               and self.attention_type != "hypermixing"):
-            src = src + positional_encoding(t, self.d_model, src.dtype, src.device)
+            shard = time_shard.current()
+            if shard is None:
+                src = src + positional_encoding(t, self.d_model, src.dtype, src.device)
+            else:   # the rows of the whole table at this shard's frames
+                pos = shard.start + torch.arange(t, device=src.device)
+                src = src + positional_row(pos, self.d_model, src.dtype)[None]
         if self.encoder_module == "conformer":
             return self.encoder(src, src_mask, pad_mask, pos_embs, chunk_size)
         return self.encoder(src, src_mask, pad_mask, pos_embs)

@@ -71,11 +71,13 @@ class SpeechRecognizer(nn.Module):
         return self.asr.encode(x, wav_len_rel, dynchunktrain), out_len
 
     # -- chunked streaming ---------------------------------------------------
-    def frontend(self, feats: torch.Tensor, input_frame_offset=None) -> torch.Tensor:
+    def frontend(self, feats: torch.Tensor, input_frame_offset=None,
+                 input_frame_count=None) -> torch.Tensor:
         """The CNN alone: `[B, T, F]` -> `[B, T/4, F']` encoder input;
-        `input_frame_offset` makes a chunk's stream-start zero padding exact
+        `input_frame_offset` makes a chunk's stream-start zero padding exact,
+        and `input_frame_count` a window's zero padding at the stream's end
         (`ops.convolution.ConvolutionFrontEnd`)."""
-        return self.cnn(feats, input_frame_offset)
+        return self.cnn(feats, input_frame_offset, input_frame_count)
 
     def streaming_init(self, batch: int, dynchunk: DynChunkTrainConfig,
                        dtype: torch.dtype = torch.float32) -> ASRStreamingState:

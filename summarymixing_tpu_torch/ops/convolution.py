@@ -16,6 +16,13 @@ the JAX module is plain `jnp`: its depthwise conv is SAME, causal, or the
 Dynamic Chunk Convolution, whose future taps are gated by `t % chunk`. Its
 kernel is kept as `[C, 1, K]`, the layout of `torch.nn.functional.conv1d`
 with C groups (the flax `[K, C]` is transposed by `utils.convert`).
+
+In a time-sharded encode (`parallel/sequence.py`) the cgMLP branch and the
+convolution module run on their input extended by (K-1)//2 frames from
+each neighbouring shard, with those frames' pad mask, and keep their own
+frames; on the card the cgMLP kernel then runs on the extended frames,
+and its wrapper counts the launch in `fused_convolution_branch.halo_launches`
+too.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from summarymixing_tpu_torch.ops import _build, fused_csgu
+from summarymixing_tpu_torch.ops import _build, fused_csgu, time_shard
 from summarymixing_tpu_torch.ops.layers import Conv2d, Dense, Dropout, LayerNorm
 from summarymixing_tpu_torch.ops.linear import get_activation
 from summarymixing_tpu_torch.ops.summary_mixing import uses_kernel
@@ -118,6 +125,14 @@ class ConvolutionBranch(nn.Module):
         self.post_channel_proj = Dense(linear_units // 2, input_size)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        shard = time_shard.current()
+        if shard is not None:
+            h = (self.csgu.conv_kernel.shape[0] - 1) // 2
+            out = self._forward(shard.halo(x, h, h), shard.pad_window(h, h).to(x.dtype))
+            return out[:, h:h + x.shape[1]]
+        return self._forward(x, pad_mask)
+
+    def _forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
         if uses_kernel(x):
             if fused_csgu.takes(d=x.shape[-1], units=self.pre_channel_proj.out_features,
                                 kernel_size=self.csgu.conv_kernel.shape[0],
@@ -174,6 +189,18 @@ class ConvolutionModule(nn.Module):
                 chunk_size=None) -> torch.Tensor:
         """x `[B, T, C]`; pad_mask `[B, T]` float, 1 = valid; `chunk_size`
         (frames) turns on the Dynamic Chunk Convolution."""
+        shard = time_shard.current()
+        if shard is not None:
+            if chunk_size is not None or self.causal:
+                raise NotImplementedError("a time-sharded convolution module is offline: no "
+                                          "Dynamic Chunk Convolution, not causal")
+            h = (self.conv_kernel.shape[-1] - 1) // 2
+            out = self._forward(shard.halo(x, h, h), shard.pad_window(h, h).to(x.dtype), None)
+            return out[:, h:h + x.shape[1]]
+        return self._forward(x, pad_mask, chunk_size)
+
+    def _forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                 chunk_size) -> torch.Tensor:
         a, b = self.bottleneck(self.layer_norm(x)).chunk(2, dim=-1)
         out = a * torch.sigmoid(b)
         if pad_mask is not None:
@@ -194,12 +221,17 @@ class ConvolutionModule(nn.Module):
         return out
 
 
-def _mask_start(x: torch.Tensor, offset, time_dim: int) -> torch.Tensor:
-    """Zero the frames of `x` before global frame 0, frame 0 of `x` being
-    global frame `offset` (an int or a `[B]` tensor, per row, may be
-    negative); `time_dim` is 1 (NHWC) or 2 (NCHW)."""
+def _mask_start(x: torch.Tensor, offset, time_dim: int, count: Optional[int] = None
+                ) -> torch.Tensor:
+    """Zero the frames of `x` before global frame 0, and with `count` those
+    at or past global frame `count`, frame 0 of `x` being global frame
+    `offset` (an int or a `[B]` tensor, per row, may be negative);
+    `time_dim` is 1 (NHWC) or 2 (NCHW)."""
     off = torch.as_tensor(offset, device=x.device).reshape(-1, 1)
-    keep = (off + torch.arange(x.shape[time_dim], device=x.device)[None, :]) >= 0
+    pos = off + torch.arange(x.shape[time_dim], device=x.device)[None, :]
+    keep = pos >= 0
+    if count is not None:
+        keep = keep & (pos < count)
     shape = [keep.shape[0], 1, 1, 1]
     shape[time_dim] = x.shape[time_dim]
     return x * keep.reshape(shape).to(x.dtype)
@@ -224,24 +256,30 @@ class ConvolutionFrontEnd(nn.Module):
         self.num_blocks = len(self.strides)
         self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor, input_frame_offset=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, input_frame_offset=None,
+                input_frame_count: Optional[int] = None) -> torch.Tensor:
         """`input_frame_offset` (int or `[B]`, may be negative) marks x's
         frame 0 as global frame `input_frame_offset` of a longer stream:
         frames before global frame 0 are zeroed at the input and after
         every block, which reproduces the offline stack's zero padding at
         the stream start (the chunked streaming frontend, `streaming.py`).
-        It must be divisible by the product of the strides."""
+        It must be divisible by the product of the strides. With
+        `input_frame_count`, the stream's length in frames, the frames at
+        or past its end (ceil(count / s) after each block of stride s) are
+        zeroed too, the offline stack's padding at the stream's end (a
+        time shard's window, `parallel/sequence.py`)."""
         x = x.to(self.conv_0.compute_dtype or self.conv_0.weight.dtype)[:, None]  # [B, 1, T, F]
-        offset = input_frame_offset
+        offset, count = input_frame_offset, input_frame_count
         if offset is not None:
-            x = _mask_start(x, offset, time_dim=2)
+            x = _mask_start(x, offset, time_dim=2, count=count)
         for i in range(self.num_blocks):
             x = getattr(self, f"conv_{i}")(x)
             x = getattr(self, f"norm_{i}")(x.permute(0, 2, 3, 1))  # NHWC
             x = self.dropout(F.leaky_relu(x, 0.01))
             if offset is not None:
                 offset = offset // self.strides[i]
-                x = _mask_start(x, offset, time_dim=1)
+                count = None if count is None else -(-count // self.strides[i])
+                x = _mask_start(x, offset, time_dim=1, count=count)
             if i + 1 < self.num_blocks:
                 x = x.permute(0, 3, 1, 2)
         b, t, f, c = x.shape

@@ -58,7 +58,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from summarymixing_tpu_torch.ops import _build
+from summarymixing_tpu_torch.ops import _build, time_shard
 from summarymixing_tpu_torch.ops.linear import gelu_tanh
 
 KERNEL_SIZES = (15, 31)   # conv widths instantiated in csrc/csgu.cu
@@ -226,6 +226,9 @@ def _launch(x, pad_mask, weights, eps, keep, keep_prob):
     if err:
         raise RuntimeError(f"cgMLP kernel launch failed with CUDA error {err}")
     _counts.launches += 1
+    if time_shard.current() is not None:
+        # a time-sharded encode: the shard's frames and their halos
+        _counts.halo_launches += 1
     return out
 
 
@@ -306,7 +309,10 @@ def fused_convolution_branch(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
     `fused_convolution_branch.launches` counts kernel launches,
     `fused_convolution_branch.backwards` the backward passes through them
     and `fused_convolution_branch.plain_calls` the branches on the card
-    whose configuration the kernel does not take (`takes`)."""
+    whose configuration the kernel does not take (`takes`);
+    `fused_convolution_branch.halo_launches` counts the launches made
+    inside a time-sharded encode (`ops/time_shard.py`), on a shard's
+    frames and their halos, beside `launches`."""
     if x.device.type == "cpu":
         return convolution_branch_reference(x, pad_mask, weights, eps, keep, keep_prob)
     if x.device.type != "cuda":
@@ -317,5 +323,6 @@ def fused_convolution_branch(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
 fused_convolution_branch.launches = 0
 fused_convolution_branch.backwards = 0
 fused_convolution_branch.plain_calls = 0
+fused_convolution_branch.halo_launches = 0
 # the counters stay on the wrapper when a caller swaps the module attribute
 _counts = fused_convolution_branch

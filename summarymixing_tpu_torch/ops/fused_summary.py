@@ -50,6 +50,18 @@ Source note (csrc/summary_mixing.cu):
   and whose fake implementation gives the output's shape, so a model on
   the card exports with `torch.export` and its graph launches the kernel.
 
+- The split route (a time-sharded encode, `parallel/sequence.py`): the
+  pooled mean is the cell's only coupling across frames, so the passes
+  split around one all-reduce of a `[B, OS]` fp32 sum and a `[B]`
+  count. `sm_partial` runs (a) and reduces each utterance's tile
+  partials, in tile order, to its sum and valid-frame count;
+  `sm_finish` takes the sums and counts reduced over the shards and
+  runs (b) and (c). `pooled` is rounded to bf16 after the division, as
+  on the whole T; only the order of the fp32 sum differs. Inference
+  only: no keep-mask. Registered ops `summarymixing_torch::summary_mixing_partial`
+  and `::summary_mixing_finish`; each launch counts in `launches` and in
+  `partial_launches` or `finish_launches`.
+
 Weights use `torch.nn.Linear`'s layout, `[out, in]`; M1 and M2 are the
 column blocks of the merge layer's weight and may be strided views of it.
 """
@@ -104,6 +116,35 @@ def summary_mixing_reference(x: torch.Tensor, pad: torch.Tensor, weights: Tuple,
         pooled = torch.where(keep[..., ol:], pooled / keep_prob, zero)
         merged = _mm(local, m1) + _mm(pooled, m2) + mb.to(f32)
     return act(merged).to(x.dtype)
+
+
+def summary_partial_reference(x: torch.Tensor, pad: torch.Tensor, weights: Tuple,
+                              activation: str = "gelu_exact"):
+    """Plain version of the split route's first half on one shard of T:
+    `(sum [B, OS] fp32, count [B] fp32, pre [B, T, N] fp32)`, the summary
+    branch's masked sum over this shard's frames, its valid frames, and
+    the local branch's pre-activation local·M1ᵀ."""
+    w1, b1, w2, b2, s1, c1, s2, c2, m1, m2, mb = weights
+    act = get_activation(activation)
+    f32 = torch.float32
+    padf = pad.to(f32)
+    h = act(_mm(x, s1) + c1.to(f32))
+    summ = act(_mm(h.to(x.dtype), s2) + c2.to(f32)) * padf
+    h = act(_mm(x, w1) + b1.to(f32))
+    local = (act(_mm(h.to(x.dtype), w2) + b2.to(f32)) * padf).to(x.dtype)
+    return summ.sum(dim=1), padf.sum(dim=(1, 2)), _mm(local, m1)
+
+
+def summary_finish_reference(pre: torch.Tensor, total: torch.Tensor, count: torch.Tensor,
+                             weights: Tuple, activation: str = "gelu_exact",
+                             dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version of the split route's second half: `total` `[B, OS]` and
+    `count` `[B]` summed over every shard; pooled = total / max(count, 1)
+    in `dtype`, then act(pre + pooled·M2ᵀ + mb) `[B, T, N]` in `dtype`."""
+    m2, mb = weights[9], weights[10]
+    act = get_activation(activation)
+    pooled = (total / count.clamp_min(1.0)[:, None]).to(dtype)[:, None, :]
+    return act(pre + _mm(pooled, m2) + mb.to(torch.float32)).to(dtype)
 
 
 def params_to_weights(cell) -> Tuple:
@@ -228,6 +269,21 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _split_kernels():
+    """The split route's C entry points, `(sm_partial, sm_finish)`."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib = _build.load_library("summary_mixing")
+    partial, finish = lib.sm_partial, lib.sm_finish
+    # x, pad, B, T, D, HL, OL, HS, OS, N, W1 b1 W2 b2 S1 c1 S2 c2 M1, ldM1,
+    # partial, sum, count, pre, activation, stream
+    partial.argtypes = [p, p] + [i] * 8 + [p] * 9 + [i] + [p] * 4 + [i, p]
+    # pre, pad, B, T, OS, N, M2, ldM2, mb, sum, count, bias, out, activation, stream
+    finish.argtypes = [p, p] + [i] * 4 + [p, i] + [p] * 5 + [i, p]
+    partial.restype = finish.restype = ctypes.c_int
+    return partial, finish
+
+
 def _launch(x, pad, weights, activation, keep, keep_prob):
     """One launch of the kernel on bf16 `weights` (the layout `_check` takes)."""
     b, t, d, hl, ol, hs, os_, n = _check(x, pad, weights, activation, keep)
@@ -252,6 +308,95 @@ def _launch(x, pad, weights, activation, keep, keep_prob):
         raise RuntimeError(f"SummaryMixing kernel launch failed with CUDA error {err}")
     _counts.launches += 1
     return out
+
+
+def _launch_partial(x, pad, weights, activation):
+    b, t, d, hl, ol, hs, os_, n = _check(x, pad, weights, activation)
+    w1, b1, w2, b2, s1, c1, s2, c2, m1, _, _ = weights
+    partial = torch.empty(b, -(-t // TILE), os_, dtype=torch.float32, device=x.device)
+    total = torch.empty(b, os_, dtype=torch.float32, device=x.device)
+    count = torch.empty(b, dtype=torch.float32, device=x.device)
+    pre = torch.empty(b, t, n, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _split_kernels()[0](
+            x.data_ptr(), pad.data_ptr(), b, t, d, hl, ol, hs, os_, n,
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), s1.data_ptr(),
+            c1.data_ptr(), s2.data_ptr(), c2.data_ptr(), m1.data_ptr(), m1.stride(0),
+            partial.data_ptr(), total.data_ptr(), count.data_ptr(), pre.data_ptr(),
+            KERNEL_ACTIVATIONS[activation], torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"SummaryMixing partial launch failed with CUDA error {err}")
+    _counts.launches += 1
+    _counts.partial_launches += 1
+    return total, count, pre
+
+
+def _launch_finish(pre, pad, total, count, weights, activation):
+    b, t, n = pre.shape
+    m2, mb = weights[9], weights[10]
+    os_ = m2.shape[1]
+    if (pre.dtype != torch.float32 or not pre.is_contiguous() or tuple(pad.shape) != (b, t, 1)
+            or tuple(total.shape) != (b, os_) or tuple(count.shape) != (b,)
+            or total.dtype != torch.float32 or count.dtype != torch.float32
+            or not total.is_contiguous() or not count.is_contiguous()):
+        raise ValueError(f"finish takes fp32 pre [B, T, N], pad [B, T, 1], total [B, {os_}] "
+                         f"and count [B], got {tuple(pre.shape)}, {tuple(pad.shape)}, "
+                         f"{tuple(total.shape)}, {tuple(count.shape)}")
+    bias = torch.empty(b, n, dtype=torch.float32, device=pre.device)
+    out = torch.empty(b, t, n, dtype=torch.bfloat16, device=pre.device)
+    with torch.cuda.device(pre.device):
+        err = _split_kernels()[1](
+            pre.data_ptr(), pad.data_ptr(), b, t, os_, n, m2.data_ptr(), m2.stride(0),
+            mb.data_ptr(), total.data_ptr(), count.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            KERNEL_ACTIVATIONS[activation], torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"SummaryMixing finish launch failed with CUDA error {err}")
+    _counts.launches += 1
+    _counts.finish_launches += 1
+    return out
+
+
+@torch.library.custom_op(f"{_build.OP_NAMESPACE}::summary_mixing_partial", mutates_args=(),
+                         device_types="cpu")
+def summary_partial_op(x: torch.Tensor, pad: torch.Tensor, weights: List[torch.Tensor],
+                       activation: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The split route's first half as a registered op: on the card one
+    `sm_partial` launch on bf16 `weights`; on the CPU the plain version."""
+    return summary_partial_reference(x, pad, tuple(weights), activation)
+
+
+@summary_partial_op.register_kernel("cuda")
+def _summary_partial_cuda(x, pad, weights, activation):
+    return _launch_partial(x, pad, weights, activation)
+
+
+@summary_partial_op.register_fake
+def _summary_partial_fake(x, pad, weights, activation):
+    b, t = x.shape[0], x.shape[1]
+    os_, n = weights[6].shape[0], weights[8].shape[0]
+    return (x.new_empty(b, os_, dtype=torch.float32), x.new_empty(b, dtype=torch.float32),
+            x.new_empty(b, t, n, dtype=torch.float32))
+
+
+@torch.library.custom_op(f"{_build.OP_NAMESPACE}::summary_mixing_finish", mutates_args=(),
+                         device_types="cpu")
+def summary_finish_op(pre: torch.Tensor, pad: torch.Tensor, total: torch.Tensor,
+                      count: torch.Tensor, weights: List[torch.Tensor],
+                      activation: str) -> torch.Tensor:
+    """The split route's second half as a registered op: on the card one
+    `sm_finish` launch; on the CPU the plain version (bf16 out)."""
+    return summary_finish_reference(pre, total, count, tuple(weights), activation,
+                                    torch.bfloat16)
+
+
+@summary_finish_op.register_kernel("cuda")
+def _summary_finish_cuda(pre, pad, total, count, weights, activation):
+    return _launch_finish(pre, pad, total, count, weights, activation)
+
+
+@summary_finish_op.register_fake
+def _summary_finish_fake(pre, pad, total, count, weights, activation):
+    return pre.new_empty(pre.shape, dtype=torch.bfloat16)
 
 
 @torch.library.custom_op(f"{_build.OP_NAMESPACE}::summary_mixing", mutates_args=(),
@@ -340,8 +485,43 @@ def fused_summary_mixing(x: torch.Tensor, pad: torch.Tensor, weights: Tuple,
     return kernel_call(x, pad, weights, activation, keep, keep_prob, launch_weights)
 
 
+def fused_summary_partial(x: torch.Tensor, pad: torch.Tensor, weights: Tuple,
+                          activation: str = "gelu_exact", launch_weights: Optional[Tuple] = None):
+    """The split route's first half on this shard's frames: `(total [B,
+    OS], count [B], pre [B, T, N])`, fp32. On a CPU tensor the plain
+    version in `x`'s dtype; on a CUDA tensor one `sm_partial` launch
+    (bf16 `x`, fp32 `pad`) or a raise."""
+    if x.device.type == "cpu":
+        return summary_partial_reference(x, pad, weights, activation)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if launch_weights is None:
+        launch_weights = kernel_weights(weights)
+    return summary_partial_op(x, pad, list(launch_weights), activation)
+
+
+def fused_summary_finish(pre: torch.Tensor, pad: torch.Tensor, total: torch.Tensor,
+                         count: torch.Tensor, weights: Tuple, activation: str = "gelu_exact",
+                         dtype: torch.dtype = torch.bfloat16,
+                         launch_weights: Optional[Tuple] = None) -> torch.Tensor:
+    """The split route's second half on the reduced `total` and `count`:
+    the cell's output on this shard's frames, in `dtype` (the kernel's
+    is bf16). On a CPU tensor the plain version; on a CUDA tensor one
+    `sm_finish` launch or a raise."""
+    if pre.device.type == "cpu":
+        return summary_finish_reference(pre, total, count, weights, activation, dtype)
+    if pre.device.type != "cuda":
+        raise ValueError(f"no kernel for device {pre.device}")
+    if launch_weights is None:
+        launch_weights = kernel_weights(weights)
+    return summary_finish_op(pre, pad, total.contiguous(), count.contiguous(),
+                             list(launch_weights), activation)
+
+
 fused_summary_mixing.launches = 0
 fused_summary_mixing.backwards = 0
 fused_summary_mixing.plain_calls = 0
+fused_summary_mixing.partial_launches = 0
+fused_summary_mixing.finish_launches = 0
 # the counters stay on the wrapper when a caller swaps the module attribute
 _counts = fused_summary_mixing

@@ -34,6 +34,13 @@ The kernel computes full mode only, as the Pallas kernel does, so on the
 card fast, lite and expdecay cells run this PyTorch code, each call
 counted as a plain call.
 
+In a time-sharded encode (`parallel/sequence.py`) the masked time mean
+sums its numerator and count over the shards, and a full-mode cell the
+kernel takes runs the kernel's split route (`sm_partial`, the all-reduce
+of the `[B, OS]` sums and `[B]` counts, `sm_finish`); inference only. A
+`sum_mask` and expdecay's `[T, T]` weights couple every pair of frames
+and are refused there.
+
 Incremental causal decoding (the Summary Decoder's self-attention):
 `decode_init` and `decode_step` carry the running `(sum, denom)` pair of
 the causal summary in float32, decayed by `decay_constant` per step in
@@ -51,7 +58,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from summarymixing_tpu_torch.ops import _build, fused_summary
+from summarymixing_tpu_torch.ops import _build, fused_summary, time_shard
 from summarymixing_tpu_torch.ops.layers import Dropout
 from summarymixing_tpu_torch.ops.linear import SummaryNet
 
@@ -84,9 +91,13 @@ def laplace_weights(size: int, decay_constant: float, device=None) -> torch.Tens
 def masked_time_mean(x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
     """Mean over time counting only valid steps, accumulated in float32.
     x `[B, T, F]`; pad_mask `[B, T, 1]`. Returns `[B, 1, F]`. Like the JAX
-    module, the divisor is not clamped: an all-padding row gives NaN."""
+    module, the divisor is not clamped: an all-padding row gives NaN. In a
+    time-sharded encode both sums run over every shard."""
     num = (x * pad_mask).to(torch.float32).sum(dim=1, keepdim=True)
     den = pad_mask.to(torch.float32).sum(dim=1, keepdim=True)
+    shard = time_shard.current()
+    if shard is not None:
+        num, den = shard.sum_(num, den)
     return (num / den).to(x.dtype)
 
 
@@ -150,12 +161,18 @@ class SummaryMixing(nn.Module):
             # chunked mask would train non-causally
             raise ValueError("SummaryMixing-lite has no sum_mask path; use the full or fast "
                              "mode for causal / limited-context mixing")
+        shard = time_shard.current()
+        if shard is not None and (sum_mask is not None or self.mode == "SummaryMixing-expdecay"):
+            raise NotImplementedError("a time-sharded cell pools by the masked mean: no "
+                                      "sum_mask, not expdecay")
         if pad_mask is None:
             pad_mask = torch.ones(x.shape[:2] + (1,), dtype=x.dtype, device=x.device)
         elif pad_mask.dim() == 2:
             pad_mask = pad_mask[..., None]
         if uses_kernel(x):
             if fused_summary.takes(**self._kernel_config(x, sum_mask)):
+                if shard is not None:
+                    return self._fused_split(x, pad_mask, shard)
                 return self._fused(x, pad_mask)
             fused_summary.count_plain_call()
         pad_mask = pad_mask.to(x.dtype)
@@ -229,13 +246,30 @@ class SummaryMixing(nn.Module):
                     activation=self.activation,
                     dtype=x.dtype)
 
+    def _launch_weights(self):
+        return _build.cached_weights(self, lambda m: tuple(
+            w.detach() for w in fused_summary.kernel_weights(fused_summary.params_to_weights(m))))
+
+    def _fused_split(self, x, pad_mask, shard):
+        """The kernel's split route on this shard's frames: partial sums and
+        counts, their sum over the shards, then the finish."""
+        if self.dropout.training and self.dropout.rate > 0.0:
+            raise ValueError("the split route serves inference: no dropout keep-mask")
+        pad = pad_mask.to(torch.float32).contiguous()
+        weights, launch = fused_summary.params_to_weights(self), self._launch_weights()
+        total, count, pre = fused_summary.fused_summary_partial(
+            x.contiguous(), pad, weights, self.activation, launch_weights=launch)
+        total, count = shard.sum_(total, count)
+        return fused_summary.fused_summary_finish(pre, pad, total, count, weights,
+                                                  self.activation, x.dtype,
+                                                  launch_weights=launch)
+
     def _fused(self, x, pad_mask):
         pad = pad_mask.to(torch.float32).contiguous()
         b, t, _ = x.shape
         keep = self.dropout.keep_mask(
             (b, t, self.local_proj.features[-1] + self.summary_proj.features[-1]), x.device)
-        launch = _build.cached_weights(self, lambda m: tuple(
-            w.detach() for w in fused_summary.kernel_weights(fused_summary.params_to_weights(m))))
+        launch = self._launch_weights()
         return fused_summary.fused_summary_mixing(
             x.contiguous(), pad, fused_summary.params_to_weights(self), self.activation,
             keep, 1.0 - self.dropout.rate, launch_weights=launch)

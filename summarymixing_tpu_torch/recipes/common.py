@@ -4,10 +4,16 @@ estimate, the batch iterator (WAV files in, tensors on the run's device
 out), scoring of decoded batches, greedy and beam decoding of a manifest (CTC,
 attention and transducer), a trained run restored for inference, the fusion LMs (the Transformer LM of the
 attention recipes and the RNNLM of the transducer recipes), the training
-run's tokenizer, and `--set` overrides.
+run's tokenizer, `--set` overrides, and the runners' multi-process start
+(`start_processes`).
 
-One card, so batches are not split over devices (`batch_multiple` 1), and
-the JAX loader's multi-process row split has no counterpart."""
+In a multi-process run (`parallel/launch.py`) bucket sizes are a multiple
+of the process count (`batch_multiple`, the JAX runner's global device
+count), every process iterates the same batches and tokenises every row,
+and loads only its own rows (`launch.local_rows`); decoded rows are
+gathered so every process scores the whole batch (greedy CTC's ids and
+marks with `launch.fetch_global`, token lists otherwise), and validation
+losses are summed over the processes (`launch.allreduce_counts`)."""
 
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 from summarymixing_tpu_torch.config import yaml_lite
 from summarymixing_tpu_torch.data.batching import DynamicBucketBatcher, make_buckets, pad_batch
 from summarymixing_tpu_torch.data import native_loader
+from summarymixing_tpu_torch.decoding.ctc import collapse_ctc
 from summarymixing_tpu_torch.data.dataio import Utterance
 from summarymixing_tpu_torch.data.subword import SubwordTokenizer, train_subword
 from summarymixing_tpu_torch.data.tokenizer import CharTokenizer, SentencePieceTokenizer
@@ -35,7 +42,9 @@ from summarymixing_tpu_torch.evaluate import (
     static_decode_length,
 )
 from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+from summarymixing_tpu_torch.parallel import launch
 from summarymixing_tpu_torch.training.metrics import ErrorRateStats
+from summarymixing_tpu_torch.utils.device import resolve_device
 
 KERNELS = (("summary_mixing", fused_summary.fused_summary_mixing),
            ("csgu", fused_csgu.fused_convolution_branch))
@@ -67,10 +76,30 @@ def parse_overrides(pairs: Optional[Sequence[str]]) -> Dict:
     return out
 
 
-def build_buckets(manifest: Sequence[Utterance], cfg, valid: bool = False):
+def start_processes(device: Optional[str]) -> Dict:
+    """Join a multi-process launch (`launch.initialize`, a no-op without
+    the `SMT_*` variables) on the runner's `--device` (None: the card);
+    print and return the `[dist]` facts."""
+    if not launch.initialize(device=device or "cuda"):
+        return {"processes": 1, "index": 0, "backend": None}
+    info = {"processes": launch.process_count(), "index": launch.process_index(),
+            "backend": launch.backend()}
+    print(f"[dist] process {info['index']}/{info['processes']}, backend {info['backend']}, "
+          f"device {resolve_device(device)}", flush=True)
+    return info
+
+
+def data_shards(shards: Optional[Tuple[int, int]] = None) -> Tuple[int, int]:
+    """`(count, index)` of the data axis: the processes, unless given."""
+    return shards or (launch.process_count(), launch.process_index())
+
+
+def build_buckets(manifest: Sequence[Utterance], cfg, valid: bool = False,
+                  batch_multiple: Optional[int] = None):
     """`(lengths in samples, buckets)` for a manifest: the training budget
     `max_batch_length`, or with `valid` the smaller `max_batch_length_val`
-    when the recipe sets one (the evaluation beam is wider)."""
+    when the recipe sets one (the evaluation beam is wider); batch sizes a
+    multiple of `batch_multiple`, the process count by default."""
     sr = cfg.features.sample_rate
     lengths = [int(u.duration * sr) for u in manifest]
     budget = cfg.training.max_batch_length
@@ -79,7 +108,8 @@ def build_buckets(manifest: Sequence[Utterance], cfg, valid: bool = False):
     buckets = make_buckets(
         max_batch_length=budget * sr, num_buckets=cfg.training.num_buckets,
         min_len=max(min(lengths), sr // 4), max_len=max(lengths),
-        max_batch_size=cfg.training.max_batch_ex, batch_multiple=1,
+        max_batch_size=cfg.training.max_batch_ex,
+        batch_multiple=launch.process_count() if batch_multiple is None else batch_multiple,
         quantize=cfg.training.bucket_shape_grid)
     return lengths, buckets
 
@@ -92,16 +122,20 @@ def estimate_steps_per_epoch(manifest: Sequence[Utterance], cfg) -> int:
 
 
 def batches(manifest: Sequence[Utterance], tokenizer, cfg, shuffle: bool, seed: int,
-            device) -> Iterator[Tuple[Dict[str, torch.Tensor], np.ndarray]]:
+            device, shards: Optional[Tuple[int, int]] = None
+            ) -> Iterator[Tuple[Dict[str, torch.Tensor], np.ndarray]]:
     """Yield `(batch, indices)`: `batch` holds `wav` `[B, max_len]` float32,
     `wav_lens`, `tokens` `[B, U]` and `token_lens` (int32) on `device`,
     the audio decoded by the native loader (`data/native_loader.py`).
     Training (`shuffle`) shuffles within buckets from `seed` and drops each
     bucket's short last batch; evaluation keeps every utterance, fills the
     last batch of a bucket by repetition, and pads the token axis to a
-    multiple of `eval_token_multiple`."""
+    multiple of `eval_token_multiple`. On a data axis of `shards` =
+    `(count, index)` (`data_shards`) `batch` holds this shard's rows of the
+    global batch and `indices` all of the global batch's."""
     sr = cfg.features.sample_rate
-    lengths, buckets = build_buckets(manifest, cfg, valid=not shuffle)
+    count, index = data_shards(shards)
+    lengths, buckets = build_buckets(manifest, cfg, valid=not shuffle, batch_multiple=count)
     batcher = DynamicBucketBatcher(lengths, buckets, shuffle=shuffle, seed=seed,
                                    drop_last=shuffle)
     for spec, idx in batcher:
@@ -111,10 +145,11 @@ def batches(manifest: Sequence[Utterance], tokenizer, cfg, shuffle: bool, seed: 
             m = max(int(cfg.training.eval_token_multiple), 1)
             umax = -(-umax // m) * m
         tokens, token_lens = pad_batch(toks, umax)
-        wav, wav_lens = native_loader.load_wav_batch([manifest[i].wav_path for i in idx],
+        rows = launch.local_rows(len(idx), count, index) if count > 1 else slice(None)
+        wav, wav_lens = native_loader.load_wav_batch([manifest[i].wav_path for i in idx[rows]],
                                                      spec.max_len, sr)
-        host = {"wav": wav, "wav_lens": wav_lens, "tokens": tokens.astype(np.int32),
-                "token_lens": token_lens}
+        host = {"wav": wav, "wav_lens": wav_lens, "tokens": tokens[rows].astype(np.int32),
+                "token_lens": token_lens[rows]}
         yield {k: torch.from_numpy(v).to(device) for k, v in host.items()}, idx
 
 
@@ -137,27 +172,34 @@ def record_nbest(nbest_rows: Optional[Dict], tokenizer, idx: Sequence[int],
                                   for h, sc in hyps]
 
 
+def gather_rows(rows: Sequence) -> list:
+    """Every process's rows (per-utterance items of its slice of a batch),
+    in process order: the whole batch's. One process: `rows`."""
+    if launch.process_count() == 1:
+        return list(rows)
+    return [r for part in launch.gather_objects(list(rows)) for r in part]
+
+
 def score_batch(stats: ErrorRateStats, tokenizer, batch: Dict, idx: Sequence[int], seen: set,
-                hyp_tokens, hyp_lens=None, record: Optional[Dict] = None) -> int:
+                hyp_tokens: Sequence[Sequence[int]], record: Optional[Dict] = None,
+                gathered: bool = False) -> int:
     """Score one decoded batch into `stats`, each utterance once (evaluation
     batches repeat utterances to fill the last batch of a bucket; `seen`
-    holds the indices scored so far). `hyp_tokens` is a ragged list of
-    token-id lists (greedy CTC), or a `[B, U]` array with `hyp_lens` `[B]`.
-    With `record`, each scored utterance's hypothesis words are stored
-    there under its index. Returns the number of newly scored utterances."""
+    holds the indices scored so far). `hyp_tokens` holds the token ids of
+    every row of the whole batch; `batch`'s references are gathered from
+    every process (`launch.fetch_global`), unless `gathered` says `batch`
+    already holds the whole batch's. With `record`, each scored
+    utterance's hypothesis words are stored there under its index.
+    Returns the number of newly scored utterances."""
     keep = []
     for i, u in enumerate(idx):
         if int(u) not in seen:
             seen.add(int(u))
             keep.append(i)
-    toks = batch["tokens"].cpu().numpy()
-    tlens = batch["token_lens"].cpu().numpy()
+    fetch = np.asarray if gathered else launch.fetch_global
+    toks, tlens = fetch(batch["tokens"]), fetch(batch["token_lens"])
     refs = [tokenizer.decode(toks[i, :int(tlens[i])]).split() for i in keep]
-    if hyp_lens is None:
-        hyps = [tokenizer.decode(hyp_tokens[i]).split() for i in keep]
-    else:
-        hyp_np, hlens = np.asarray(hyp_tokens), np.asarray(hyp_lens)
-        hyps = [tokenizer.decode(hyp_np[i, :int(hlens[i])]).split() for i in keep]
+    hyps = [tokenizer.decode(hyp_tokens[i]).split() for i in keep]
     stats.append(refs, hyps, ids=[int(idx[i]) for i in keep])
     if record is not None:
         record.update({int(idx[i]): hyp for i, hyp in zip(keep, hyps)})
@@ -166,15 +208,28 @@ def score_batch(stats: ErrorRateStats, tokenizer, batch: Dict, idx: Sequence[int
 
 def greedy_score(stats: ErrorRateStats, trainer, state: Dict, manifest: Sequence[Utterance],
                  tokenizer, cfg, device, record: Optional[Dict] = None) -> float:
-    """Greedy CTC over a manifest through `ASRTrainer.eval_step`, scored
+    """Greedy CTC over a manifest through `ASRTrainer.eval_greedy`, scored
     into `stats` (and each hypothesis into `record`, see `score_batch`);
-    returns the mean loss."""
+    returns the mean loss (over the batches and, in a multi-process run,
+    the processes: the same on each)."""
     losses, seen = [], set()
     for batch, idx in batches(manifest, tokenizer, cfg, False, 0, device):
-        out, hyps = trainer.eval_step(state, batch)
+        out, ids, keep = trainer.eval_greedy(state, batch)
         losses.append(float(out["loss"]))
+        hyps = collapse_ctc(launch.fetch_global(ids), launch.fetch_global(keep))
         score_batch(stats, tokenizer, batch, idx, seen, hyps, record=record)
-    return float(np.mean(losses)) if losses else 0.0
+    return mean_over_processes(losses)
+
+
+def mean_over_processes(values: Sequence[float]) -> float:
+    """The mean of per-batch values (each a mean over this process's rows)
+    over the batches and the processes; 0 without a batch."""
+    if not values:
+        return 0.0
+    if launch.process_count() == 1:
+        return float(np.mean(values))
+    (total,) = launch.allreduce_counts(float(np.sum(values, dtype=np.float64)))
+    return total / (len(values) * launch.process_count())
 
 
 def restore_inference(cfg, ckpt: str, avg: int, device):
@@ -239,8 +294,14 @@ def transducer_greedy_score(stats: ErrorRateStats, trainer, state: Dict,
         toks, lens = transducer_greedy_decode(td.encode_proj(enc_out), enc_lens,
                                               td.predictor_init, td.predictor_step,
                                               td.joint_step, blank_id=cfg.model.blank_index)
-        score_batch(stats, tokenizer, batch, idx, seen, toks.cpu(), lens.cpu(), record=record)
-    return float(np.mean(losses)) if losses else 0.0
+        hyps = gather_rows(token_rows(toks.cpu().numpy(), lens.cpu().numpy()))
+        score_batch(stats, tokenizer, batch, idx, seen, hyps, record=record)
+    return mean_over_processes(losses)
+
+
+def token_rows(toks: np.ndarray, lens: np.ndarray) -> list:
+    """`[B, U]` tokens and `[B]` lengths -> B token-id lists."""
+    return [[int(t) for t in toks[i, :int(lens[i])]] for i in range(len(lens))]
 
 
 @torch.no_grad()
@@ -267,11 +328,12 @@ def transducer_beam_score(stats: ErrorRateStats, trainer, state: Dict,
             lm_init=None if lm is None else lm.initial_state,
             lm_weight=dec.lm_weight if lm is not None else 0.0, nbest=nbest))
         if nbest > 1:
-            record_nbest(nbest_rows, tokenizer, idx,
-                         [[(toks[i, r, :lens[i, r]], scores[i, r]) for r in range(toks.shape[1])]
-                          for i in range(len(idx))])
+            ranked = gather_rows([[(toks[i, r, :lens[i, r]], scores[i, r])
+                                   for r in range(toks.shape[1])] for i in range(len(lens))])
+            record_nbest(nbest_rows, tokenizer, idx, ranked)
             toks, lens = toks[:, 0], lens[:, 0]
-        n += score_batch(stats, tokenizer, batch, idx, seen, toks, lens, record=record)
+        hyps = gather_rows(token_rows(toks, lens))
+        n += score_batch(stats, tokenizer, batch, idx, seen, hyps, record=record)
     return n
 
 
@@ -304,10 +366,17 @@ def beam_score(stats: ErrorRateStats, cfg, model, fbank, norm_stats: Dict,
     lmax = decode_length(cfg, manifest, fbank)
     seen: set = set()
     n = 0
+    count, index = data_shards()
     for batch, idx in batches(manifest, tokenizer, cfg, False, 0, device):
-        out = evaluate_beam(model, fbank, norm_stats, [(idx, batch["wav"], batch["wav_lens"])],
+        rows = launch.local_rows(len(idx), count, index) if count > 1 else slice(None)
+        out = evaluate_beam(model, fbank, norm_stats,
+                            [(idx[rows], batch["wav"], batch["wav_lens"])],
                             cfg, lm, beam_size=beam, temperature=temperature,
                             max_length=lmax, nbest=nbest)
+        for key in ("hyps", "nbest"):
+            if count > 1 and key in out:
+                out[key] = {u: h for part in launch.gather_objects(out[key])
+                            for u, h in part.items()}
         if nbest > 1:
             record_nbest(nbest_rows, tokenizer, idx, [out["nbest"][int(u)] for u in idx])
         if totals is not None:
@@ -326,7 +395,9 @@ def build_or_load_tokenizer(cfg, out_dir: str, train_set: Sequence[Utterance]):
     unigram or BPE model trained now from the transcripts to
     `model.output_neurons` pieces; char recipes load or build a character
     map (`tokenizer_vocab.json`). What is built is written to `out_dir`, so
-    evaluation decodes with the same ids."""
+    evaluation decodes with the same ids (by process 0 alone in a
+    multi-process run: every process builds the same tokenizer from the
+    same transcripts)."""
     os.makedirs(out_dir, exist_ok=True)
     if cfg.tokenizer_type == "char":
         vocab_path = os.path.join(out_dir, "tokenizer_vocab.json")
@@ -334,10 +405,11 @@ def build_or_load_tokenizer(cfg, out_dir: str, train_set: Sequence[Utterance]):
             with open(vocab_path) as f:
                 return CharTokenizer(vocab=json.load(f))
         tokenizer = CharTokenizer.build([u.text for u in train_set])
-        tmp = vocab_path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(tokenizer.vocab, f)
-        os.replace(tmp, vocab_path)
+        if launch.is_coordinator():   # one writer on a shared run directory
+            tmp = vocab_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(tokenizer.vocab, f)
+            os.replace(tmp, vocab_path)
         return tokenizer
     json_path = os.path.join(out_dir, "tokenizer.json")
     if os.path.exists(json_path):
@@ -347,7 +419,8 @@ def build_or_load_tokenizer(cfg, out_dir: str, train_set: Sequence[Utterance]):
         return SentencePieceTokenizer(sp_path)
     tokenizer = train_subword([u.text for u in train_set], cfg.model.output_neurons,
                               cfg.token_type)
-    tokenizer.save(json_path + ".tmp")
-    os.replace(json_path + ".tmp", json_path)
+    if launch.is_coordinator():
+        tokenizer.save(json_path + ".tmp")
+        os.replace(json_path + ".tmp", json_path)
     print(f"trained {cfg.token_type} tokenizer: {tokenizer.vocab_size} pieces -> {json_path}")
     return tokenizer

@@ -48,7 +48,18 @@ with blank-skip); and with
 utterance, `{"id", "nbest": [{"text", "score"}, ...]}`, score-sorted
 (rank 0 is the hypothesis scored).
 
-Not ported, and refused: `--seq-parallel` (ROADMAP.md)."""
+Several processes (`parallel/launch.py`: `SMT_COORDINATOR`,
+`SMT_NUM_PROCESSES`, `SMT_PROCESS_ID`, one process per device): each
+process decodes its rows of every batch and the rows are gathered, so
+every process scores the whole set; process 0 prints the summary and
+writes `--output`. `--seq-parallel N` (greedy CTC only) shards the
+encoder's time axis over N processes instead (`parallel/sequence.py`):
+N must divide the process count (the rest is a data axis over the
+batch's rows); the waveforms are padded (not the features) so the frame
+count divides N, every process of a seq group computes the features and
+keeps its slice, and the decode is `greedy_ctc_seq_parallel` with
+`seq_parallel`: N in the summary. One process with N > 1, a beam or a
+transducer recipe are refused, as the JAX runner refuses them."""
 
 from __future__ import annotations
 
@@ -61,13 +72,16 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from summarymixing_tpu_torch.config import build_model, build_transducer_trainer, load_recipe
 from summarymixing_tpu_torch.data.dataio import read_manifest_csv
 from summarymixing_tpu_torch.data.subword import SubwordTokenizer
 from summarymixing_tpu_torch.data.tokenizer import CharTokenizer, SentencePieceTokenizer
+from summarymixing_tpu_torch.decoding.ctc import collapse_ctc
 from summarymixing_tpu_torch.evaluate import restore_eval_state, streaming_decode
 from summarymixing_tpu_torch.frontend.features import InputNormalization
+from summarymixing_tpu_torch.parallel import launch, sequence
 from summarymixing_tpu_torch.recipes import common
 from summarymixing_tpu_torch.streaming import make_streaming_infer_fns, run_stream
 from summarymixing_tpu_torch.training.trainer import ASRTrainer, TrainerConfig
@@ -92,7 +106,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--nbest", type=int, default=1,
                     help="with --beam: also write the top N hypotheses per utterance "
                          "(nbest.jsonl under --output; rank 0 is scored)")
-    ap.add_argument("--seq-parallel", type=int, default=0, metavar="N", help="not ported")
+    ap.add_argument("--seq-parallel", type=int, default=0, metavar="N",
+                    help="shard the encoder's time axis over N processes for the greedy CTC "
+                         "decode (the process count must be a multiple of N)")
     ap.add_argument("--streaming", action="store_true",
                     help="transducer: chunked streaming encode + carried greedy decode")
     ap.add_argument("--streaming-full", action="store_true", dest="streaming_full",
@@ -105,12 +121,24 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def refuse_unported(args: argparse.Namespace, cfg) -> None:
+    """The flag combinations the JAX runner refuses, with its messages."""
     if args.nbest > 1 and not args.beam:
         raise SystemExit("--nbest requires --beam")
-    if args.seq_parallel > 1:
-        raise NotImplementedError("--seq-parallel is not ported; see ROADMAP.md queue 1 item 10")
     if (args.streaming or args.streaming_full) and cfg.transducer is None:
         raise SystemExit("--streaming and --streaming-full decode a transducer recipe")
+    if args.seq_parallel > 1:
+        if cfg.transducer is not None:
+            raise SystemExit(
+                "--seq-parallel currently supports the attention recipes' "
+                "greedy CTC decode only (the transducer decode loop is "
+                "token-sequential)")
+        if args.beam:
+            raise SystemExit("--seq-parallel supports greedy decode only "
+                             "(the beam loop is token-sequential)")
+        n_dev = launch.process_count()
+        if n_dev % args.seq_parallel:
+            raise SystemExit(f"{n_dev} devices not divisible by "
+                             f"--seq-parallel {args.seq_parallel}")
 
 
 def resolve_tokenizer(cfg, run_dir: str, fallback_texts: Optional[List[str]] = None):
@@ -200,8 +228,8 @@ def decode_transducer(args: argparse.Namespace, cfg, device, trainer, state: Dic
             toks, lens = streaming_decode(model, td, fbank, state["norm_stats"], batch["wav"],
                                           batch["wav_lens"], args.chunk_size, args.left_context,
                                           blank, chunk_times)
-        common.score_batch(stats, tokenizer, batch, idx, seen, toks.cpu(), lens.cpu(),
-                           record=record)
+        hyps = common.gather_rows(common.token_rows(toks.cpu().numpy(), lens.cpu().numpy()))
+        common.score_batch(stats, tokenizer, batch, idx, seen, hyps, record=record)
     out = {"decode": ("transducer_streaming_full_pipeline" if args.streaming_full
                       else "transducer_streaming_greedy"),
            "chunk_frames": args.chunk_size, "left_context_chunks": args.left_context}
@@ -215,11 +243,50 @@ def decode_transducer(args: argparse.Namespace, cfg, device, trainer, state: Dic
     return out
 
 
+def decode_seq_parallel(args: argparse.Namespace, cfg, device, model, fbank, state: Dict,
+                        test_set, tokenizer, stats, record: Dict) -> Dict:
+    """Greedy CTC with the encoder's time axis sharded over `--seq-parallel`
+    processes (the JAX runner's `sequence_parallel_ctc_decode` branch),
+    the rows of each batch over the data axis that the rest of the
+    processes make; every process scores the whole set."""
+    n = args.seq_parallel
+    n_data = launch.process_count() // n
+    mesh = sequence.make_seq_mesh(n_data=n_data, n_seq=n, device=device)
+    data_index = mesh.get_coordinate()[0]
+    decode = sequence.sequence_parallel_ctc_decode(model.eval(), mesh,
+                                                   blank_id=cfg.model.blank_index)
+    normalize = InputNormalization()
+    seen: set = set()
+    for batch, idx in common.batches(test_set, tokenizer, cfg, False, 0, device,
+                                     shards=(n_data, data_index)):
+        # pad the waveform (not the features) so the frame count divides
+        # the seq axis: the appended zero samples only add silence frames
+        # past each utterance's length (parallel/sequence.py)
+        wav = batch["wav"]
+        rem = (-(1 + wav.shape[1] // fbank.hop_length)) % n
+        if rem:
+            wav = F.pad(wav, (0, rem * fbank.hop_length))
+        with torch.no_grad():
+            feats, _ = normalize(fbank(wav), state["norm_stats"])
+        ids, keep, _ = decode(feats, fbank.frame_lengths(batch["wav_lens"]))
+        local = (batch["tokens"].cpu().numpy(), batch["token_lens"].cpu().numpy(),
+                 collapse_ctc(ids, keep))
+        # one copy of each data shard: the first process of its seq group
+        parts = launch.gather_objects(local)[::n]
+        full = {"tokens": np.concatenate([p[0] for p in parts]),
+                "token_lens": np.concatenate([p[1] for p in parts])}
+        common.score_batch(stats, tokenizer, full, idx, seen, [h for p in parts for h in p[2]],
+                           record=record, gathered=True)
+    return {"decode": "greedy_ctc_seq_parallel", "seq_parallel": n}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Evaluate; returns the summary (as printed) with `hyps`, each
-    utterance ID's hypothesis words, added."""
+    utterance ID's hypothesis words, added (on every process of a
+    multi-process run; process 0 prints and writes)."""
     args = parse_args(argv)
     cfg = load_recipe(args.recipe, overrides=common.parse_overrides(args.overrides))
+    common.start_processes(args.device)
     refuse_unported(args, cfg)
     device = resolve_device(args.device)
     test_set = read_manifest_csv(args.test_manifest)
@@ -247,6 +314,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             decode = {"decode": "beam+lm" if lm is not None else "beam",
                       "beam_steps": totals["steps"], "search_s": round(totals["search_s"], 3),
                       "ctc_frames": totals["ctc_frames"]}
+        elif args.seq_parallel > 1:
+            decode = decode_seq_parallel(args, cfg, device, model, fbank, state, test_set,
+                                         tokenizer, stats, record)
+            n_utts = len(record)
         else:
             m = cfg.model
             trainer = ASRTrainer(model, None, fbank, TrainerConfig(
@@ -269,6 +340,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if nbest_rows:
         summary["nbest"] = args.nbest
     summary["kernels"] = common.kernel_counts(since=counts0)
+    if not launch.is_coordinator():
+        return dict(summary, hyps={test_set[i].utt_id: h for i, h in record.items()})
     print(json.dumps(summary), flush=True)
     if args.output:
         os.makedirs(args.output, exist_ok=True)

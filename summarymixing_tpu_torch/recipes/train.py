@@ -45,7 +45,17 @@ of the call with `torch.profiler`, the card synchronised at both edges
 printed and in `DIR/key_averages.txt`; a window the epoch cuts short ends
 with the epoch. The summary's `profile` names the trace.
 
-Not ported, and refused: a multi-process launch (ROADMAP.md)."""
+Several processes (data parallelism, `parallel/launch.py`): start one per
+device with `SMT_COORDINATOR=host:port SMT_NUM_PROCESSES=N
+SMT_PROCESS_ID=i`; each prints a `[dist]` line with its backend (NCCL
+when each process has a card of its own, gloo otherwise). Every process
+iterates the same batches (bucket sizes a multiple of N) and loads its
+own rows; the trainers average the gradients (`parallel/comm.py`);
+validation gathers the hypotheses and sums the losses over the
+processes; only process 0 writes checkpoints, the tokenizer and
+`train_log.txt` (process p writes `train_log.p<p>.txt`); a stop is agreed
+every 10 steps (`training/preempt.py`), and every process restores. The
+summary's `dist` holds the process count, index and backend."""
 
 from __future__ import annotations
 
@@ -65,16 +75,16 @@ from summarymixing_tpu_torch.config import (
 )
 from summarymixing_tpu_torch.data.batching import prefetch
 from summarymixing_tpu_torch.data.dataio import read_manifest_csv
+from summarymixing_tpu_torch.parallel import launch
 from summarymixing_tpu_torch.recipes import common
 from summarymixing_tpu_torch.training.checkpoint import CheckpointManager
 from summarymixing_tpu_torch.training.logger import EpochCounter, FileTrainLogger
 from summarymixing_tpu_torch.training.optim import optimizer_stage
 from summarymixing_tpu_torch.training.preempt import TrainStopper
 from summarymixing_tpu_torch.training.profiling import StepProfiler
+from summarymixing_tpu_torch.training.trainer import process_seed
 from summarymixing_tpu_torch.utils.device import resolve_device
 
-# environment variables of the JAX package's multi-process launch
-_LAUNCH_ENV = ("SMT_COORDINATOR", "SMT_NUM_PROCESSES", "SMT_PROCESS_ID")
 # what a checkpoint holds (`checkpoint_state`)
 _STATE_KEYS = ("params", "opt_state", "norm_stats", "step", "epoch", "rng")
 
@@ -106,20 +116,43 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def refuse_unported(args: argparse.Namespace) -> None:
-    if any(os.environ.get(k) for k in _LAUNCH_ENV):
-        raise NotImplementedError("the multi-process launch is not ported; see ROADMAP.md "
-                                  "queue 1 item 10")
+def rng_state(state: Dict):
+    """The generators' state for a checkpoint: the step generator's; in a
+    multi-process run every process's (`ranks`, in process order) and the
+    shared stream's (`shared`)."""
+    local = state["generator"].get_state()
+    if launch.process_count() == 1:
+        return local
+    shared = state.get("shared_generator") or state["generator"]
+    return {"ranks": torch.stack(launch.gather_objects(local)), "shared": shared.get_state()}
+
+
+def restore_rng(state: Dict, rng, seed: int) -> None:
+    """Set the generators from a checkpoint's `rng_state`. A checkpoint of
+    another process count gives each process a fresh stream of its own
+    from (seed, index, step)."""
+    n, p = launch.process_count(), launch.process_index()
+    ranks = rng["ranks"] if isinstance(rng, dict) else rng[None]
+    if ranks.shape[0] == n:
+        state["generator"].set_state(ranks[p].cpu().clone())   # a row of its own storage
+    else:
+        print(f"[restore] checkpoint of {ranks.shape[0]} processes restored by {n}: fresh "
+              "per-process streams", flush=True)
+        state["generator"].manual_seed(process_seed(seed + state["step"], p))
+    shared = state.get("shared_generator")
+    if shared is not None and shared is not state["generator"]:
+        shared.set_state((rng["shared"] if isinstance(rng, dict) else rng).cpu().clone())
 
 
 def checkpoint_state(model, state: Dict) -> Dict:
     """What a checkpoint holds: the parameters, the optimizer state, the
     normalisation statistics, the step and epoch counters and the state of
-    the generator that speed perturbation, SpecAugment, the DCT sampler and
-    dropout draw from."""
+    the generators that speed perturbation, SpecAugment, the DCT sampler
+    and dropout draw from (`rng_state`; a collective in a multi-process
+    run)."""
     return {"params": model.state_dict(), "opt_state": state["opt_state"],
             "norm_stats": state["norm_stats"], "step": state["step"], "epoch": state["epoch"],
-            "rng": state["generator"].get_state()}
+            "rng": rng_state(state)}
 
 
 def init_or_restore(trainer, ckpt: CheckpointManager, cfg) -> Dict:
@@ -131,9 +164,9 @@ def init_or_restore(trainer, ckpt: CheckpointManager, cfg) -> Dict:
         return state
     saved = ckpt.restore(_STATE_KEYS, device=trainer.device)
     trainer.model.load_state_dict(saved["params"])
-    state["generator"].set_state(saved["rng"].cpu())
     state.update(opt_state=saved["opt_state"], norm_stats=saved["norm_stats"],
                  step=int(saved["step"]), epoch=int(saved["epoch"]))
+    restore_rng(state, saved["rng"], cfg.seed)
     print(f"[restore] resumed from step {state['step']}, epoch {state['epoch']}", flush=True)
     return state
 
@@ -156,23 +189,24 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     stopped early; the summary then holds only `steps`, `epochs`,
     `step_s`, `opt_stages` and `kernels`), `opt_stages` (the two-stage
     optimizer's stage before each step this call ran, else empty),
-    `epochs` (the last one run),
+    `epochs` (the last one run), `dist` (`common.start_processes`),
     `step_s` (the host time of each step this call ran, each ending in the
     step's one device synchronisation), `valid` (the last epoch's
     validation stats), `test` (the test stage's error-rate summary, or
     None), `profile` (the `--profile` trace's path, or None) and `kernels` (`common.kernel_counts` over this call; each
     epoch's line of the train log has its own)."""
     args = parse_args(argv)
-    refuse_unported(args)
     cfg = load_recipe(args.recipe, overrides=common.parse_overrides(args.overrides))
     if args.num_buckets:
         cfg.training.num_buckets = args.num_buckets
+    dist_info = common.start_processes(args.device)
     device = resolve_device(args.device)
     out_dir = args.output or os.path.join(cfg.output_folder, cfg.name)
     os.makedirs(out_dir, exist_ok=True)
     train_set = read_manifest_csv(args.train_manifest)
     valid_set = read_manifest_csv(args.valid_manifest)
     tokenizer = common.build_or_load_tokenizer(cfg, out_dir, train_set)
+    launch.barrier()
 
     transducer = cfg.transducer is not None
     steps_per_epoch = common.estimate_steps_per_epoch(train_set, cfg)
@@ -237,14 +271,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                     hb_t = now
                 if ckpt.should_save():
                     ckpt.save(step, checkpoint_state(trainer.model, state))
-                if stopper.should_stop():
+                if stopper.should_stop(step):
                     profiler.close()
                     ckpt.save(step, checkpoint_state(trainer.model, state))
                     print(f"[preempt] checkpoint saved at step {step} ({stopper.signame}); "
                           "resume with the same command", flush=True)
                     return {"steps": step, "epochs": epoch, "step_s": step_s,
                             "stopped": stopper.signame, "opt_stages": opt_stages,
-                            "kernels": common.kernel_counts(since=counts0)}
+                            "kernels": common.kernel_counts(since=counts0), "dist": dist_info}
                 if args.steps and step >= args.steps:
                     break
             profiler.close()
@@ -295,7 +329,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         print("test", cfg.error_rate.upper(), test["WER"], flush=True)
     return {"steps": step, "epochs": epoch, "step_s": step_s, "valid": valid_stats,
             "test": test, "tokenizer_size": tokenizer.vocab_size, "opt_stages": opt_stages,
-            "profile": profiler.path, "kernels": common.kernel_counts(since=counts0)}
+            "profile": profiler.path, "kernels": common.kernel_counts(since=counts0),
+            "dist": dist_info}
 
 
 if __name__ == "__main__":

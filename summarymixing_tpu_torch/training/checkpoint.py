@@ -20,8 +20,17 @@ and containers of them, nothing else.
 `interval_minutes` gates saves in time, as the JAX manager's does (the
 recipes' `ckpt_interval_minutes`): `should_save()` says whether that many
 minutes have passed since the last save (or since the manager was made);
-the caller then saves. The multi-process save of the JAX manager is not
-ported: one process saves.
+the caller then saves.
+
+In a multi-process run (`parallel/launch.py`) every process calls `save`
+at the same step; the coordinator alone writes, and every process waits
+at a barrier until the checkpoint is in place, so a process that
+restores next reads the whole of it. `should_save` then agrees across
+the processes (each clock runs on its own) as the JAX manager's does:
+on every `sync_every`-th call, once per step on every process, it is
+true everywhere when the interval has passed on any process, and false
+between those calls, so the host collective stays off the step loop.
+Every process restores.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 
+from summarymixing_tpu_torch.parallel import launch
 from summarymixing_tpu_torch.utils.device import resolve_device
 
 _EXT = ".pt"
@@ -52,23 +62,39 @@ class CheckpointManager:
         # the first interval counts from construction: a fresh or resumed
         # run does not save at its first step
         self._last_save = time.time()
+        self._calls = 0
+        self.sync_every = 20
         os.makedirs(self.directory, exist_ok=True)
 
     def should_save(self) -> bool:
         """True without an interval, else whether `interval_minutes` have
-        passed since the last save."""
+        passed since the last save; in a multi-process run, decided
+        together on every `sync_every`-th call only (the module docstring)."""
         if self.interval_minutes is None:
             return True
-        return time.time() - self._last_save >= self.interval_minutes * 60
+        due = time.time() - self._last_save >= self.interval_minutes * 60
+        if launch.process_count() == 1:
+            return due
+        self._calls += 1
+        if self._calls % self.sync_every:
+            return False
+        return launch.any_process(due)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
 
     def save(self, step: int, state: Mapping[str, Any]) -> None:
         """Write `state` as checkpoint `step` (replacing one of that step),
-        then delete the oldest beyond `max_to_keep`."""
+        then delete the oldest beyond `max_to_keep`: on the coordinator,
+        the other processes waiting for it."""
         if step < 0:
             raise ValueError(f"checkpoint step must be non-negative, got {step}")
+        if launch.is_coordinator():
+            self._write(step, state)
+        launch.barrier()
+        self._last_save = time.time()
+
+    def _write(self, step: int, state: Mapping[str, Any]) -> None:
         final = self._path(step)
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -79,7 +105,6 @@ class CheckpointManager:
         os.replace(tmp, final)
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._path(old))
-        self._last_save = time.time()
 
     def all_steps(self) -> List[int]:
         """The steps on disk, ascending."""

@@ -2,9 +2,9 @@
 an append-only text log plus a jsonl stream per epoch or step, as
 SpeechBrain's FileTrainLogger writes them (yaml:343-344: train_log.txt
 lines like "epoch: 1, lr: 1.2e-4 - train loss: 3.2 - valid loss: 2.9,
-valid WER: 12.3"), and the epoch counter. One process writes (the JAX
-logger's per-process files for multi-host runs are not needed on one
-card)."""
+valid WER: 12.3"), and the epoch counter. In a multi-process run
+(`parallel/launch.py`) process p > 0 writes `<name>.p<p><ext>` for each
+file, so every file has one writer, as the JAX logger does."""
 
 from __future__ import annotations
 
@@ -13,9 +13,18 @@ import os
 import time
 from typing import Dict, Optional
 
+from summarymixing_tpu_torch.parallel import launch
+
 
 class FileTrainLogger:
     def __init__(self, save_file: str, jsonl_file: Optional[str] = None):
+        p = launch.process_index()
+        if p > 0:
+            root, ext = os.path.splitext(save_file)
+            save_file = f"{root}.p{p}{ext}"
+            if jsonl_file is not None:
+                jroot, jext = os.path.splitext(jsonl_file)
+                jsonl_file = f"{jroot}.p{p}{jext}"
         self.save_file = save_file
         self.jsonl_file = jsonl_file or (
             os.path.splitext(save_file)[0] + ".jsonl"

@@ -31,7 +31,14 @@
   JAX transform advances it and discards its updates: nothing reads it);
 - `apply_safe_update`: on a non-finite loss or gradient norm the step is
   skipped, so parameters, moments, counts and the accumulator keep their
-  values; the norm it returns is the micro-batch gradient's.
+  values; the norm it returns is the micro-batch gradient's;
+- `synced_update`: the same under data parallelism (`parallel/comm.py`'s
+  `GradientSync`): without accumulation the gradients and the loss are
+  averaged over the processes in one collective before the step, so every
+  process decides the skip and steps on the same values; with `MultiSteps`
+  each micro step averages only the loss and ORs a non-finite flag, and
+  the accumulator is averaged once per optimizer step, before the inner
+  step.
 """
 
 from __future__ import annotations
@@ -211,15 +218,17 @@ class MultiSteps:
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict,
-             norm: Optional[torch.Tensor] = None) -> Dict:
+             norm: Optional[torch.Tensor] = None, reduce: Optional[Callable] = None) -> Dict:
         """Add `grads` to the running mean; on every `every_k`-th call step
         the inner optimizer on the mean (its own norm) and empty the
-        accumulator. `norm`, the micro-batch norm, is not used."""
+        accumulator. `norm`, the micro-batch norm, is not used. `reduce`,
+        given, maps the accumulator to its mean over the processes before
+        the inner step (one collective per optimizer step)."""
         acc, n = state["acc"], state["mini_step"]
         torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(grads, acc), float(n + 1)))
         if n < self.every_k - 1:
             return dict(state, mini_step=n + 1, acc=acc)
-        inner = self.inner.step(params, acc, state["inner"])
+        inner = self.inner.step(params, acc if reduce is None else reduce(acc), state["inner"])
         return {"mini_step": 0, "gradient_step": state["gradient_step"] + 1, "inner": inner,
                 "acc": [torch.zeros_like(a) for a in acc]}
 
@@ -255,3 +264,23 @@ def apply_safe_update(optimizer, params: List[torch.Tensor], grads: List[torch.T
     if finite:
         opt_state = optimizer.step(params, grads, opt_state, norm)
     return opt_state, norm, finite
+
+
+def synced_update(optimizer, params: List[torch.Tensor], grads: List[torch.Tensor],
+                  opt_state: Dict, loss: torch.Tensor, sync=None):
+    """`apply_safe_update` under data parallelism (`sync`, a
+    `parallel.comm.GradientSync`, or None in one process). Returns
+    (opt_state, grad_norm, finite, loss), the loss averaged over the
+    processes; the norm is of the averaged gradient, or with `MultiSteps`
+    of this process's micro-batch."""
+    if sync is None:
+        return (*apply_safe_update(optimizer, params, grads, opt_state, loss), loss)
+    if not isinstance(optimizer, MultiSteps):
+        grads, loss = sync.mean_(grads, loss)
+        return (*apply_safe_update(optimizer, params, grads, opt_state, loss), loss)
+    norm = global_norm(grads)
+    loss, all_finite = sync.loss_and_flag(loss, torch.isfinite(norm))
+    finite = bool(torch.isfinite(loss) & all_finite)
+    if finite:
+        opt_state = optimizer.step(params, grads, opt_state, norm, reduce=sync.mean_list_)
+    return opt_state, norm, finite, loss

@@ -16,8 +16,20 @@ rest: optimizer state, normalization statistics, step and epoch counters,
 and the one `torch.Generator` on the model's device from which speed
 perturbation, SpecAugment and every dropout draw. Speed perturbation runs
 inside `train_step` here; the JAX recipes apply it before calling theirs
-(`recipes/train.py`). Checkpoints are `training/checkpoint.py`'s. The
-mesh and sharding of the JAX trainer are still to port (ROADMAP.md).
+(`recipes/train.py`). Checkpoints are `training/checkpoint.py`'s.
+
+Data parallelism (a multi-process launch, `parallel/launch.py`): each
+process trains on its own rows of every batch. After `backward` the
+flattened gradients and the loss are all-reduced to their mean over the
+processes (`parallel/comm.py::GradientSync`, one collective per step; the
+loss is not routed through one `forward`, so DDP's hooks would miss the
+methods the trainers call), so the non-finite skip and the update are
+the same everywhere; the normalization statistics take the global batch's
+sums and counts. `init_state` broadcasts process 0's parameters, and then
+each process draws its dropout, SpecAugment and speed perturbation from a
+stream of its own, seeded from (seed, process index): no two processes
+draw one mask for different rows. Those bits differ from a
+single-process run's.
 
     trainer = ASRTrainer(model, AdamW(noam_schedule(5e-4, 30000), 0.01), fbank)
     state = trainer.init_state(seed=3407)
@@ -29,6 +41,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from summarymixing_tpu_torch.decoding.ctc import collapse_ctc, ctc_greedy_decode
@@ -40,7 +53,8 @@ from summarymixing_tpu_torch.frontend.augment import (
 from summarymixing_tpu_torch.frontend.features import InputNormalization, NormStats
 from summarymixing_tpu_torch.losses import ctc_loss, kldiv_loss
 from summarymixing_tpu_torch.ops.layers import set_dropout_generator
-from summarymixing_tpu_torch.training.optim import apply_safe_update
+from summarymixing_tpu_torch.parallel import comm, launch
+from summarymixing_tpu_torch.training.optim import synced_update
 from summarymixing_tpu_torch.utils.init import xavier_normal_overwrite
 
 
@@ -65,6 +79,26 @@ class TrainerConfig:
     xavier_init_overwrite: bool = True
 
 
+def process_seed(seed: int, index: int) -> int:
+    """The seed of process `index`'s own stream of a data-parallel run."""
+    return int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0] >> 1)
+
+
+def split_streams(generator: torch.Generator, seed: int, params, sync) -> torch.Generator:
+    """Under data parallelism (`sync` not None): broadcast process 0's
+    `params`, copy `generator` (drawn from `seed` on every process) into a
+    stream all processes share, and reseed `generator` as this process's
+    own (`process_seed`). Returns the shared stream; in one process,
+    `generator` itself."""
+    if sync is None:
+        return generator
+    comm.broadcast_parameters(params)
+    shared = torch.Generator(device=generator.device)
+    shared.set_state(generator.get_state())
+    generator.manual_seed(process_seed(seed, launch.process_index()))
+    return shared
+
+
 class ASRTrainer:
     """Joint CTC/attention training (CTC only when the model has no decoder)."""
 
@@ -76,16 +110,20 @@ class ASRTrainer:
         self.normalize = InputNormalization(config.normalize_update_until_epoch)
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.device = self.params[0].device
+        # the data-parallel reduction, None in one process
+        self.sync = comm.gradient_sync()
 
     # -- state ---------------------------------------------------------------
     def init_state(self, seed: int) -> Dict:
         """Optimizer state, fresh normalization statistics, counters and the
         step generator seeded with `seed`; with `xavier_init_overwrite`,
-        first redraws the `asr` parameters from that generator."""
+        first redraws the `asr` parameters from that generator (then, under
+        data parallelism, `split_streams`)."""
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
         if self.config.xavier_init_overwrite:
             xavier_normal_overwrite(self.model.asr, generator)
+        split_streams(generator, seed, self.params, self.sync)
         set_dropout_generator(self.model, generator)
         return {"opt_state": self.optimizer.init(self.params),
                 "norm_stats": NormStats.init(self.fbank.n_mels, self.device),
@@ -124,7 +162,8 @@ class ASRTrainer:
             pad_mask = (torch.arange(feats.shape[1], device=feats.device)[None, :]
                         < feat_len[:, None]).to(feats.dtype)
             feats, norm_stats = self.normalize(feats, norm_stats, pad_mask, epoch=epoch,
-                                               update=train)
+                                               update=train,
+                                               reduce=self.sync.sum_ if self.sync else None)
             if train and cfg.augment is not None:
                 # before the warm-up step no augmentation is drawn (the JAX
                 # trainer draws one and discards it)
@@ -169,11 +208,12 @@ class ASRTrainer:
             state["norm_stats"], batch, True, state["epoch"], generator, state["step"])
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        opt_state, grad_norm, finite = apply_safe_update(
-            self.optimizer, self.params, grads, state["opt_state"], loss)
+        opt_state, grad_norm, finite, loss = synced_update(
+            self.optimizer, self.params, grads, state["opt_state"], loss, self.sync)
         new_state = dict(state, opt_state=opt_state, step=state["step"] + 1,
                          norm_stats=norm_stats if finite else state["norm_stats"])
         metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["loss"] = loss.detach()
         metrics["grad_norm"] = grad_norm
         metrics["nonfinite_skipped"] = int(not finite)
         return new_state, metrics
@@ -181,11 +221,18 @@ class ASRTrainer:
     @torch.no_grad()
     def eval_step(self, state: Dict, batch: Dict):
         """Losses in eval mode and the greedy CTC hypotheses (token ids)."""
+        losses, ids, keep = self.eval_greedy(state, batch)
+        return losses, collapse_ctc(ids, keep)
+
+    @torch.no_grad()
+    def eval_greedy(self, state: Dict, batch: Dict):
+        """`eval_step` before the collapse: (losses, ids `[B, T']`, keep
+        `[B, T']`), the greedy contract of `decoding.ctc`."""
         _, (losses, _, out) = self._forward_loss(state["norm_stats"], batch, False,
                                                  state["epoch"])
         ids, keep = ctc_greedy_decode(out["ctc_log_probs"], out["enc_lengths"],
                                       self.config.blank_id)
-        return losses, collapse_ctc(ids, keep)
+        return losses, ids, keep
 
     def next_epoch(self, state: Dict) -> Dict:
         return dict(state, epoch=state["epoch"] + 1)

@@ -17,6 +17,10 @@ trainer's `{"encoder": ..., "transducer": ...}` tree. Speed perturbation,
 SpecAugment, the DCT draw and every dropout draw from the trainer's one
 `torch.Generator` (the checkpoint keeps its state). The DCT draw is read
 to the host once per step: the chunk size shapes the attention mask.
+Data parallelism is `ASRTrainer`'s (`training/trainer.py`), with
+`MultiSteps` reducing its accumulator once per optimizer step; the DCT
+draw comes from the stream every process shares (`shared_generator`),
+so the chunk configuration is the same on every process.
 Speed perturbation runs inside `train_step`, as `ASRTrainer` runs it
 (the JAX recipes apply it before calling theirs). Before the warm-up step
 no augmentation is drawn (the JAX trainer draws one and discards it).
@@ -49,7 +53,9 @@ from summarymixing_tpu_torch.losses import (
 )
 from summarymixing_tpu_torch.models.asr import DynChunkTrainConfig
 from summarymixing_tpu_torch.ops.layers import set_dropout_generator
-from summarymixing_tpu_torch.training.optim import apply_safe_update
+from summarymixing_tpu_torch.parallel import comm
+from summarymixing_tpu_torch.training.optim import synced_update
+from summarymixing_tpu_torch.training.trainer import split_streams
 from summarymixing_tpu_torch.utils.init import xavier_normal_overwrite
 
 
@@ -122,20 +128,24 @@ class TransducerTrainer:
         self.normalize = InputNormalization(config.normalize_update_until_epoch)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.device = self.params[0].device
+        # the data-parallel reduction, None in one process
+        self.sync = comm.gradient_sync()
 
     # -- state ---------------------------------------------------------------
     def init_state(self, seed: int) -> Dict:
-        """Optimizer state, fresh normalization statistics, counters and the
-        step generator seeded with `seed`; with `xavier_init_overwrite`,
+        """Optimizer state, fresh normalization statistics, counters, the
+        step generator seeded with `seed` and the DCT's (`shared_generator`,
+        the same generator in one process); with `xavier_init_overwrite`,
         first redraws the encoder's `asr` parameters from that generator."""
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
         if self.config.xavier_init_overwrite:
             xavier_normal_overwrite(self.encoder_model.asr, generator)
+        shared = split_streams(generator, seed, self.params, self.sync)
         set_dropout_generator(self.model, generator)
         return {"opt_state": self.optimizer.init(self.params) if self.optimizer else None,
                 "norm_stats": NormStats.init(self.fbank.n_mels, self.device),
-                "step": 0, "epoch": 0, "generator": generator}
+                "step": 0, "epoch": 0, "generator": generator, "shared_generator": shared}
 
     def _add_blank_bos(self, tokens: torch.Tensor) -> torch.Tensor:
         """The predictor's input: the targets after a blank (the recipes'
@@ -153,10 +163,12 @@ class TransducerTrainer:
         return frames
 
     def _forward_loss(self, norm_stats: Dict, batch: Dict, train: bool, epoch: int,
-                      generator: Optional[torch.Generator] = None, step: int = 0
+                      generator: Optional[torch.Generator] = None, step: int = 0,
+                      dct_generator: Optional[torch.Generator] = None
                       ) -> Tuple[torch.Tensor, Tuple[Dict, Dict, Tuple]]:
         """Features, normalization, augmentation (from micro step
-        `augment_warmup_steps` on), a DCT draw (training only),
+        `augment_warmup_steps` on), a DCT draw (training only, from
+        `dct_generator`, else `generator`),
         the encoder, the predictor once, the joint and the losses. Returns
         `(loss, (losses, norm_stats, (enc_out, enc_lens)))`."""
         cfg = self.config
@@ -166,13 +178,14 @@ class TransducerTrainer:
             pad_mask = (torch.arange(feats.shape[1], device=feats.device)[None, :]
                         < feat_len[:, None]).to(feats.dtype)
             feats, norm_stats = self.normalize(feats, norm_stats, pad_mask, epoch=epoch,
-                                               update=train)
+                                               update=train,
+                                               reduce=self.sync.sum_ if self.sync else None)
             if train and cfg.augment is not None and step >= cfg.augment_warmup_steps:
                 feats = spec_augment(feats, pad_mask, cfg.augment, generator)
         dct = None
         if train and cfg.dct is not None:
-            dct = sample_dynchunk(generator, self._max_frames(feats.shape[1]) + 1, cfg.dct,
-                                  feats.device)
+            dct = sample_dynchunk(dct_generator or generator,
+                                  self._max_frames(feats.shape[1]) + 1, cfg.dct, feats.device)
         self.model.train(train)
         enc_out, enc_lens = self.encoder_model.encode(feats, feat_len, dct)
 
@@ -218,14 +231,16 @@ class TransducerTrainer:
         for p in self.params:
             p.grad = None
         loss, (losses, norm_stats, _) = self._forward_loss(
-            state["norm_stats"], batch, True, state["epoch"], generator, state["step"])
+            state["norm_stats"], batch, True, state["epoch"], generator, state["step"],
+            state.get("shared_generator"))
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        opt_state, grad_norm, finite = apply_safe_update(
-            self.optimizer, self.params, grads, state["opt_state"], loss)
+        opt_state, grad_norm, finite, loss = synced_update(
+            self.optimizer, self.params, grads, state["opt_state"], loss, self.sync)
         new_state = dict(state, opt_state=opt_state, step=state["step"] + 1,
                          norm_stats=norm_stats if finite else state["norm_stats"])
         metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["loss"] = loss.detach()
         metrics["grad_norm"] = grad_norm
         metrics["nonfinite_skipped"] = int(not finite)
         return new_state, metrics

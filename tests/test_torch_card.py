@@ -92,6 +92,43 @@ def test_kernels_match_plain_versions_on_card(case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 3])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cell_split_route_matches_plain_versions_on_card(case, shards):
+    """The cell's split route (`sm_partial` on each time shard, the sums and
+    counts added as the all-reduce adds them, `sm_finish` on each) against
+    its plain versions on the same shards and against the whole-T plain
+    version, and a launch counted for each half."""
+    x, mask, cell, _ = _setup(*CASES[case])
+    pad = mask[..., None].contiguous()
+    t = x.shape[1]
+    local = -(-t // shards)
+    bounds = [(a, min(a + local, t)) for a in range(0, t, local)]
+    cell_fn = fused_summary.fused_summary_mixing
+    n0, p0, f0 = cell_fn.launches, cell_fn.partial_launches, cell_fn.finish_launches
+
+    def split(partial, finish):
+        parts = [partial(x[:, a:z].contiguous(), pad[:, a:z].contiguous(), cell, "gelu")
+                 for a, z in bounds]
+        total, count = sum(p[0] for p in parts), sum(p[1] for p in parts)
+        return torch.cat([finish(p[2], pad[:, a:z].contiguous(), total, count)
+                          for p, (a, z) in zip(parts, bounds)], dim=1)
+
+    got = split(fused_summary.fused_summary_partial,
+                lambda pre, p, total, count: fused_summary.fused_summary_finish(
+                    pre, p, total, count, cell, "gelu"))
+    want = split(fused_summary.summary_partial_reference,
+                 lambda pre, p, total, count: fused_summary.summary_finish_reference(
+                     pre, total, count, cell, "gelu"))
+    n = len(bounds)
+    assert (cell_fn.launches - n0, cell_fn.partial_launches - p0,
+            cell_fn.finish_launches - f0) == (2 * n, n, n)
+    assert _max_rel_err(got, want) <= CELL_TOL
+    assert _max_rel_err(got, fused_summary.summary_mixing_reference(x, pad, cell, "gelu")) \
+        <= CELL_TOL
+
+
+@pytest.mark.gpu
 def test_kernels_repeat_bit_for_bit_on_card():
     """No atomics: the same inputs give the same bits on a second call."""
     x, mask, cell, branch = _setup(*CASES["ragged"])

@@ -314,17 +314,22 @@ def test_runners_take_what_was_refused(corpus, tmp_path, runner, recipe, args):
 
 
 @pytest.mark.parametrize("runner,recipe,args,match", [
-    ("evaluate", "transducer", ["--seq-parallel", "2"], "seq-parallel"),
-    ("evaluate", "synth", ["--seq-parallel", "2"], "seq-parallel"),
-])
+    ("evaluate", "transducer", ["--seq-parallel", "2"], "greedy CTC decode only"),
+    ("evaluate", "synth", ["--seq-parallel", "2"], "1 devices not divisible by --seq-parallel 2"),
+], ids=["evaluate-transducer-args0-seq-parallel", "evaluate-synth-args1-seq-parallel"])
 def test_runners_refuse_what_is_not_ported(corpus, tmp_path, runner, recipe, args, match):
+    """What the JAX runner refuses, with its messages: `--seq-parallel`
+    for a transducer recipe, and over more processes than there are (one
+    process here). The sharded decode itself runs in
+    `tests/test_torch_sequence_parallel.py` and the multi-process runner
+    in `tests/test_torch_launch.py`."""
     recipe = {"synth": SYNTH, "transducer": SYNTH_TRANSDUCER}[recipe]
     common_args = {"train": ["--train-manifest", corpus["train"], "--valid-manifest",
                              corpus["dev"], "--output", str(tmp_path / "run")] + SMALL_BATCHES,
                    "evaluate": ["--test-manifest", corpus["test"], "--ckpt",
                                 str(tmp_path / "run" / "save")]}
     main = {"train": train.main, "evaluate": evaluate.main}[runner]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(SystemExit, match=match):
         main([recipe] + common_args[runner] + args + ["--device", "cpu"])
 
 
