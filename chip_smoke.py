@@ -311,6 +311,42 @@ Neither kernel lies on phases 14-16: both launch counters must stay 0.
    `--processes N` the script runs phases 1, 2 and 25 alone with N
    processes, one card each over NCCL: (b) over N shards, (c) over
    P25_SEQ shards and a data axis of N / P25_SEQ.
+26. The last slice. (a) W8A8: the int8 product (`ops/quant.py`,
+   `torch._int_mm`) at the flagship cgMLP shapes (B=8, T=751: [6008, 512]
+   x [512, 3072] and [6008, 1536] x [1536, 512]) with the card's int32
+   accumulators equal to the CPU route's, each timed with the weight in
+   the port's TN layout and in a row-major copy, beside the bf16 product
+   (CUDA graph); request 0's greedy decode with `model.act_int8` (the
+   same weights): in every W8A8 decode, counted from 0, 18 cell
+   launches, 0 cgMLP launches, 18 `int8_calls` and no plain call; its
+   time beside the bf16 decode's in turns, and its agreement with the
+   bf16 decode (reported: the weights are random). Before (b) and (c):
+   both kernels against their plain versions, forward and the Function's
+   gradients, with no keep-mask, at each pipeline microbatch's shape
+   ([2, 751, 512]) and each sharded process's rows at the training T (8
+   and 16 rows). (b) The flagship training step (its decoder, dropout 0,
+   no augmentation, phase 7's batch of 16) for P26_STEPS steps in this
+   process (twice, to show whether one process repeats its own bits;
+   cuDNN deterministic; both counted), then over four processes on the one card (gloo,
+   `spawn`) under each rule of `parallel/mesh.py`: composite on a 2x2
+   mesh, FSDP on 2x1 and tensor parallelism on 1x2 (processes 0 and 1):
+   TP's losses equal the one process's bit for bit, FSDP's and
+   composite's within P26_DP_TOL; each process keeps P26_SHARES of the
+   parameter and moment elements (the JAX rules' shares on this model);
+   18 launches and 18 backwards of each kernel per step and no plain
+   call; step times and peak memory per process. (c) The flagship's
+   18-layer encoder pipelined in two stages over processes 0 and 1
+   (`parallel/pipeline.py`, 4 microbatches of B=8, T=751; activations
+   staged through host memory under gloo): output bit-equal to the
+   sequential encode of the same microbatches, 36 launches of each kernel
+   per process, one backward's gradients within P26_PIPE_GRAD_TOL of the
+   sequential ones, wall ms beside the sequential encode and the bubble
+   M/(M+S-1). (d) A 6-layer d512 `ConformerDecoder` (d_ffn 2048, 8 heads,
+   kernel 3, causal, regularMHA) on the card against its CPU forward in
+   float32, and the uncached beam step (`evaluate.make_beam_step` for a
+   decoder with no cached step) against the cached step on the flagship
+   decoder's weights in float32, both within P26_F32_TOL. About 100-150 s.
+   `--processes N` with N >= 4 also runs (b) and (c) over N cards (NCCL).
 
 `plain_calls` (cells or cgMLP branches on the card whose configuration the
 kernel does not take, run on the plain path) is set to 0 at phase 4 and
@@ -324,7 +360,9 @@ over phases 4, 7, 9, 10, 12-16 and 18-24, and each by path (`serve`,
 phase 23; `baselines`, `baseline_sweep`, `baseline_train` and
 `transformer_encoder` for phase 24; `dist_train`, `seq_parallel` and
 `seq_parallel_runner` for phase 25, both processes and the single-process
-runs they are held against), with the phase-17 rows under
+runs they are held against; `w8a8` (the cell only), `sharded_train`
+(every process and the two single-process runs) and `pipeline` for phase
+26), with the phase-17 rows under
 `serving_shapes` and phase 25's under `split_route` and `halo_route`.
 
 The line before the last holds nvidia-smi's name and power limit; the last
@@ -506,6 +544,22 @@ P25_RANK_AGREE = 1e-6       # |valid loss rank 0 - rank 1|: one all-reduced valu
 PATH_LOGP_TOL, PATH_FRAME_AGREE = 1.0, 0.95
 P25_ROW_AGREE = 0.95        # (c): share of utterances with the same hypothesis
 P25_TIMEOUT = 300
+# phase 26: W8A8, the sharding rules, the pipeline, the Conformer decoder
+# and the uncached beam step
+P26_STEPS = 3
+P26_GRIDS = (("composite", 2, 2), ("fsdp", 2, 1), ("tp", 1, 2))   # (rule, data, model)
+# the share of parameter elements each process keeps, from the JAX rules
+# on the flagship training model (jax.eval_shape of the recipe, default
+# thresholds): FSDP 2x1 226 of 643 leaves, TP 1x2 44, composite 2x2 244
+P26_SHARES = {"fsdp": 0.5050, "tp": 0.8299, "composite": 0.5014}
+P26_DP_TOL = 2.5e-5         # (b): FSDP and composite losses, relative to one process's
+P26_MICRO, P26_STAGES = 4, 2
+P26_DECODES = 3             # (a): timed greedy decodes of request 0 each, bf16 and W8A8 in turns
+P26_PIPE_GRAD_TOL = 1e-3    # (c): per-tensor relative L2, pipelined against sequential gradients
+P26_F32_TOL = 1e-4          # (d): float32 card against CPU, and uncached against cached steps
+P26_DECODER = dict(num_layers=6, d_model=512, d_ffn=2048, nhead=8, kernel_size=3, causal=True,
+                   attention_type="regularMHA")
+P26_TIMEOUT = 400
 
 
 def fail(msg: str) -> None:
@@ -4518,9 +4572,557 @@ def phase_distributed(kernel_rows, here: str, corpus: dict, root: str,
             1] + sum(rk["c"]["counts"][name]["plain_calls"] for rk in procs)
 
 
+def phase_w8a8(kernel_rows) -> None:
+    """Phase 26 (a): the int8 product on the card against the CPU route at
+    the flagship cgMLP shapes, and request 0's greedy decode with
+    `model.act_int8` beside the bf16 decode."""
+    import dataclasses
+
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary, quant
+    from summarymixing_tpu_torch.transcribe import greedy_ctc_decode
+
+    t0 = time.perf_counter()
+    g = torch.Generator()
+    g.manual_seed(26)
+    rows = BATCH * max(LENGTHS)
+    for k, n in ((512, 3072), (1536, 512)):
+        x = torch.randn(rows, k, generator=g) * 2.0
+        w = torch.randn(n, k, generator=g) * 0.05
+        qa, _ = quant.quantize_act(x)
+        qw, _ = quant.quantize_weight(w)
+        cpu = quant.int8_accumulate(qa, qw)
+        qa_c, qw_c = qa.cuda(), qw.cuda()
+        qw_nn = qw_c.t().contiguous()
+        card = quant.int8_accumulate(qa_c, qw_c).cpu()
+        exact = bool(torch.equal(card, cpu)) and bool(
+            torch.equal(torch._int_mm(qa_c, qw_nn).cpu(), cpu))
+        # the port's layout (the cached [N, K] weight's transposed view, TN)
+        # beside a row-major [K, N] copy (NN)
+        int_ms = graph_ms(lambda: torch._int_mm(qa_c, qw_c.t()))
+        nn_ms = graph_ms(lambda: torch._int_mm(qa_c, qw_nn))
+        xb, wb = x.to(torch.bfloat16).cuda(), w.to(torch.bfloat16).cuda()
+        bf_ms = graph_ms(lambda: torch.nn.functional.linear(xb, wb))
+        ops = 2.0 * rows * k * n
+        print(f"p26 (a) int8 product [{rows}, {k}] x [{k}, {n}]: card accumulators equal the "
+              f"CPU route's in both layouts: {exact}; torch._int_mm with the weight "
+              f"[{n}, {k}] transposed (TN, the port's) {int_ms:.4f} ms "
+              f"({ops / int_ms / 1e9:.1f} TOPS), with a row-major [{k}, {n}] copy (NN) "
+              f"{nn_ms:.4f} ms ({ops / nn_ms / 1e9:.1f} TOPS), the bf16 product {bf_ms:.4f} ms "
+              f"({ops / bf_ms / 1e9:.1f} TFLOP/s) (CUDA graph)")
+        if not exact:
+            fail("phase 26 (a): the card's int8 accumulators differ from the CPU route's")
+
+    cfg = flagship_config()
+    cfg8 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, act_int8=True))
+    model, fbank = build_model(cfg)
+    model8, _ = build_model(cfg8)
+    same = all(torch.equal(a, b) for a, b in zip(model.parameters(), model8.parameters()))
+    if not same:
+        fail("phase 26 (a): the act_int8 model's weights differ from the bf16 model's")
+    wav, lens = request0(cfg.features.sample_rate)
+    stats = seeded_norm_stats()
+    cell, branch = fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch
+
+    def w8a8_decode():
+        """One W8A8 decode with the counters at 0 before it: (hyps, out,
+        the counts it read)."""
+        cell.launches = cell.plain_calls = branch.launches = branch.plain_calls = 0
+        branch.int8_calls = 0
+        result = greedy_ctc_decode(model8, fbank, stats, wav, lens)
+        return (*result, (cell.launches, cell.plain_calls, branch.launches, branch.plain_calls,
+                          branch.int8_calls))
+
+    with torch.inference_mode():
+        greedy_ctc_decode(model, fbank, stats, wav, lens)
+        # every W8A8 decode below is counted, the warm-up included
+        per_decode = [w8a8_decode()[2]]
+        hyps8, out8, counts = w8a8_decode()
+        per_decode.append(counts)
+        hyps, out = greedy_ctc_decode(model, fbank, stats, wav, lens)
+        times = {"bf16": [], "w8a8": []}
+        for _ in range(P26_DECODES):
+            for name in ("bf16", "w8a8"):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if name == "bf16":
+                    greedy_ctc_decode(model, fbank, stats, wav, lens)
+                else:
+                    per_decode.append(w8a8_decode()[2])
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t1) * 1e3)
+    lp, lp8 = out["ctc_log_probs"], out8["ctc_log_probs"]
+    n_layers = cfg.model.num_encoder_layers
+    valid = torch.arange(lp.shape[1], device=lp.device)[None, :] < out["enc_lengths"][:, None]
+    frames = float((lp.argmax(-1) == lp8.argmax(-1))[valid].float().mean())
+    tokens = sum(a == b for h, h8 in zip(hyps, hyps8) for a, b in zip(h, h8))
+    n_tok = sum(max(len(h), len(h8)) for h, h8 in zip(hyps, hyps8))
+    print(f"p26 (a) request 0 greedy, W8A8 cgMLP: per forward cell launches {counts[0]}, cgMLP "
+          f"launches {counts[2]}, int8_calls {counts[4]}, plain calls {counts[1]} + "
+          f"{counts[3]}; {np.median(times['w8a8']):.2f} ms median "
+          f"({', '.join(f'{t:.2f}' for t in times['w8a8'])}) against bf16 "
+          f"{np.median(times['bf16']):.2f} ms ({', '.join(f'{t:.2f}' for t in times['bf16'])}), "
+          f"in turns; agreement with the bf16 decode (random weights, reported, not gated): "
+          f"greedy frames {frames:.4f}, tokens {tokens}/{n_tok}, identical rows "
+          f"{sum(a == b for a, b in zip(hyps, hyps8))}/{len(hyps)}, max |dlogp| "
+          f"{float((lp - lp8).abs().amax(-1)[valid].max()):.4f}; finite "
+          f"{bool(torch.isfinite(lp8).all())}")
+    want = (n_layers, 0, 0, 0, n_layers)
+    print(f"p26 (a) counts read in each of the {len(per_decode)} W8A8 decodes (cell launches, "
+          f"cell plain, cgMLP launches, cgMLP plain, int8 calls): {per_decode}")
+    if any(c != want for c in per_decode) or not torch.isfinite(lp8).all():
+        fail(f"phase 26 (a): W8A8 decode counts {per_decode}, each expected {want} (cell "
+             f"launches, cell plain, cgMLP launches, cgMLP plain, int8 calls)")
+    for name, (k_launch, k_plain) in (("summary_mixing", (0, 1)), ("csgu", (2, 3))):
+        kernel_rows[name]["launches_by_path"]["w8a8"] = sum(c[k_launch] for c in per_decode)
+        kernel_rows[name]["plain_calls_by_path"]["w8a8"] = sum(c[k_plain] for c in per_decode)
+    kernel_rows["csgu"]["int8_calls_w8a8"] = sum(c[4] for c in per_decode)
+    del model, model8
+    torch.cuda.empty_cache()
+    print(f"p26 (a): {time.perf_counter() - t0:.1f} s wall")
+
+
+def p26_trainer(mesh=None, rule=None):
+    """The flagship with its decoder, dropout 0 and no augmentation (phase
+    25's settings), and its `ASRTrainer` on `mesh` under `rule`."""
+    import dataclasses
+
+    from summarymixing_tpu_torch.config import build_model, build_trainer
+
+    cfg = flagship_config(decoder_layers=6)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, transformer_dropout=0.0))
+    model, fbank = build_model(cfg)
+    plain = build_trainer(cfg, model, fbank)
+    config = dataclasses.replace(plain.config, augment=None, speed_perturb=False)
+    trainer = type(plain)(model, plain.optimizer, fbank, config, mesh=mesh,
+                          param_sharding_fn=rule)
+    return cfg, model, trainer
+
+
+def p26_steps(trainer, state, batch) -> tuple:
+    """P26_STEPS train steps: (losses, ms per step)."""
+    import torch
+
+    losses, ms = [], []
+    for _ in range(P26_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        if metrics["nonfinite_skipped"]:
+            fail(f"phase 26: a sharded step was skipped, loss {losses[-1]}")
+    return losses, ms
+
+
+def p26_pipeline(rank: int) -> dict:
+    """(c), on processes 0 and 1: the flagship encoder's 18 layers in two
+    stages, 4 microbatches of request 0's shapes (B=8, T=751)."""
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+    from summarymixing_tpu_torch.parallel import pipeline
+
+    mesh = pipeline.make_pipeline_mesh(1, P26_STAGES, devices=list(range(P26_STAGES)),
+                                       device="cuda")
+    if mesh.get_coordinate() is None:
+        return {}
+    cfg = flagship_config()
+    model, _ = build_model(cfg)
+    enc = model.asr.encoder
+    enc.eval()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(261)
+    x = torch.randn(BATCH, max(LENGTHS), 512, generator=g, device="cuda")
+    pad = (torch.arange(max(LENGTHS), device="cuda")[None, :]
+           < torch.tensor(LENGTHS, device="cuda")[:, None]).float()
+    encode = pipeline.pipeline_branchformer_encode(enc, mesh, P26_MICRO)
+    stage = pipeline.stacked_params(enc, stage_of=mesh)
+    with torch.no_grad():
+        encode(stage, x, None, pad)
+        torch.cuda.synchronize()
+        cell, branch = fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch
+        cell.launches = cell.plain_calls = branch.launches = branch.plain_calls = 0
+        t0 = time.perf_counter()
+        out = encode(stage, x, None, pad)
+        torch.cuda.synchronize()
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        counts = [cell.launches, branch.launches, cell.plain_calls, branch.plain_calls]
+        mbs = list(zip(x.chunk(P26_MICRO), pad.chunk(P26_MICRO)))
+        torch.cat([enc(xm, None, pm) for xm, pm in mbs])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seq = torch.cat([enc(xm, None, pm) for xm, pm in mbs])
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t0) * 1e3
+    # one backward: a fixed random projection of the output
+    w = torch.randn(out.shape, generator=g, device="cuda") / 512 ** 0.5
+    leaves = {k: v.detach().requires_grad_() for k, v in stage["layers"].items()}
+    norm = {k: v.detach().requires_grad_() for k, v in stage["norm"].items()}
+    (encode({"layers": leaves, "norm": norm}, x, None, pad).float() * w).sum().backward()
+    for p in enc.parameters():
+        p.grad = None
+    sum(((enc(xm, None, pm).float() * wm).sum() for (xm, pm), wm in zip(mbs, w.chunk(P26_MICRO))),
+        torch.zeros((), device="cuda")).backward()
+    per = cfg.model.num_encoder_layers // P26_STAGES
+    errs = []
+    for name, gp in leaves.items():
+        for j in range(per):
+            ref = dict(getattr(enc, f"layer_{rank * per + j}").named_parameters())[name].grad
+            errs.append(float((gp.grad[j] - ref).norm()) / max(float(ref.norm()), 1e-30))
+    for name, gp in norm.items():
+        ref = dict(enc.norm.named_parameters())[name].grad
+        errs.append(float((gp.grad - ref).norm()) / max(float(ref.norm()), 1e-30))
+    return {"equal": bool(torch.equal(out, seq)), "counts": counts, "pipe_ms": pipe_ms,
+            "seq_ms": seq_ms, "grad_err": max(errs), "grad_tensors": len(errs),
+            "finite": bool(torch.isfinite(out).all())}
+
+
+def p26_rank(rank: int, ranks: int, port: int, here: str, root: str) -> None:
+    """One of phase 26's processes (started with `spawn`): (b) three
+    training steps under each grid it belongs to, then (c) the pipeline
+    on processes 0 and 1; writes `root/p26_rank<rank>.json`."""
+    os.environ.update(SMT_COORDINATOR=f"127.0.0.1:{port}", SMT_NUM_PROCESSES=str(ranks),
+                      SMT_PROCESS_ID=str(rank))
+    sys.path.insert(0, here)
+    import torch
+    import torch.distributed as dist
+
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+    from summarymixing_tpu_torch.parallel import launch
+    from summarymixing_tpu_torch.parallel import mesh as meshes
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    launch.initialize(device="cuda")
+    batch = training_batch()
+    out = {"rank": rank, "backend": launch.backend()}
+    cell, branch = fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch
+    for rule_name, n_data, n_model in P26_GRIDS:
+        if n_data * n_model > ranks:
+            continue
+        mesh = meshes.make_mesh(n_data, n_model, devices=list(range(n_data * n_model)),
+                                device="cuda")
+        if mesh.get_coordinate() is None:
+            continue
+        rule = {"fsdp": meshes.fsdp_param_sharding, "tp": meshes.tensor_parallel_param_sharding,
+                "composite": meshes.composite_param_sharding}[rule_name](mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, model, trainer = p26_trainer(mesh, rule)
+        state = trainer.init_state(3407)
+        local = meshes.shard_batch(batch, mesh)
+        for fn in (cell, branch):
+            fn.launches, fn.plain_calls, fn.backwards = 0, 0, 0
+        losses, ms = p26_steps(trainer, state, local)
+        moments = state["opt_state"]["mu"]
+        out[rule_name] = {
+            "losses": losses, "ms": ms, "rows": int(local["wav"].shape[0]),
+            "param_share": trainer.shards.held_share(),
+            "moment_share": sum(m.to_local().numel() for m in moments)
+            / sum(p.numel() for p in trainer.params),
+            "sharded_leaves": sum(any(type(p).__name__ == "Shard" for p in d.placements)
+                                  for d in state["params"].values()),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "counts": [cell.launches, branch.launches, cell.backwards, branch.backwards,
+                       cell.plain_calls, branch.plain_calls]}
+        del model, trainer, state
+    for fn in (cell, branch):
+        fn.launches, fn.plain_calls = 0, 0
+    torch.cuda.empty_cache()
+    out["pipeline"] = p26_pipeline(rank)
+    with open(os.path.join(root, f"p26_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p26_spawn(ranks: int, here: str, root: str) -> list:
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.start_processes(p26_rank, args=(ranks, port, here, root), nprocs=ranks,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + P26_TIMEOUT
+    while not ctx.join(timeout=5):
+        if time.perf_counter() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            fail(f"phase 26: the {ranks} processes did not finish in {P26_TIMEOUT} s")
+    procs = []
+    for r in range(ranks):
+        with open(os.path.join(root, f"p26_rank{r}.json")) as f:
+            procs.append(json.load(f))
+    return procs
+
+
+def phase_sharded_kernel_shapes(kernel_rows) -> None:
+    """Phase 26, before (b) and (c): both kernels against their plain
+    versions at the shapes the new paths give them, with no keep-mask:
+    each pipeline microbatch [B/M, T, 512] of request 0's lengths, and each
+    sharded process's rows at the training T (8 rows for FSDP 2x1 and
+    composite 2x2, 16 for TP 1x2, at dropout 0). The forward within phase
+    3's tolerances; the autograd Function's gradients equal the plain
+    version's bit for bit, as phase 5 holds them with a mask."""
+    import torch
+
+    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+
+    dev = torch.device("cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator(device=dev)
+    g.manual_seed(2626)
+    d, c2, k = 512, 3072, 31
+    c = c2 // 2
+
+    def w(*shape, scale=None):
+        s_ = scale if scale is not None else (shape[-1] if len(shape) > 1 else 512) ** -0.5
+        return (torch.rand(*shape, generator=g, device=dev) * 2 - 1) * s_
+
+    merge = w(d, 2 * d)
+    cell = (w(d, d), w(d, scale=0.1), w(d, d), w(d, scale=0.1), w(d, d), w(d, scale=0.1),
+            w(d, d), w(d, scale=0.1), merge[:, :d], merge[:, d:], w(d, scale=0.1))
+    branch = (w(c2, d), w(c2, scale=0.1), 1.0 + w(c, scale=0.1), w(c, scale=0.1),
+              w(k, c, scale=k ** -0.5), 1.0 + w(c, scale=0.1), w(d, c), w(d, scale=0.1))
+    micro = BATCH // P26_MICRO
+    shapes = [(f"pipeline microbatch {i}", LENGTHS[i * micro:(i + 1) * micro], max(LENGTHS))
+              for i in range(P26_MICRO)]
+    # (b)'s batch: the encoder frames of its utterances, padded to the longest
+    train = [encoder_frames(int(n)) for n in training_batch()["wav_lens"].tolist()]
+    half = TRAIN_BATCH // 2
+    shapes += [("FSDP/composite data index 0", train[:half], max(train)),
+               ("FSDP/composite data index 1", train[half:], max(train)),
+               ("TP", train, max(train))]
+    results = []
+    for label, lengths, t in shapes:
+        b = len(lengths)
+        x = torch.randn(b, t, d, generator=g, device=dev).to(torch.bfloat16)
+        mask = (torch.arange(t, device=dev)[None, :]
+                < torch.tensor(lengths, device=dev)[:, None]).to(torch.float32)
+        pad = mask[..., None].contiguous()
+        g_out = torch.randn(b, t, d, generator=g, device=dev).to(torch.bfloat16)
+        specs = (
+            ("summary_mixing", cell, CELL_TOL,
+             lambda xx, ws: fused_summary.fused_summary_mixing(xx, pad, ws, "gelu"),
+             lambda xx, ws: fused_summary.summary_mixing_reference(
+                 xx, pad, fused_summary.kernel_weights(ws), "gelu")),
+            ("csgu", branch, CSGU_TOL,
+             lambda xx, ws: fused_csgu.fused_convolution_branch(xx, mask, ws),
+             lambda xx, ws: fused_csgu.convolution_branch_reference(
+                 xx, mask, fused_csgu.kernel_weights(ws))))
+        for name, weights, tol, kern, plain in specs:
+            outs = []
+            for fn in (kern, plain):
+                xx = x.detach().requires_grad_()
+                ws = [v.detach().requires_grad_() for v in weights]
+                out = fn(xx, ws)
+                outs.append((out.detach(), torch.autograd.grad(out, [xx] + ws, g_out)))
+            torch.cuda.synchronize()
+            abs_err, err = rel_err(outs[0][0], outs[1][0])
+            bit_equal = all(torch.equal(p_, q_) for p_, q_ in zip(outs[0][1], outs[1][1]))
+            ok = err <= tol and bit_equal
+            print(f"p26 kernel shapes: {name} {label} [{b}, {t}, {d}], no keep-mask: "
+                  f"max_abs_err {abs_err:.3e} max_rel_err {err:.3e} tol {tol:.3e}; Function "
+                  f"gradients equal the plain version's bit for bit: {bit_equal} "
+                  f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                fail(f"phase 26: {name} disagrees with its plain version at {label} "
+                     f"[{b}, {t}, {d}]")
+            results.append((name, dict(shape=label, batch=b, frames=t, max_abs_err=abs_err,
+                                       max_rel_err=err, grad_bit_equal=bit_equal)))
+    torch.backends.cudnn.deterministic = deterministic
+    for name, row in results:
+        kernel_rows[name].setdefault("p26_shapes", []).append(row)
+
+
+def phase_sharded(kernel_rows, here: str, root: str, ranks: int = 4) -> None:
+    """Phase 26 (b) and (c): the flagship training step under the three
+    rules against one process, and the pipelined encoder, over `ranks`
+    processes (4 on the one card over gloo, or one card each)."""
+    import torch
+
+    t0 = time.perf_counter()
+    phase_sharded_kernel_shapes(kernel_rows)
+    torch.backends.cudnn.deterministic = True
+    batch = training_batch()
+    single = {}
+    for run in ("A", "B"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, model, trainer = p26_trainer()
+        state = trainer.init_state(3407)
+        kernels = zero_counts()
+        losses, ms = p26_steps(trainer, state, batch)
+        single[run] = {"losses": losses, "ms": ms,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "counts": [fn.launches for fn in kernels] + [fn.backwards for fn in kernels]
+                       + [fn.plain_calls for fn in kernels]}
+        del model, trainer, state
+    torch.cuda.empty_cache()
+    a, b = single["A"], single["B"]
+    print(f"p26 (b) one process, {P26_STEPS} steps of phase 7's batch of {TRAIN_BATCH} (dropout "
+          f"0, no augmentation): losses {['%.8f' % v for v in a['losses']]}, again "
+          f"{['%.8f' % v for v in b['losses']]} (the same bits: {a['losses'] == b['losses']}); "
+          f"{step_ms([m / 1e3 for m in a['ms']])}; peak memory {a['peak_gib']:.2f} GiB; "
+          f"launches/backwards/plain {a['counts']}, again {b['counts']}")
+    n_layers = 18
+    if any(r["counts"] != [n_layers * P26_STEPS] * 4 + [0, 0] for r in (a, b)):
+        fail("phase 26 (b): the one-process runs did not go through both kernels on every layer")
+    t1 = time.perf_counter()
+    procs = p26_spawn(ranks, here, root)
+    spawn_s = time.perf_counter() - t1
+    ok = True
+    for rule_name, n_data, n_model in P26_GRIDS:
+        runs = [(rk["rank"], rk[rule_name]) for rk in procs if rule_name in rk]
+        if len(runs) != n_data * n_model:
+            fail(f"phase 26 (b): {rule_name} ran on {len(runs)} processes")
+        for r, res in runs:
+            losses = res["losses"]
+            rel = max(abs(x - y) / abs(y) for x, y in zip(losses, a["losses"]))
+            bits = losses == a["losses"]
+            counts_ok = res["counts"] == [n_layers * P26_STEPS] * 4 + [0, 0]
+            share_ok = (round(res["param_share"], 4) == P26_SHARES[rule_name]
+                        and round(res["moment_share"], 4) == P26_SHARES[rule_name])
+            loss_ok = bits if rule_name == "tp" else rel <= P26_DP_TOL
+            print(f"p26 (b) {rule_name} {n_data}x{n_model} rank {r} ({res['rows']} rows): losses "
+                  f"{['%.8f' % v for v in losses]}, bit-equal to one process {bits}, max "
+                  f"relative {rel:.3e}; parameter share {res['param_share']:.6f}, moment share "
+                  f"{res['moment_share']:.6f} (want {P26_SHARES[rule_name]}), "
+                  f"{res['sharded_leaves']} sharded leaves; "
+                  f"{step_ms([m / 1e3 for m in res['ms']])}; "
+                  f"peak memory {res['peak_gib']:.2f} GiB; launches/backwards/plain "
+                  f"{res['counts']} {'ok' if loss_ok and counts_ok and share_ok else 'FAILED'}")
+            ok = ok and loss_ok and counts_ok and share_ok
+    if not ok:
+        fail("phase 26 (b): a sharded run disagrees with one process, its shares or its counts")
+    pipes = [rk["pipeline"] for rk in procs if rk["pipeline"]]
+    bubble = P26_MICRO / (P26_MICRO + P26_STAGES - 1)
+    for r, pp in enumerate(pipes):
+        want = 9 * P26_MICRO
+        good = (pp["equal"] and pp["finite"] and pp["counts"] == [want, want, 0, 0]
+                and pp["grad_err"] <= P26_PIPE_GRAD_TOL)
+        print(f"p26 (c) pipeline stage {r} of {P26_STAGES}, {P26_MICRO} microbatches of "
+              f"[{BATCH // P26_MICRO}, {max(LENGTHS)}, 512]: output bit-equal to the sequential "
+              f"encode of the same microbatches {pp['equal']}; launches cell/cgMLP "
+              f"{pp['counts'][:2]} (want {want} each), plain {pp['counts'][2:]}; "
+              f"{pp['pipe_ms']:.2f} ms against sequential {pp['seq_ms']:.2f} ms (wall); bubble "
+              f"M/(M+S-1) = {bubble:.2f}; gradients max per-tensor relative L2 "
+              f"{pp['grad_err']:.3e} over {pp['grad_tensors']} tensors (tol "
+              f"{P26_PIPE_GRAD_TOL:g}) {'ok' if good else 'FAILED'}")
+        if not good:
+            fail("phase 26 (c): the pipelined encode disagrees with the sequential one")
+    if len(pipes) != P26_STAGES:
+        fail(f"phase 26 (c): {len(pipes)} pipeline stages reported")
+    print(f"p26 (b, c): backend {procs[0]['backend']}; activations between stages staged "
+          f"through host memory under gloo; the {ranks} processes took {spawn_s:.1f} s; "
+          f"{time.perf_counter() - t0:.1f} s wall")
+    for name, k in (("summary_mixing", 0), ("csgu", 1)):
+        rows = kernel_rows[name]
+        rows["launches_by_path"]["sharded_train"] = a["counts"][k] + b["counts"][k] + sum(
+            rk[g[0]]["counts"][k] for rk in procs for g in P26_GRIDS if g[0] in rk)
+        rows["plain_calls_by_path"]["sharded_train"] = (
+            a["counts"][4 + k] + b["counts"][4 + k]
+            + sum(rk[g[0]]["counts"][4 + k] for rk in procs for g in P26_GRIDS if g[0] in rk))
+        rows["launches_by_path"]["pipeline"] = sum(pp["counts"][k] for pp in pipes)
+        rows["plain_calls_by_path"]["pipeline"] = sum(pp["counts"][2 + k] for pp in pipes)
+
+
+def phase_decoder_and_beam() -> None:
+    """Phase 26 (d): a 6-layer d512 ConformerDecoder on the card against
+    its CPU forward, and the uncached beam step against the cached one."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from summarymixing_tpu_torch.config import build_model
+    from summarymixing_tpu_torch.decoding.s2s_beam import S2SBeamConfig
+    from summarymixing_tpu_torch.evaluate import make_beam_step
+    from summarymixing_tpu_torch.models import ConformerDecoder
+    from summarymixing_tpu_torch.ops.layers import set_compute_dtype
+    from summarymixing_tpu_torch.utils.init import init_parameters
+
+    t0 = time.perf_counter()
+    dec = ConformerDecoder(**P26_DECODER)
+    g = torch.Generator()
+    g.manual_seed(262)
+    init_parameters(dec, g)
+    dec.eval()
+    tgt = torch.randn(4, 60, 512, generator=g)
+    mem = torch.randn(4, max(LENGTHS), 512, generator=g)
+    pad = (torch.arange(max(LENGTHS))[None, :] < torch.tensor(LENGTHS[:4])[:, None]).float()
+    with torch.no_grad():
+        want = dec(tgt, mem, None, pad)
+        card = copy.deepcopy(dec).cuda()
+        got = card(tgt.cuda(), mem.cuda(), None, pad.cuda()).cpu()
+        dec_ms = cuda_ms(lambda: card(tgt.cuda(), mem.cuda(), None, pad.cuda()), iters=5)
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    print(f"p26 (d) ConformerDecoder {P26_DECODER}: {sum(p.numel() for p in dec.parameters()):,} "
+          f"parameters, [4, 60] targets over [4, {max(LENGTHS)}] memory, float32 card against "
+          f"CPU: max |d| / max |out| {err:.3e} (tol {P26_F32_TOL:g}); {dec_ms:.2f} ms on the card")
+    if not err <= P26_F32_TOL:
+        fail("phase 26 (d): the Conformer decoder on the card disagrees with the CPU")
+    del dec, card
+    cfg = flagship_config(decoder_layers=6)
+    model, fbank = build_model(cfg)
+    set_compute_dtype(model, None)
+    model.eval()
+    wav, lens = request0(cfg.features.sample_rate)
+    from summarymixing_tpu_torch.frontend.features import InputNormalization
+
+    b, beam, steps = 2, 4, 6
+    with torch.no_grad():
+        feats, _ = InputNormalization()(fbank(wav[:b]), seeded_norm_stats())
+        enc, enc_len = model.encode(feats, fbank.frame_lengths(lens[:b]))
+        other = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, decoder_attention_type="RelPosMHAXL"))
+        bc = S2SBeamConfig(beam_size=beam, ctc_weight=0.4, max_length=steps, bos_id=1, eos_id=2)
+        step, cache, _ = make_beam_step(other, model, enc, enc_len, beam, bc)
+        c_step, c_cache, _ = make_beam_step(cfg, model, enc, enc_len, beam, bc)
+        tok = torch.randint(3, cfg.model.output_neurons, (b * beam, steps + 1),
+                            generator=torch.Generator().manual_seed(263)).cuda()
+        tok[:, 0] = 1
+        errs = []
+        for pos in range(steps):
+            lp = step(tok, pos)
+            lp_c, c_cache = c_step(tok[:, pos], pos, c_cache)
+            errs.append(float((lp - lp_c).abs().max()))
+    print(f"p26 (d) uncached beam route (decode_position over the beam-tiled encoder output, "
+          f"cache {cache}) against the cached step, flagship decoder in float32, B={b}, beam "
+          f"{beam}, {steps} positions: max |dlogp| {max(errs):.3e} (tol {P26_F32_TOL:g}); "
+          f"{time.perf_counter() - t0:.1f} s wall")
+    if cache is not None or not max(errs) <= P26_F32_TOL:
+        fail("phase 26 (d): the uncached beam step disagrees with the cached step")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_last_slice(kernel_rows, here: str, root: str) -> None:
+    """Phase 26: W8A8, sharded training, the pipeline, the Conformer
+    decoder and the uncached beam step."""
+    t0 = time.perf_counter()
+    phase_w8a8(kernel_rows)
+    phase_sharded(kernel_rows, here, root)
+    phase_decoder_and_beam()
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s wall")
+
+
 def main_processes(n: int, smi: str, here: str) -> int:
-    """`--processes N`: phase 25 alone with N processes, one card each
-    (NCCL), after the build; the same last lines as the whole script."""
+    """`--processes N`: with N >= 4 phase 26 (b) and (c) over N processes,
+    one card each (composite 2x2 over NCCL), then phase 25 alone with N
+    processes, after the build; the same last lines as the whole
+    script."""
     import torch
 
     if torch.cuda.device_count() < n:
@@ -4529,6 +5131,8 @@ def main_processes(n: int, smi: str, here: str) -> int:
             for name in ("summary_mixing", "csgu")}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_") as root:
         corpus = make_corpus(here, os.path.join(root, "corpus"))
+        if n >= 4:
+            phase_sharded(rows, here, root, ranks=n)
         phase_distributed(rows, here, corpus, root, ranks=n)
     print(json.dumps({"kernels": [rows["summary_mixing"], rows["csgu"]]}))
     print(f"nvidia-smi: {smi}")
@@ -4610,6 +5214,8 @@ def main() -> int:
         phase_modes_and_tooling(kernel_rows, here, corpus, root)
         torch.cuda.empty_cache()
         phase_distributed(kernel_rows, here, corpus, root)
+        torch.cuda.empty_cache()
+        phase_last_slice(kernel_rows, here, root)
     torch.cuda.empty_cache()
     phase_baselines(kernel_rows)
     for row in kernel_rows.values():

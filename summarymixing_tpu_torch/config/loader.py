@@ -82,7 +82,9 @@ def build_model(cfg: RecipeConfig, device=None) -> tuple:
     serves every layer: the Conformer's, the SummaryMixing cell's, the
     feed-forward blocks' and the joint's (the Summary Decoder's cell keeps
     the erf GELU, as the flax decoder builds it). `model.remat` recomputes
-    each encoder layer's activations in the backward pass."""
+    each encoder layer's activations in the backward pass; `model.act_int8`
+    makes the Branchformer's cgMLP projections W8A8 (`ops/quant.py`), as
+    the JAX loader does."""
     from summarymixing_tpu_torch.frontend.features import Fbank
     from summarymixing_tpu_torch.models.asr import TransformerASR
     from summarymixing_tpu_torch.models.speech_recognizer import SpeechRecognizer
@@ -106,7 +108,8 @@ def build_model(cfg: RecipeConfig, device=None) -> tuple:
             local_proj_out_dim=m.local_proj_out_dim,
             summary_hid_dim=tuple(m.summary_hid_dim), summary_out_dim=m.summary_out_dim,
             mode=m.mode, branchformer_activation=m.activation,
-            conformer_activation=m.activation, max_length=m.max_length, remat=m.remat)
+            conformer_activation=m.activation, max_length=m.max_length, remat=m.remat,
+            act_int8=m.act_int8)
         model = SpeechRecognizer(asr, m.output_neurons,
                                  frontend_channels=tuple(m.frontend_channels),
                                  frontend_strides=tuple(m.frontend_strides),

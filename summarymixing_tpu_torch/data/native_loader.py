@@ -79,6 +79,16 @@ def load_library() -> ctypes.CDLL:
     return _LIBS[so]
 
 
+def native_available() -> bool:
+    """Whether the native loader builds and loads here (the JAX package's
+    probe); `load_wav_batch` itself raises when it does not."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def load_wav_batch(paths: Sequence[str], max_len: int,
                    expected_rate: int = 16000) -> Tuple[np.ndarray, np.ndarray]:
     """Decode `paths` into `(out [B, max_len] float32, zero-padded; lengths

@@ -117,25 +117,35 @@ def beam_config(cfg, max_length: int, lm_step=None, beam_size: Optional[int] = N
 
 def make_beam_step(cfg, model, enc_out: torch.Tensor, enc_lens: torch.Tensor, beam: int,
                    bc: S2SBeamConfig, lm_step=None, lm_make_cache=None):
-    """The cached search step over UNtiled `enc_out` `[B, T, D]`: the
-    decoder's per-hypothesis state at N = B·beam rows (self-attention K/V
-    at `max_length` + 1 positions, or the Summary Decoder's `(sum, denom)`
-    carry), the LM cache at N rows, the cross-attention K/V and the
-    encoder pad mask at B rows. The search gathers every N-row leaf by
-    parent after each step. `cfg` keeps the JAX signature: its uncached
-    route for other decoders is not ported (ROADMAP.md queue 1 item 11: no
-    JAX runner reaches it), and every decoder the port builds has a cached
-    step. Returns
-    `(step, cache, lm_cache)`."""
+    """The search step over UNtiled `enc_out` `[B, T, D]`. For the decoders
+    with a cached step (`cfg.model.decoder_attention_type` regularMHA,
+    vanillaMHA or SummaryMixing): the decoder's per-hypothesis state at
+    N = B·beam rows (self-attention K/V at `max_length` + 1 positions, or
+    the Summary Decoder's `(sum, denom)` carry), the LM cache at N rows,
+    the cross-attention K/V and the encoder pad mask at B rows; the search
+    gathers every N-row leaf by parent after each step. For any other
+    decoder, the whole-prefix route of the JAX `make_beam_step`: the
+    encoder output and lengths tiled for the beam, and each step
+    `model.decode_position(tokens, enc_t, len_t, step)` with no cache.
+    Returns `(step, cache, lm_cache)`, `cache` None on the uncached route."""
     n = enc_out.shape[0] * beam
     lm_cache = lm_make_cache(n, bc.max_length + 1) if lm_step else None
-    cache = model.decode_cache_init(enc_out, bc.max_length + 1, n)
-    enc_pad = length_to_mask(enc_lens, enc_out.shape[1])
+    if cfg.model.decoder_attention_type in ("regularMHA", "vanillaMHA", "SummaryMixing"):
+        cache = model.decode_cache_init(enc_out, bc.max_length + 1, n)
+        enc_pad = length_to_mask(enc_lens, enc_out.shape[1])
 
-    def step(last_tok, step_i, cache):
-        return model.decode_step_cached(last_tok, step_i, cache, enc_pad)
+        def step(last_tok, step_i, cache):
+            return model.decode_step_cached(last_tok, step_i, cache, enc_pad)
 
-    return step, cache, lm_cache
+        return step, cache, lm_cache
+
+    enc_t = tile_for_beam(enc_out, beam)
+    len_t = tile_for_beam(enc_lens, beam)
+
+    def step_plain(tokens, step_i):
+        return model.decode_position(tokens, enc_t, len_t, step_i)
+
+    return step_plain, None, lm_cache
 
 
 def maybe_compact_ctc(cfg, ctc_lp: torch.Tensor, enc_lens: torch.Tensor):
@@ -241,9 +251,9 @@ def evaluate_beam(model, fbank, norm_stats: Mapping, batches: Sequence, cfg, lm=
                                                    lm_make_cache)
             calls = [0]
 
-            def counted(tok, i, c, step=step, calls=calls):
+            def counted(*args, step=step, calls=calls):
                 calls[0] += 1
-                return step(tok, i, c)
+                return step(*args)
 
             toks, lens, best = s2s_beam_search(counted, eo, tile_for_beam(sl, beam), cl, bc,
                                                lm_step_fn=lm_step, cache=cache,

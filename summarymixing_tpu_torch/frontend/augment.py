@@ -7,13 +7,16 @@ Each augmentation is split into a random draw (`*_draw`, from a
 draws, so that a test can feed the JAX package's draws to the port's
 transform. The draws are the raw numbers the JAX functions draw: integer
 lengths and offsets, and uniforms that the transform scales.
+`spectrogram_drop` and `time_warp` (draw, then transform) and the
+`Augmenter` combinator keep the JAX signatures with a generator where
+JAX takes a key.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -98,6 +101,42 @@ def time_warp_apply(x: torch.Tensor, center_u: torch.Tensor, shift: torch.Tensor
     g0 = torch.gather(x, 1, i0[..., None].expand(-1, -1, x.shape[2]))
     g1 = torch.gather(x, 1, i1[..., None].expand(-1, -1, x.shape[2]))
     return g0 * (1.0 - frac) + g1 * frac
+
+
+def spectrogram_drop(generator: Optional[torch.Generator], x: torch.Tensor,
+                     pad_mask: Optional[torch.Tensor] = None, drop_length_low: int = 15,
+                     drop_length_high: int = 25, drop_count: int = 4, axis: int = 1,
+                     replace: str = "mean") -> torch.Tensor:
+    """Drop `drop_count` random spans along time (axis 1) or frequency
+    (axis 2), replaced by the utterance mean or zeros."""
+    draw = spectrogram_drop_draw(generator, x.shape[0], drop_count, drop_length_low,
+                                 drop_length_high, device=x.device)
+    return spectrogram_drop_apply(x, *draw, pad_mask, axis=axis, replace=replace)
+
+
+def time_warp(generator: Optional[torch.Generator], x: torch.Tensor,
+              pad_mask: Optional[torch.Tensor] = None, warp_window: int = 5) -> torch.Tensor:
+    """SpecAugment time warp, drawn from `generator`."""
+    draw = time_warp_draw(generator, x.shape[0], warp_window, device=x.device)
+    return time_warp_apply(x, *draw, pad_mask, warp_window)
+
+
+@dataclass(frozen=True)
+class Augmenter:
+    """Sequential augmentation with one gate: with probability
+    `augment_prob` every augmentation `aug(generator, x, pad_mask)` is
+    applied in order, else x is returned (the JAX combinator's semantics)."""
+
+    augmentations: Sequence[Callable] = ()
+    augment_prob: float = 1.0
+
+    def __call__(self, generator: Optional[torch.Generator], x: torch.Tensor,
+                 pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        apply = torch.rand((), generator=generator, device=x.device) < self.augment_prob
+        out = x
+        for aug in self.augmentations:
+            out = aug(generator, out, pad_mask)
+        return torch.where(apply, out, x)
 
 
 @dataclass(frozen=True)

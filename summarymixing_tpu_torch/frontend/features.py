@@ -13,6 +13,8 @@ top_db, power) keep their defaults here, the values the recipes use.
 
 from __future__ import annotations
 
+import math
+
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,6 +40,47 @@ def _windowed_basis(n_fft: int, win_length: int) -> np.ndarray:
     basis = (np.concatenate([cos_b[:, :win_length], sin_b[:, :win_length]], axis=0)
              * w[None, :])
     return np.ascontiguousarray(basis.T.astype(np.float32))
+
+
+def hamming_window(length: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The periodic Hamming window (`torch.hamming_window(periodic=True)`)."""
+    n = torch.arange(length, dtype=torch.float32)
+    return (0.54 - 0.46 * torch.cos(2.0 * math.pi * n / length)).to(dtype)
+
+
+def frame_signal(x: torch.Tensor, frame_length: int, hop: int, center: bool = True
+                 ) -> torch.Tensor:
+    """x `[B, N]` -> frames `[B, T, frame_length]`; T = 1 + N//hop when
+    centred (frame_length//2 zeros on both sides, as torch's STFT pads)."""
+    if center:
+        pad = frame_length // 2
+        x = F.pad(x, (pad, pad))
+    return x.unfold(1, frame_length, hop)
+
+
+def _power_spectrum(wav: torch.Tensor, basis: torch.Tensor, n_fft: int, win_length: int,
+                    hop: int) -> torch.Tensor:
+    """|STFT|² `[B, 1 + N//hop, n_fft//2 + 1]` of the centred windows, one
+    product with the windowed DFT basis."""
+    n = wav.shape[1]
+    t_out = 1 + n // hop
+    half = win_length // 2
+    right = max(0, (t_out - 1) * hop + win_length - n - half)
+    frames = F.pad(wav.to(torch.float32), (half, right)).unfold(1, win_length, hop)[:, :t_out]
+    y = torch.matmul(frames, basis)
+    f = n_fft // 2 + 1
+    return y[..., :f] ** 2 + y[..., f:] ** 2
+
+
+def stft_magnitude(x: torch.Tensor, n_fft: int = 512, win_length: int = 512, hop: int = 160,
+                   power: float = 1.0) -> torch.Tensor:
+    """x `[B, N]` audio -> `[B, T, n_fft//2 + 1]`: the power spectrum
+    |X|² (power 1.0, the reference Fbank's), or |X|^(2·power)."""
+    if win_length > n_fft:
+        raise ValueError("win_length > n_fft")
+    basis = torch.as_tensor(_windowed_basis(n_fft, win_length), device=x.device)
+    spec = _power_spectrum(x, basis, n_fft, win_length, hop)
+    return spec if power == 1.0 else torch.pow(spec, power)
 
 
 def _hz_to_mel(hz):
@@ -86,15 +129,7 @@ class Fbank(nn.Module):
 
     def stft_magnitude(self, wav: torch.Tensor) -> torch.Tensor:
         """wav `[B, N]` -> power spectrum `[B, 1 + N//hop, n_fft//2 + 1]`."""
-        n = wav.shape[1]
-        t_out = 1 + n // self.hop_length
-        half = self.win_length // 2
-        right = max(0, (t_out - 1) * self.hop_length + self.win_length - n - half)
-        frames = F.pad(wav.to(torch.float32), (half, right)).unfold(
-            1, self.win_length, self.hop_length)[:, :t_out]
-        y = torch.matmul(frames, self.basis)
-        f = self.n_fft // 2 + 1
-        return y[..., :f] ** 2 + y[..., f:] ** 2
+        return _power_spectrum(wav, self.basis, self.n_fft, self.win_length, self.hop_length)
 
     def log_mel(self, spec: torch.Tensor) -> torch.Tensor:
         """Power spectrum `[B, T, n_fft//2 + 1]` -> 10·log10 of the mel

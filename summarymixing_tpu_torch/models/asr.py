@@ -83,7 +83,7 @@ class TransformerASR(nn.Module):
                  summary_hid_dim: Sequence[int] = (1024,), summary_out_dim: int = 1024,
                  mode: str = "SummaryMixing", branchformer_activation: str = "gelu_exact",
                  conformer_activation: str = "swish", max_length: int = 2500,
-                 remat: bool = False):
+                 remat: bool = False, act_int8: bool = False):
         super().__init__()
         if decoder_attention_type not in ("regularMHA", "vanillaMHA", "SummaryMixing"):
             # RelPosMHAXL needs position tables the decode paths do not
@@ -122,7 +122,8 @@ class TransformerASR(nn.Module):
                 gate_activation=gate_activation, use_linear_after_conv=use_linear_after_conv,
                 local_proj_hid_dim=local_proj_hid_dim, local_proj_out_dim=local_proj_out_dim,
                 summary_hid_dim=summary_hid_dim, summary_out_dim=summary_out_dim, mode=mode,
-                activation=branchformer_activation, dropout_rate=dropout_rate, remat=remat)
+                activation=branchformer_activation, dropout_rate=dropout_rate, remat=remat,
+                act_int8=act_int8)
         else:
             raise ValueError(f"unknown encoder_module {encoder_module!r}")
         if num_decoder_layers > 0:
@@ -278,3 +279,20 @@ class TransformerASR(nn.Module):
         out, enc_state = self.encoder.streaming_step(src, state.encoder, pos_embs)
         return out, ASRStreamingState(encoder=enc_state, frame_offset=state.frame_offset + chunk,
                                       chunk_size=state.chunk_size)
+
+
+class EncoderASR(nn.Module):
+    """Encoder-only wrapper whose forward is `asr.encode` (the reference's
+    EncoderWrapper, TransformerASR.py:687-741)."""
+
+    def __init__(self, asr: TransformerASR):
+        super().__init__()
+        self.asr = asr
+
+    def forward(self, src: torch.Tensor, wav_len: Optional[torch.Tensor] = None,
+                dynchunktrain: Optional[DynChunkTrainConfig] = None) -> torch.Tensor:
+        return self.asr.encode(src, wav_len, dynchunktrain)
+
+
+# the reference class name (TransformerASR.py:687)
+EncoderWrapper = EncoderASR

@@ -34,7 +34,7 @@ class BranchformerEncoderLayer(nn.Module):
                  local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
                  summary_hid_dim: Sequence[int] = (1024,), summary_out_dim: int = 1024,
                  mode: str = "SummaryMixing", activation: str = "gelu_exact",
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, act_int8: bool = False):
         super().__init__()
         self.attention_type = attention_type
         if attention_type != "cnnonly":
@@ -52,7 +52,7 @@ class BranchformerEncoderLayer(nn.Module):
             self.norm_mhsa = LayerNorm(d_model, eps=1e-5)
         self.convolution_branch = ConvolutionBranch(
             d_model, csgu_linear_units, kernel_size, activation, gate_activation,
-            use_linear_after_conv, dropout_rate)
+            use_linear_after_conv, dropout_rate, act_int8)
         self.norm_conv = LayerNorm(d_model, eps=1e-5)
         self.dropout = Dropout(dropout_rate)
 
@@ -68,13 +68,20 @@ class BranchformerEncoderLayer(nn.Module):
 
 
 class BranchformerEncoder(nn.Module):
-    """Stack of `BranchformerEncoderLayer`s (`layer_0` ...) + final `norm`."""
+    """Stack of `BranchformerEncoderLayer`s (`layer_0` ...) + final `norm`.
+    `scan_layers` is taken and changes nothing here: the JAX encoder runs
+    its layers under `nn.scan` with stacked `layers: {...: [L, ...]}`
+    parameters, which compute what the unrolled layers compute
+    (`utils.convert.load_jax_params` reads that layout into `layer_{i}`,
+    and `parallel.pipeline.stacked_params` builds it)."""
 
     def __init__(self, num_layers: int, d_model: int, nhead: int, remat: bool = False,
-                 **layer_kwargs):
+                 scan_layers: bool = False, **layer_kwargs):
         super().__init__()
         self.num_layers = num_layers
         self.remat = remat
+        self.scan_layers = scan_layers
+        self.layer_kwargs = dict(layer_kwargs, d_model=d_model, nhead=nhead)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", BranchformerEncoderLayer(d_model, nhead, **layer_kwargs))
         self.norm = LayerNorm(d_model, eps=1e-6)

@@ -1,8 +1,8 @@
 """Conformer encoder with any token mixer of `models.mixers`, Dynamic Chunk
-Training masks, a causal form and chunked streaming — the port of
-`ConformerEncoderLayer`, `ConformerEncoder` and their streaming state from
-`summarymixing_tpu/models/conformer.py` (the Conformer decoder is still to
-port; no recipe uses it: ROADMAP.md queue 1, item 11).
+Training masks, a causal form and chunked streaming, and the Conformer
+decoder — the port of `ConformerEncoderLayer`, `ConformerEncoder`, their
+streaming state, `ConformerDecoderLayer` and `ConformerDecoder` from
+`summarymixing_tpu/models/conformer.py`.
 
 A layer is: x += ½·ffn1(norm_ffn1(x)); x = mixer(norm1(x)) + x;
 x += convolution_module(x); x = norm2(x + ½·ffn2(norm_ffn2(x))). The
@@ -13,6 +13,15 @@ is d_ffn wide. With `causal` the RelPosMHAXL mixer masks future keys
 LayerNorm with eps 1e-6; the layers' norms use 1e-5. With `remat` each
 layer's activations are recomputed in the backward pass
 (`ops.layers.remat_call`); streaming is untouched.
+
+A decoder layer (no recipe builds one; the reference's surface,
+Conformer.py:859-1151) is: x = tgt + ½·ffn1(norm_ffn1(tgt)); x = x +
+cross-attention(norm1(x), memory) (`MultiheadAttention`, or
+`RelPosMHAXL` with `mask_pos_future` when causal, which takes the memory's
+`[1, 2S-1, D]` table as `pos_embs_src` and square attention only); x +=
+the causal convolution module (kernel 3); x = norm2(x + ½·ffn2(norm_ffn2(x))).
+Its activation is swish (flax's `silu`); the stack ends in a LayerNorm
+with eps 1e-6.
 
 Streaming carries, per layer, the last `left_context_frames` mixer inputs
 (post-ffn1), the last kernel//2 conv-module inputs and a per-row count of
@@ -33,7 +42,11 @@ import torch
 from torch import nn
 
 from summarymixing_tpu_torch.models.mixers import apply_mixer, make_mixer
-from summarymixing_tpu_torch.ops.attention import PositionalwiseFeedForward
+from summarymixing_tpu_torch.ops.attention import (
+    MultiheadAttention,
+    PositionalwiseFeedForward,
+    RelPosMHAXL,
+)
 from summarymixing_tpu_torch.ops.convolution import ConvolutionModule
 from summarymixing_tpu_torch.ops.layers import Dropout, LayerNorm, remat_call
 
@@ -170,3 +183,63 @@ class ConformerEncoder(nn.Module):
             x, new = layer.streaming_step(x, lstate, pos_embs)
             new_states.append(new)
         return self.norm(x), ConformerStreamingState(layers=tuple(new_states))
+
+
+class ConformerDecoderLayer(nn.Module):
+    """Cross-attention Conformer decoder layer: half-FFN, cross-attention
+    over the encoder memory, causal convolution module, half-FFN + norm."""
+
+    def __init__(self, d_model: int, d_ffn: int, nhead: int, kernel_size: int = 3,
+                 dropout_rate: float = 0.0, causal: bool = True,
+                 attention_type: str = "regularMHA", activation: str = "swish"):
+        super().__init__()
+        self.attention_type = attention_type
+        if attention_type == "regularMHA":
+            self.mha_layer = MultiheadAttention(d_model, nhead, dropout_rate)
+        elif attention_type == "RelPosMHAXL":
+            self.mha_layer = RelPosMHAXL(d_model, nhead, dropout_rate, mask_pos_future=causal)
+        else:
+            raise ValueError(f"ConformerDecoder supports regularMHA/RelPosMHAXL, got "
+                             f"{attention_type!r}")
+        self.convolution_module = ConvolutionModule(d_model, kernel_size, activation,
+                                                    dropout_rate, causal)
+        self.ffn1 = PositionalwiseFeedForward(d_ffn, d_model, dropout_rate, activation)
+        self.ffn2 = PositionalwiseFeedForward(d_ffn, d_model, dropout_rate, activation)
+        for name in ("norm_ffn1", "norm_ffn2", "norm1", "norm2"):
+            self.add_module(name, LayerNorm(d_model, eps=1e-5))
+        self.dropout = Dropout(dropout_rate)
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                memory_mask: Optional[torch.Tensor] = None,
+                memory_pad_mask: Optional[torch.Tensor] = None,
+                pos_embs_src: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = tgt + 0.5 * self.dropout(self.ffn1(self.norm_ffn1(tgt)))
+        extra = {"pos_embs": pos_embs_src} if self.attention_type == "RelPosMHAXL" else {}
+        x = self.mha_layer(self.norm1(x), memory, memory, attn_mask=memory_mask,
+                           pad_mask=memory_pad_mask, **extra) + x
+        x = x + self.convolution_module(x)
+        return self.norm2(x + 0.5 * self.dropout(self.ffn2(self.norm_ffn2(x))))
+
+
+class ConformerDecoder(nn.Module):
+    """Stack of `ConformerDecoderLayer`s (`layer_0` ...) + final `norm`."""
+
+    def __init__(self, num_layers: int, d_model: int, d_ffn: int, nhead: int,
+                 kernel_size: int = 3, dropout_rate: float = 0.0, causal: bool = True,
+                 attention_type: str = "regularMHA", activation: str = "swish"):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", ConformerDecoderLayer(
+                d_model, d_ffn, nhead, kernel_size, dropout_rate, causal, attention_type,
+                activation))
+        self.norm = LayerNorm(d_model, eps=1e-6)
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                memory_mask: Optional[torch.Tensor] = None,
+                memory_pad_mask: Optional[torch.Tensor] = None,
+                pos_embs_src: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for i in range(self.num_layers):
+            tgt = getattr(self, f"layer_{i}")(tgt, memory, memory_mask, memory_pad_mask,
+                                              pos_embs_src)
+        return self.norm(tgt)

@@ -2,8 +2,11 @@
 `TransformerEncoderLayer`, `TransformerEncoder` (any token mixer of
 `models.mixers`: the causal LM's regularMHA stack, and the ASR encoder with
 regularMHA, RelPosMHAXL, hypermixing or SummaryMixing; the "1dcnn"
-feed-forward; layerdrop), `TransformerDecoderLayer` (the regularMHA route
-and the Summary Decoder's SummaryMixing route), `TransformerDecoder` and
+feed-forward; layerdrop), `TransformerDecoderLayer` (the regularMHA route,
+the RelPosMHAXL route with `mask_pos_future` when causal, whose position
+tables come as `pos_embs_tgt` and `pos_embs_src` and whose rel-shift is
+square attention only, and the Summary Decoder's SummaryMixing route),
+`TransformerDecoder` and
 `NormalizedEmbedding` from `summarymixing_tpu/models/transformer.py`, with
 the cached `init_cache`/`step` of beam search.
 
@@ -34,7 +37,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from summarymixing_tpu_torch.models.mixers import apply_mixer, make_mixer
-from summarymixing_tpu_torch.ops.attention import MultiheadAttention, PositionalwiseFeedForward
+from summarymixing_tpu_torch.ops.attention import (
+    MultiheadAttention,
+    PositionalwiseFeedForward,
+    RelPosMHAXL,
+)
 from summarymixing_tpu_torch.ops.layers import Conv1d, Dropout, LayerNorm, remat_call
 
 _MHA = ("regularMHA", "vanillaMHA")
@@ -188,11 +195,12 @@ class TransformerDecoderLayer(nn.Module):
                  activation: str = "gelu", normalize_before: bool = True,
                  attention_type: str = "regularMHA",
                  local_proj_hid_dim: Sequence[int] = (512,), local_proj_out_dim: int = 512,
-                 summary_hid_dim: Sequence[int] = (1024,), mode: str = "SummaryMixing"):
+                 summary_hid_dim: Sequence[int] = (1024,), mode: str = "SummaryMixing",
+                 causal: bool = True):
         super().__init__()
-        if attention_type not in _MHA + ("SummaryMixing",):
-            raise NotImplementedError(
-                f"decoder attention {attention_type!r} is not ported; see ROADMAP.md")
+        if attention_type not in _MHA + ("SummaryMixing", "RelPosMHAXL"):
+            raise ValueError(f"decoder supports regularMHA/RelPosMHAXL/SummaryMixing, got "
+                             f"{attention_type!r}")
         self.d_model, self.nhead = d_model, nhead
         self.attention_type = attention_type
         self.normalize_before = normalize_before
@@ -201,9 +209,13 @@ class TransformerDecoderLayer(nn.Module):
                 "SummaryMixing", d_model, nhead, local_proj_hid_dim=local_proj_hid_dim,
                 local_proj_out_dim=local_proj_out_dim, summary_hid_dim=summary_hid_dim,
                 summary_out_dim=d_model, mode=mode, dropout_rate=dropout_rate)
+        elif attention_type == "RelPosMHAXL":
+            self.self_attn = RelPosMHAXL(d_model, nhead, dropout_rate, mask_pos_future=causal)
         else:
             self.self_attn = MultiheadAttention(d_model, nhead, dropout_rate)
-        self.cross_attn = MultiheadAttention(d_model, nhead, dropout_rate)
+        self.cross_attn = (RelPosMHAXL(d_model, nhead, dropout_rate, mask_pos_future=causal)
+                           if attention_type == "RelPosMHAXL"
+                           else MultiheadAttention(d_model, nhead, dropout_rate))
         self.pos_ffn = PositionalwiseFeedForward(d_ffn, d_model, dropout_rate, activation)
         self.norm1 = LayerNorm(d_model, eps=1e-6)
         self.norm2 = LayerNorm(d_model, eps=1e-6)
@@ -213,19 +225,26 @@ class TransformerDecoderLayer(nn.Module):
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 tgt_mask: Optional[torch.Tensor] = None,
                 tgt_pad_mask: Optional[torch.Tensor] = None,
-                memory_pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                memory_pad_mask: Optional[torch.Tensor] = None,
+                memory_mask: Optional[torch.Tensor] = None,
+                pos_embs_tgt: Optional[torch.Tensor] = None,
+                pos_embs_src: Optional[torch.Tensor] = None) -> torch.Tensor:
         pre = self.normalize_before
+        rel = self.attention_type == "RelPosMHAXL"
         t1 = self.norm1(tgt) if pre else tgt
         if self.attention_type == "SummaryMixing":
             out = apply_mixer(self.self_attn, "SummaryMixing", t1, attn_mask=tgt_mask,
                               pad_mask=tgt_pad_mask)
         else:
-            out = self.self_attn(t1, t1, t1, attn_mask=tgt_mask, pad_mask=tgt_pad_mask)
+            out = self.self_attn(t1, t1, t1, attn_mask=tgt_mask, pad_mask=tgt_pad_mask,
+                                 **({"pos_embs": pos_embs_tgt} if rel else {}))
         tgt = tgt + self.dropout(out)
         if not pre:
             tgt = self.norm1(tgt)
         t1 = self.norm2(tgt) if pre else tgt
-        tgt = tgt + self.dropout(self.cross_attn(t1, memory, memory, pad_mask=memory_pad_mask))
+        tgt = tgt + self.dropout(self.cross_attn(
+            t1, memory, memory, attn_mask=memory_mask, pad_mask=memory_pad_mask,
+            **({"pos_embs": pos_embs_src} if rel else {})))
         if not pre:
             tgt = self.norm2(tgt)
         t1 = self.norm3(tgt) if pre else tgt
@@ -238,6 +257,8 @@ class TransformerDecoderLayer(nn.Module):
         default) zeroed self-attention K/V in the K/V dtype, as the JAX
         layer makes them, or the Summary Decoder's float32 `(sum, denom)`
         carry (`"sm"`)."""
+        if self.attention_type == "RelPosMHAXL":
+            raise ValueError("cached decoding supports regularMHA and SummaryMixing")
         mem_k, mem_v = self.cross_attn.kv(memory)
         rows = rows or memory.shape[0]
         if self.attention_type == "SummaryMixing":
@@ -282,7 +303,8 @@ class TransformerDecoder(nn.Module):
                  dropout_rate: float = 0.0, activation: str = "gelu",
                  normalize_before: bool = True, attention_type: str = "regularMHA",
                  **summary_kwargs):
-        """`summary_kwargs`: the Summary Decoder cell's `local_proj_hid_dim`,
+        """`summary_kwargs`: `causal` (RelPosMHAXL's future mask) and the Summary
+        Decoder cell's `local_proj_hid_dim`,
         `local_proj_out_dim`, `summary_hid_dim` and `mode`."""
         super().__init__()
         self.num_layers = num_layers
@@ -298,9 +320,13 @@ class TransformerDecoder(nn.Module):
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 tgt_mask: Optional[torch.Tensor] = None,
                 tgt_pad_mask: Optional[torch.Tensor] = None,
-                memory_pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                memory_pad_mask: Optional[torch.Tensor] = None,
+                memory_mask: Optional[torch.Tensor] = None,
+                pos_embs_tgt: Optional[torch.Tensor] = None,
+                pos_embs_src: Optional[torch.Tensor] = None) -> torch.Tensor:
         for layer in self.layers():
-            tgt = layer(tgt, memory, tgt_mask, tgt_pad_mask, memory_pad_mask)
+            tgt = layer(tgt, memory, tgt_mask, tgt_pad_mask, memory_pad_mask, memory_mask,
+                        pos_embs_tgt, pos_embs_src)
         return self.norm(tgt)
 
     def init_cache(self, memory: torch.Tensor, max_len: int, rows: Optional[int] = None) -> list:

@@ -95,6 +95,15 @@ def cached_weights(module, flatten):
     return hit[1]
 
 
+def drop_cached_weights(module) -> None:
+    """Forget `cached_weights`' entries of `module` and its children: a
+    module called with parameters swapped in from outside
+    (`torch.func.functional_call`) must not keep them keyed by an address
+    that a later tensor may take."""
+    for mod in module.modules():
+        mod.__dict__.pop("_kernel_weights", None)
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded kernel library `name`, built first if needed."""
     lib = _LIBS.get(name)

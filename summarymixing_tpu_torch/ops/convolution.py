@@ -9,7 +9,11 @@ the configuration (tanh-GELU, identity gate, no linear after the conv,
 conv width 15 or 31, bf16, widths the kernel tiles), and otherwise the
 same plain path as the CPU, counted in
 `fused_convolution_branch.plain_calls`. The CSGU's dropout runs inside the
-kernel, from a keep-mask the branch draws.
+kernel, from a keep-mask the branch draws. With `act_int8` both
+projections are W8A8 (`ops/quant.py::Int8Linear`) around the plain
+activation and CSGU on every device, as the JAX branch swaps in
+`Int8Dense`; the kernel does not compute that (its products are bf16),
+and the route is counted in `fused_convolution_branch.int8_calls`.
 
 `ConvolutionModule` (the Conformer's) is plain PyTorch on every device, as
 the JAX module is plain `jnp`: its depthwise conv is SAME, causal, or the
@@ -36,6 +40,7 @@ from torch import nn
 from summarymixing_tpu_torch.ops import _build, fused_csgu, time_shard
 from summarymixing_tpu_torch.ops.layers import Conv2d, Dense, Dropout, LayerNorm
 from summarymixing_tpu_torch.ops.linear import get_activation
+from summarymixing_tpu_torch.ops.quant import Int8Linear
 from summarymixing_tpu_torch.ops.summary_mixing import uses_kernel
 
 
@@ -112,17 +117,20 @@ class ConvolutionalSpatialGatingUnit(nn.Module):
 
 class ConvolutionBranch(nn.Module):
     """Branchformer cgMLP branch: Linear(d -> units) -> activation -> CSGU ->
-    Linear(units/2 -> d)."""
+    Linear(units/2 -> d); with `act_int8` both Linears are W8A8."""
 
     def __init__(self, input_size: int, linear_units: int = 3072, kernel_size: int = 31,
                  activation: str = "gelu_exact", gate_activation: Optional[str] = None,
-                 use_linear_after_conv: bool = False, dropout_rate: float = 0.0):
+                 use_linear_after_conv: bool = False, dropout_rate: float = 0.0,
+                 act_int8: bool = False):
         super().__init__()
         self.activation = activation
-        self.pre_channel_proj = Dense(input_size, linear_units)
+        self.act_int8 = act_int8
+        dense = Int8Linear if act_int8 else Dense
+        self.pre_channel_proj = dense(input_size, linear_units)
         self.csgu = ConvolutionalSpatialGatingUnit(
             linear_units, kernel_size, use_linear_after_conv, gate_activation, dropout_rate)
-        self.post_channel_proj = Dense(linear_units // 2, input_size)
+        self.post_channel_proj = dense(linear_units // 2, input_size)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         shard = time_shard.current()
@@ -133,13 +141,17 @@ class ConvolutionBranch(nn.Module):
         return self._forward(x, pad_mask)
 
     def _forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        if uses_kernel(x):
-            if fused_csgu.takes(d=x.shape[-1], units=self.pre_channel_proj.out_features,
-                                kernel_size=self.csgu.conv_kernel.shape[0],
-                                activation=self.activation, dtype=x.dtype,
-                                gate_activation=self.csgu.gate_activation,
-                                use_linear_after_conv=self.csgu.use_linear_after_conv):
-                return self._fused(x, pad_mask)
+        if uses_kernel(x) and fused_csgu.takes(
+                d=x.shape[-1], units=self.pre_channel_proj.out_features,
+                kernel_size=self.csgu.conv_kernel.shape[0], activation=self.activation,
+                dtype=x.dtype, gate_activation=self.csgu.gate_activation,
+                use_linear_after_conv=self.csgu.use_linear_after_conv, act_int8=self.act_int8):
+            return self._fused(x, pad_mask)
+        # the route taken instead: W8A8 (on any device), or the plain path
+        # of a configuration the kernel refuses on the card
+        if self.act_int8:
+            fused_csgu.count_int8_call()
+        elif uses_kernel(x):
             fused_csgu.count_plain_call()
         x = get_activation(self.activation)(self.pre_channel_proj(x))
         x = self.csgu(x, pad_mask=pad_mask)

@@ -116,13 +116,17 @@ def kernel_weights(weights: Tuple) -> Tuple:
 
 
 def refusal(*, d: int, units: int, kernel_size: int, activation: str, dtype: torch.dtype,
-            gate_activation: Optional[str] = None,
-            use_linear_after_conv: bool = False) -> Optional[Tuple[type, str]]:
+            gate_activation: Optional[str] = None, use_linear_after_conv: bool = False,
+            act_int8: bool = False) -> Optional[Tuple[type, str]]:
     """Why the kernel does not take a cgMLP branch of this configuration,
     as `(exception type, message)`, or None when it takes it: `d` the model
     width, `units` the pre-projection's width (2C), `kernel_size` the conv
     width. The one statement of the kernel's limits: `takes` and the
-    launch's `_check` both read it."""
+    launch's `_check` both read it. `act_int8` (W8A8 projections) is
+    refused: the kernel's products are bf16."""
+    if act_int8:
+        return NotImplementedError, ("the cgMLP kernel's products are bf16, not W8A8: an "
+                                     "act_int8 branch runs its own route (ops/quant.py)")
     if activation != "gelu" or gate_activation is not None or use_linear_after_conv:
         return NotImplementedError, (
             "the cgMLP kernel computes tanh-GELU with an identity gate and no linear after "
@@ -144,6 +148,13 @@ def takes(**config) -> bool:
     (`refusal`'s keywords). On the card a configuration it does not take
     runs the plain PyTorch path, counted by `count_plain_call`."""
     return refusal(**config) is None
+
+
+def count_int8_call() -> None:
+    """Count one cgMLP branch run on the W8A8 route (`act_int8`, on any
+    device): `fused_convolution_branch.int8_calls`, neither a launch of
+    the kernel nor a plain call."""
+    _counts.int8_calls += 1
 
 
 def count_plain_call() -> None:
@@ -312,7 +323,9 @@ def fused_convolution_branch(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
     whose configuration the kernel does not take (`takes`);
     `fused_convolution_branch.halo_launches` counts the launches made
     inside a time-sharded encode (`ops/time_shard.py`), on a shard's
-    frames and their halos, beside `launches`."""
+    frames and their halos, beside `launches`; `int8_calls` counts the
+    branches run on the W8A8 route (`count_int8_call`), which launch
+    nothing."""
     if x.device.type == "cpu":
         return convolution_branch_reference(x, pad_mask, weights, eps, keep, keep_prob)
     if x.device.type != "cuda":
@@ -324,5 +337,6 @@ fused_convolution_branch.launches = 0
 fused_convolution_branch.backwards = 0
 fused_convolution_branch.plain_calls = 0
 fused_convolution_branch.halo_launches = 0
+fused_convolution_branch.int8_calls = 0
 # the counters stay on the wrapper when a caller swaps the module attribute
 _counts = fused_convolution_branch

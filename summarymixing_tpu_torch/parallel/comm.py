@@ -71,13 +71,13 @@ def sum_tensors(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tenso
     return unflat(all_reduce_(flat(tensors), group=group), tensors)[:-1]
 
 
-def broadcast_parameters(params: Sequence[torch.Tensor], src: int = 0) -> None:
-    """Every process takes global rank `src`'s values of `params` (one
-    collective over their flat copy)."""
-    if group_size() == 1:
+def broadcast_parameters(params: Sequence[torch.Tensor], src: int = 0, group=None) -> None:
+    """Every process of `group` takes global rank `src`'s values of
+    `params` (one collective over their flat copy)."""
+    if group_size(group) == 1:
         return
     with torch.no_grad():
-        vec = broadcast_(flat(params), src)
+        vec = broadcast_(flat(params), src, group)
         for p, v in zip(params, unflat(vec, params)):
             p.copy_(v)
 

@@ -138,8 +138,8 @@ def make_seq_mesh(n_data: Optional[int] = None, n_seq: int = 1, n_model: int = 1
                   devices: Optional[Sequence] = None, device=None):
     """A `("data", "seq", "model")` `DeviceMesh` over every process (one
     device each; `devices`, when given, only counts them). A mesh that
-    leaves a device out raises `ValueError`; `n_model` > 1 raises
-    `NotImplementedError`."""
+    leaves a device out raises `ValueError`. Processes that differ only
+    on the model axis hold the same rows and the same time shard."""
     import torch.distributed as dist
 
     n_dev = len(devices) if devices is not None else (
@@ -147,10 +147,6 @@ def make_seq_mesh(n_data: Optional[int] = None, n_seq: int = 1, n_model: int = 1
     if n_data is None:
         n_data = n_dev // (n_seq * n_model)
     check_mesh((n_data, n_seq, n_model), n_dev, f"{n_data}x{n_seq}x{n_model}")
-    if n_model != 1:
-        raise NotImplementedError(
-            "a model axis (tensor parallelism, FSDP) is not ported; see ROADMAP.md queue 1 "
-            "item 10")
     return build_mesh((n_data, n_seq, n_model), ("data", "seq", "model"), device)
 
 

@@ -55,8 +55,11 @@ def kernel_counts(since: Optional[Dict] = None) -> Dict[str, Dict[str, int]]:
     or cgMLP branches on the card whose configuration the kernel does not
     take (a float32 recipe, a sum mask, ...), run on the plain path. With
     `since`, an earlier reading, their rise since then. Both stay 0 on the
-    CPU."""
-    now = {name: {"launches": fn.launches, "plain_calls": fn.plain_calls}
+    CPU. The cgMLP's entry also has `int8_calls`: the branches of an
+    `act_int8` model, which run the W8A8 route on any device and are
+    neither launches nor plain calls."""
+    now = {name: {"launches": fn.launches, "plain_calls": fn.plain_calls,
+                  **({"int8_calls": fn.int8_calls} if hasattr(fn, "int8_calls") else {})}
            for name, fn in KERNELS}
     if since is None:
         return now

@@ -38,7 +38,10 @@
   process decides the skip and steps on the same values; with `MultiSteps`
   each micro step averages only the loss and ORs a non-finite flag, and
   the accumulator is averaged once per optimizer step, before the inner
-  step.
+  step. Under a sharding rule (`shards`, `parallel/sharded.py`) every
+  micro step averages the whole gradients, and the optimizer steps this
+  process's slices; `MultiSteps` keeps its accumulator as slices and
+  clips its inner step by the whole accumulator's norm.
 """
 
 from __future__ import annotations
@@ -218,17 +221,23 @@ class MultiSteps:
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict,
-             norm: Optional[torch.Tensor] = None, reduce: Optional[Callable] = None) -> Dict:
+             norm: Optional[torch.Tensor] = None, reduce: Optional[Callable] = None,
+             whole: Optional[Callable] = None) -> Dict:
         """Add `grads` to the running mean; on every `every_k`-th call step
         the inner optimizer on the mean (its own norm) and empty the
         accumulator. `norm`, the micro-batch norm, is not used. `reduce`,
         given, maps the accumulator to its mean over the processes before
-        the inner step (one collective per optimizer step)."""
+        the inner step (one collective per optimizer step). `whole`, given
+        (a sharded trainer's `ShardedParameters.whole_tensors`: `params`
+        and `grads` are this process's slices), maps the accumulator to
+        the whole tensors, whose norm the inner step clips by."""
         acc, n = state["acc"], state["mini_step"]
         torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(grads, acc), float(n + 1)))
         if n < self.every_k - 1:
             return dict(state, mini_step=n + 1, acc=acc)
-        inner = self.inner.step(params, acc if reduce is None else reduce(acc), state["inner"])
+        mean = acc if reduce is None else reduce(acc)
+        inner = self.inner.step(params, mean, state["inner"],
+                                None if whole is None else global_norm(whole(mean)))
         return {"mini_step": 0, "gradient_step": state["gradient_step"] + 1, "inner": inner,
                 "acc": [torch.zeros_like(a) for a in acc]}
 
@@ -255,32 +264,48 @@ def make_optimizer(schedule: Callable, weight_decay: float = 0.0, betas=(0.9, 0.
 
 
 def apply_safe_update(optimizer, params: List[torch.Tensor], grads: List[torch.Tensor],
-                      opt_state: Dict, loss: torch.Tensor):
+                      opt_state: Dict, loss: torch.Tensor, shards=None):
     """The optimizer (`AdamW` or `MultiSteps`) step with the non-finite
     skip: on a non-finite loss or gradient norm nothing is updated. Returns
-    (opt_state, grad_norm, finite)."""
+    (opt_state, grad_norm, finite). With `shards` (a sharded trainer's
+    `ShardedParameters`), `grads` are whole, the norm is theirs, and the
+    optimizer steps `params`, the kept slices, on their slices of `grads`
+    (`MultiSteps` clipping by the whole accumulator's norm)."""
     norm = global_norm(grads)
     finite = bool(torch.isfinite(loss) & torch.isfinite(norm))
     if finite:
-        opt_state = optimizer.step(params, grads, opt_state, norm)
+        if shards is None:
+            opt_state = optimizer.step(params, grads, opt_state, norm)
+        elif isinstance(optimizer, MultiSteps):
+            opt_state = optimizer.step(params, shards.slices(grads), opt_state, norm,
+                                       whole=shards.whole_tensors)
+        else:
+            opt_state = optimizer.step(params, shards.slices(grads), opt_state, norm)
     return opt_state, norm, finite
 
 
 def synced_update(optimizer, params: List[torch.Tensor], grads: List[torch.Tensor],
-                  opt_state: Dict, loss: torch.Tensor, sync=None):
+                  opt_state: Dict, loss: torch.Tensor, sync=None, shards=None):
     """`apply_safe_update` under data parallelism (`sync`, a
     `parallel.comm.GradientSync`, or None in one process). Returns
     (opt_state, grad_norm, finite, loss), the loss averaged over the
     processes; the norm is of the averaged gradient, or with `MultiSteps`
-    of this process's micro-batch."""
+    in an unsharded run of this process's micro-batch (its accumulator is
+    averaged once per optimizer step). With `shards` every micro-batch's
+    gradient is averaged before its slices are taken, as each process
+    keeps only its slices of the accumulator."""
     if sync is None:
-        return (*apply_safe_update(optimizer, params, grads, opt_state, loss), loss)
-    if not isinstance(optimizer, MultiSteps):
+        return (*apply_safe_update(optimizer, params, grads, opt_state, loss, shards), loss)
+    if shards is not None or not isinstance(optimizer, MultiSteps):
         grads, loss = sync.mean_(grads, loss)
-        return (*apply_safe_update(optimizer, params, grads, opt_state, loss), loss)
+        return (*apply_safe_update(optimizer, params, grads, opt_state, loss, shards), loss)
     norm = global_norm(grads)
     loss, all_finite = sync.loss_and_flag(loss, torch.isfinite(norm))
     finite = bool(torch.isfinite(loss) & all_finite)
     if finite:
         opt_state = optimizer.step(params, grads, opt_state, norm, reduce=sync.mean_list_)
     return opt_state, norm, finite, loss
+
+
+# the JAX module's name
+make_adamw = make_optimizer

@@ -31,6 +31,26 @@ stream of its own, seeded from (seed, process index): no two processes
 draw one mask for different rows. Those bits differ from a
 single-process run's.
 
+Model sharding (`mesh`, `param_sharding_fn`: the JAX signature, with the
+rules of `parallel/mesh.py`): the parameters and the optimizer moments
+are kept as the rule places them, `state["params"]` and the moments as
+`DTensor`s, this process's slices (`parallel/sharded.py`); the
+normalization statistics, the step, the epoch and the generator are
+replicated. Each step gathers the whole parameters into the model, runs
+the forward and backward on them, averages the whole gradients over the
+mesh's data axis, takes the global norm of that mean, and steps the
+optimizer on this process's slices; then the whole parameters are freed.
+Processes that differ only on the model axis hold the same rows and draw
+the same random streams (seeded from the data coordinate), so they
+compute the same gradient and each keeps its own slice of it. `AdamW`,
+`TwoStageAdamSGD` and `MultiSteps` take part: the accumulator is kept as
+slices of each micro-batch's averaged gradient, and the inner step clips
+by the norm of the whole accumulator (as the JAX trainer places the whole
+`opt_state` by the rule, the accumulator included). Between steps
+`trainer.shards.whole()` makes the model's parameters whole (a
+checkpoint, an evaluation by hand); `checkpoint_view(state)` gives the
+whole optimizer state, so a sharded run saves what one process saves.
+
     trainer = ASRTrainer(model, AdamW(noam_schedule(5e-4, 30000), 0.01), fbank)
     state = trainer.init_state(seed=3407)
     state, metrics = trainer.train_step(state, batch)   # batch: wav, wav_lens, tokens, token_lens
@@ -38,11 +58,13 @@ single-process run's.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from summarymixing_tpu_torch.decoding.ctc import collapse_ctc, ctc_greedy_decode
 from summarymixing_tpu_torch.frontend.augment import (
@@ -54,6 +76,7 @@ from summarymixing_tpu_torch.frontend.features import InputNormalization, NormSt
 from summarymixing_tpu_torch.losses import ctc_loss, kldiv_loss
 from summarymixing_tpu_torch.ops.layers import set_dropout_generator
 from summarymixing_tpu_torch.parallel import comm, launch
+from summarymixing_tpu_torch.parallel.mesh import axis_group
 from summarymixing_tpu_torch.training.optim import synced_update
 from summarymixing_tpu_torch.utils.init import xavier_normal_overwrite
 
@@ -102,16 +125,27 @@ def split_streams(generator: torch.Generator, seed: int, params, sync) -> torch.
 class ASRTrainer:
     """Joint CTC/attention training (CTC only when the model has no decoder)."""
 
-    def __init__(self, model, optimizer, fbank, config: TrainerConfig = TrainerConfig()):
+    def __init__(self, model, optimizer, fbank, config: TrainerConfig = TrainerConfig(),
+                 mesh=None, param_sharding_fn=None):
         self.model = model
         self.optimizer = optimizer
         self.fbank = fbank
         self.config = config
         self.normalize = InputNormalization(config.normalize_update_until_epoch)
-        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.named_params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        self.params = [p for _, p in self.named_params]
         self.device = self.params[0].device
-        # the data-parallel reduction, None in one process
-        self.sync = comm.gradient_sync()
+        self.mesh = mesh
+        self.param_sharding_fn = param_sharding_fn
+        if param_sharding_fn is not None and mesh is None:
+            raise ValueError("param_sharding_fn places parameters on a mesh: pass mesh too")
+        # the mesh's data axis: its group and this process's index on it
+        self.data_group, self.data_index, _ = (axis_group(mesh, "data") if mesh is not None
+                                               else (None, 0, 1))
+        # the data-parallel reduction (over the mesh's data axis), None in one process
+        self.sync = (comm.gradient_sync() if mesh is None else
+                     comm.gradient_sync(self.data_group) if self.data_group is not None else None)
+        self.shards = None   # parallel.sharded.ShardedParameters, from init_state
 
     # -- state ---------------------------------------------------------------
     def init_state(self, seed: int) -> Dict:
@@ -123,11 +157,56 @@ class ASRTrainer:
         generator.manual_seed(seed)
         if self.config.xavier_init_overwrite:
             xavier_normal_overwrite(self.model.asr, generator)
-        split_streams(generator, seed, self.params, self.sync)
+        if self.mesh is None:
+            split_streams(generator, seed, self.params, self.sync)
+        else:
+            # the mesh's first process's parameters, one axis at a time; a
+            # stream per data index, shared along the model axis
+            for axis in self.mesh.mesh_dim_names:
+                group, _, size = axis_group(self.mesh, axis)
+                if size > 1:
+                    comm.broadcast_parameters(self.params, dist.get_global_rank(group, 0), group)
+            if self.sync is not None:
+                generator.manual_seed(process_seed(seed, self.data_index))
         set_dropout_generator(self.model, generator)
-        return {"opt_state": self.optimizer.init(self.params),
-                "norm_stats": NormStats.init(self.fbank.n_mels, self.device),
-                "step": 0, "epoch": 0, "generator": generator}
+        state = {"norm_stats": NormStats.init(self.fbank.n_mels, self.device),
+                 "step": 0, "epoch": 0, "generator": generator}
+        if self.param_sharding_fn is None:
+            return dict(state, opt_state=self.optimizer.init(self.params))
+        from summarymixing_tpu_torch.parallel.sharded import ShardedParameters
+
+        self.shards = ShardedParameters(self.named_params, self.mesh,
+                                        self.param_sharding_fn(self.model))
+        self.shards.release()
+        return dict(state, params=self.shards.dtensors(),
+                    opt_state=self._placed(self.optimizer.init(self.shards.local)))
+
+    # -- sharded state ---------------------------------------------------------
+    def _map_moments(self, tree, fn):
+        """`tree` (an optimizer state) with every list of per-parameter
+        tensors mapped by `fn(tensor, parameter index)`."""
+        if isinstance(tree, dict):
+            return {k: self._map_moments(v, fn) for k, v in tree.items()}
+        if isinstance(tree, list) and len(tree) == len(self.params) and all(
+                isinstance(t, torch.Tensor) for t in tree):
+            return [fn(t, i) for i, t in enumerate(tree)]
+        return tree
+
+    def _placed(self, opt_state):
+        """The moments of this process's slices as DTensors."""
+        return self._map_moments(opt_state, self.shards.as_dtensor)
+
+    def _local(self, opt_state):
+        return self._map_moments(opt_state, lambda t, i: t.to_local())
+
+    def checkpoint_view(self, state: Dict) -> Dict:
+        """`state` with the whole optimizer state (a collective on every
+        process when sharded) and without `params` (the model holds them:
+        save `model.state_dict()` inside `trainer.shards.whole()`)."""
+        if self.shards is None:
+            return state
+        whole = self._map_moments(state["opt_state"], lambda t, i: t.full_tensor())
+        return {k: v for k, v in dict(state, opt_state=whole).items() if k != "params"}
 
     def _add_bos(self, tokens: torch.Tensor) -> torch.Tensor:
         bos = torch.full((tokens.shape[0], 1), self.config.bos_id, dtype=tokens.dtype,
@@ -202,14 +281,23 @@ class ASRTrainer:
                 wav, wav_lens = speed_perturb_batch(batch["wav"], batch["wav_lens"], cfg.speeds,
                                                     generator=generator)
             batch = dict(batch, wav=wav, wav_lens=wav_lens)
+        if self.shards is not None:
+            self.shards.gather()
         for p in self.params:
             p.grad = None
         loss, (losses, norm_stats, _) = self._forward_loss(
             state["norm_stats"], batch, True, state["epoch"], generator, state["step"])
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        opt_state, grad_norm, finite, loss = synced_update(
-            self.optimizer, self.params, grads, state["opt_state"], loss, self.sync)
+        if self.shards is None:
+            opt_state, grad_norm, finite, loss = synced_update(
+                self.optimizer, self.params, grads, state["opt_state"], loss, self.sync)
+        else:
+            opt_state, grad_norm, finite, loss = synced_update(
+                self.optimizer, self.shards.local, grads, self._local(state["opt_state"]), loss,
+                self.sync, shards=self.shards)
+            opt_state = self._placed(opt_state)
+            self.shards.release()
         new_state = dict(state, opt_state=opt_state, step=state["step"] + 1,
                          norm_stats=norm_stats if finite else state["norm_stats"])
         metrics = {k: v.detach() for k, v in losses.items()}
@@ -228,8 +316,9 @@ class ASRTrainer:
     def eval_greedy(self, state: Dict, batch: Dict):
         """`eval_step` before the collapse: (losses, ids `[B, T']`, keep
         `[B, T']`), the greedy contract of `decoding.ctc`."""
-        _, (losses, _, out) = self._forward_loss(state["norm_stats"], batch, False,
-                                                 state["epoch"])
+        with self.shards.whole() if self.shards is not None else contextlib.nullcontext():
+            _, (losses, _, out) = self._forward_loss(state["norm_stats"], batch, False,
+                                                     state["epoch"])
         ids, keep = ctc_greedy_decode(out["ctc_log_probs"], out["enc_lengths"],
                                       self.config.blank_id)
         return losses, ids, keep

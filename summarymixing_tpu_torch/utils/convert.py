@@ -31,7 +31,8 @@ LM's: `emb.emb`, `encoder.layer_i.{self_att,pos_ffn,norm1,norm2}`,
 `encoder.norm`, `out`, with `out_proj` and `out_norm` for the "sb" head;
 the Conformer's `ffn1`, `ffn2`, `norm_ffn1`, `norm_ffn2`, `norm1`,
 `norm2`, `mixer.global_proj`, `convolution_module.{layer_norm,bottleneck,
-after_norm,pointwise_out}`; the encoders' attention mixers'
+after_norm,pointwise_out}`; the Conformer decoder's `layer_i.{ffn1,ffn2,
+norm_ffn1,norm_ffn2,norm1,norm2,mha_layer,convolution_module}` and `norm`; the encoders' attention mixers'
 `{q,k,v,out}_proj`, RelPosMHAXL's bias-free `pos_proj` and its `pos_bias_u`,
 `pos_bias_v`, HyperMixing's `hyper_in`, `hyper_out`, the Branchformer's
 Dense `merge_proj` beside an attention mixer; the transducer's `proj_enc`, `predictor.lstm`,
@@ -53,15 +54,23 @@ tree walk with these layout rules:
   [H, H], bias}`; they become `weight_ih` `[4H, in]`, `weight_hh`
   `[4H, H]` and `bias` `[4H]`, the gates stacked in the order i, f, g, o.
 
-Every other parameter keeps its name and layout. The walk raises if a leaf
-of the tree is left over or a port parameter is left unfilled; a converter
-whose `TrackedStateDict` holds a key it did not read fails
+Every other parameter keeps its name and layout. A scanned stack (the JAX
+encoders' `scan_layers=True`: one `layers` subtree whose leaves carry a
+leading `[L]` axis) fills `layer_0` ... `layer_{L-1}`. The walk raises if
+a leaf of the tree is left over or a port parameter is left unfilled; a
+converter whose `TrackedStateDict` holds a key it did not read fails
 `assert_fully_consumed`.
+
+`leaf_layouts(module)` reads the same rules the other way: for every port
+parameter, the shape its flax leaf has and the port axis each flax axis
+lands on, which is what the sharding rules of `parallel/mesh.py` decide
+on. The one parameter that packs several leaves is the LSTM cell's
+(`weight_ih`, `weight_hh`, `bias`: four gates along axis 0).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,62 +82,121 @@ from summarymixing_tpu_torch.ops.convolution import ConvolutionModule
 _GATES = ("i", "f", "g", "o")
 
 
-def _leaf(name: str, transform=None) -> Tuple[Tuple[str, ...], Callable]:
+class _Rule(NamedTuple):
+    """How a port parameter is read from flax leaves: `leaves`, the flax
+    names it consumes; `read`, the reader of the subtree; `axes[j]`, the
+    port axis that holds axis j of each leaf (None: the same axis);
+    `packed`, whether the leaves are concatenated along the port's axis 0
+    (the LSTM's gates)."""
+    leaves: Tuple[str, ...]
+    read: Callable
+    axes: Optional[Tuple[int, ...]] = None
+    packed: bool = False
+
+
+def _leaf(name: str, transform=None, axes=None) -> _Rule:
     """A rule that reads one flax leaf, optionally changing its layout."""
     def read(tree):
         value = np.asarray(tree[name])
         return value if transform is None else transform(value)
-    return (name,), read
+    return _Rule((name,), read, axes)
 
 
-def _stacked(side: str, leaf: str, transform) -> Tuple[Tuple[str, ...], Callable]:
+def _stacked(side: str, leaf: str, transform, axes) -> _Rule:
     """A rule that stacks the four gates' `<side><gate>.<leaf>` along axis 0."""
     names = tuple(side + g for g in _GATES)
-    return names, lambda tree: np.concatenate(
-        [transform(np.asarray(tree[n][leaf])) for n in names], axis=0)
+    return _Rule(names, lambda tree: np.concatenate(
+        [transform(np.asarray(tree[n][leaf])) for n in names], axis=0), axes, True)
 
 
-def _leaf_rules(mod: nn.Module) -> Dict[str, tuple]:
-    """port parameter name -> (flax names it consumes, reader of the subtree)."""
+def _leaf_rules(mod: nn.Module) -> Dict[str, _Rule]:
+    """port parameter name -> the `_Rule` that fills it."""
     if isinstance(mod, nn.Linear):
-        return {"weight": _leaf("kernel", lambda a: a.T), "bias": _leaf("bias")}
+        return {"weight": _leaf("kernel", lambda a: a.T, (1, 0)), "bias": _leaf("bias")}
     if isinstance(mod, nn.Conv1d):
-        return {"weight": _leaf("kernel", lambda a: a.transpose(2, 1, 0)),
+        return {"weight": _leaf("kernel", lambda a: a.transpose(2, 1, 0), (2, 1, 0)),
                 "bias": _leaf("bias")}
     if isinstance(mod, nn.Conv2d):
-        return {"weight": _leaf("kernel", lambda a: a.transpose(3, 2, 0, 1)),
+        return {"weight": _leaf("kernel", lambda a: a.transpose(3, 2, 0, 1), (2, 3, 1, 0)),
                 "bias": _leaf("bias")}
     if isinstance(mod, nn.LayerNorm):
         return {"weight": _leaf("scale"), "bias": _leaf("bias")}
     if isinstance(mod, nn.Embedding):
         return {"weight": _leaf("embedding")}
     if isinstance(mod, ConvolutionModule):
-        return {"conv_kernel": _leaf("conv_kernel", lambda a: a.T[:, None, :]),
+        return {"conv_kernel": _leaf("conv_kernel", lambda a: a.T[:, None, :], (2, 0)),
                 "conv_bias": _leaf("conv_bias")}
     if isinstance(mod, LSTMCell):
-        return {"weight_ih": _stacked("i", "kernel", lambda a: a.T),
-                "weight_hh": _stacked("h", "kernel", lambda a: a.T),
-                "bias": _stacked("h", "bias", lambda a: a)}
+        return {"weight_ih": _stacked("i", "kernel", lambda a: a.T, (1, 0)),
+                "weight_hh": _stacked("h", "kernel", lambda a: a.T, (1, 0)),
+                "bias": _stacked("h", "bias", lambda a: a, (0,))}
     return {name: _leaf(name) for name, _ in mod.named_parameters(recurse=False)}
+
+
+class LeafLayout(NamedTuple):
+    """Where a port parameter's flax leaves lie in it: `shape`, each
+    leaf's shape in the flax tree; `axes[j]`, the port axis that holds
+    the leaf's axis j; `count`, how many leaves are packed along the
+    port's axis 0 (1 but for the LSTM's gates)."""
+    shape: Tuple[int, ...]
+    axes: Tuple[int, ...]
+    count: int
+
+
+def leaf_layouts(module: nn.Module) -> Dict[str, LeafLayout]:
+    """Every parameter of `module` (by `named_parameters` name) -> its
+    `LeafLayout`, read from the bridge's own rules: the shape each flax
+    leaf has, and the port axis each of its axes maps to (the flax Dense
+    `[in, out]` is the Linear's `[out, in]`: axes (1, 0); a conv's
+    `[K, in/g, out]` is `[out, in/g, K]`: axes (2, 1, 0)). The sharding
+    rules of `parallel/mesh.py` decide on these shapes and place the
+    parameter through `axes`, as the JAX rules decide on the leaves."""
+    out: Dict[str, LeafLayout] = {}
+    for prefix, mod in module.named_modules():
+        for pname, rule in _leaf_rules(mod).items():
+            param = mod._parameters.get(pname)
+            if param is None:
+                continue
+            shape = tuple(param.shape)
+            axes = rule.axes if rule.axes is not None else tuple(range(len(shape)))
+            count = len(rule.leaves) if rule.packed else 1
+            leaf = tuple(shape[a] // (count if a == 0 else 1) for a in axes)
+            out[f"{prefix}.{pname}" if prefix else pname] = LeafLayout(leaf, axes, count)
+    return out
+
+
+def _unstack(tree: Mapping, n: int) -> Dict:
+    """A scanned `layers: {...: [L, ...]}` subtree -> `layer_0` ... `layer_{L-1}`."""
+    def index(node, i):
+        if isinstance(node, Mapping):
+            return {k: index(v, i) for k, v in node.items()}
+        return np.asarray(node)[i]
+    return {f"layer_{i}": index(tree, i) for i in range(n)}
 
 
 def _walk(mod: nn.Module, tree: Mapping, path: str, leftover: List[str],
           unfilled: List[str]) -> None:
+    if "layers" in tree and "layer_0" not in tree and hasattr(mod, "layer_0"):
+        # the JAX encoders' scan_layers=True layout: one stacked subtree
+        n = sum(1 for name, _ in mod.named_children() if name.startswith("layer_"))
+        tree = dict({k: v for k, v in tree.items() if k != "layers"},
+                    **_unstack(tree["layers"], n))
     used = set()
-    for pname, (leaves, read) in _leaf_rules(mod).items():
+    for pname, rule in _leaf_rules(mod).items():
         param = getattr(mod, pname)
         if param is None:
             continue
-        if any(leaf not in tree for leaf in leaves):
+        if any(leaf not in tree for leaf in rule.leaves):
             unfilled.append(f"{path}{pname}")
             continue
-        value = read(tree)
+        value = rule.read(tree)
         if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(f"{path}{pname}: flax leaves {leaves} have shape {value.shape} "
-                             f"after layout change, the port wants {tuple(param.shape)}")
+            raise ValueError(f"{path}{pname}: flax leaves {rule.leaves} have shape "
+                             f"{value.shape} after layout change, the port wants "
+                             f"{tuple(param.shape)}")
         with torch.no_grad():
             param.copy_(torch.from_numpy(np.array(value)))
-        used.update(leaves)
+        used.update(rule.leaves)
     for name, child in mod.named_children():
         if not any(True for _ in child.parameters()):
             continue

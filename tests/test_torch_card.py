@@ -1,5 +1,5 @@
-"""The port's two CUDA kernels against their plain PyTorch versions, on the
-card. This file imports neither JAX nor the JAX package, so it also runs on
+"""The port's two CUDA kernels against their plain PyTorch versions, and the
+W8A8 int8 product against its CPU route, on the card. This file imports neither JAX nor the JAX package, so it also runs on
 a machine that has only PyTorch and the CUDA toolkit:
 
     python -m pytest tests/test_torch_card.py -m gpu --noconftest -q
@@ -288,3 +288,21 @@ def test_configuration_kernels_do_not_take_runs_plain_path_on_card():
     assert [(fn.launches - a, fn.plain_calls - b) for fn, (a, b) in zip(counters, before)] \
         == [(0, 1), (0, 1)]
     assert _max_rel_err(got.cpu(), want) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,k,n", [(3, 512, 3072), (16, 1536, 512), (6008, 512, 3072)])
+def test_int8_product_equals_the_cpu_route_on_card(rows, k, n):
+    """W8A8's int32 accumulators (`ops/quant.py`, `torch._int_mm` on the
+    card) equal the CPU route's exactly, also below the card's 17 rows
+    (padded with zero rows)."""
+    from summarymixing_tpu_torch.ops import quant
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CPU tests hold the CPU route against JAX")
+    g = torch.Generator().manual_seed(rows)
+    qa, _ = quant.quantize_act(torch.randn(rows, k, generator=g))
+    qw, _ = quant.quantize_weight(torch.randn(n, k, generator=g))
+    card = quant.int8_accumulate(qa.cuda(), qw.cuda())
+    assert card.shape == (rows, n) and card.dtype == torch.int32
+    assert torch.equal(card.cpu(), quant.int8_accumulate(qa, qw))

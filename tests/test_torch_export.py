@@ -315,4 +315,4 @@ def test_ops_export_with_symbolic_batch_and_length():
 def test_kernel_counts_untouched_on_the_cpu():
     """The CPU route never counts a launch or a plain call."""
     assert common.kernel_counts() == {"summary_mixing": {"launches": 0, "plain_calls": 0},
-                                      "csgu": {"launches": 0, "plain_calls": 0}}
+                                      "csgu": {"launches": 0, "plain_calls": 0, "int8_calls": 0}}

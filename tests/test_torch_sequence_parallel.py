@@ -148,8 +148,8 @@ def test_meshes_that_leave_a_device_out_are_refused():
         sequence.make_seq_mesh(n_data=3, n_seq=2)
     with pytest.raises(ValueError, match="does not use all"):
         make_mesh(n_data=2, devices=[0, 1, 2])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_mesh(n_data=1, n_model=2, devices=[0, 1])
+    with pytest.raises(ValueError, match="does not use all"):
+        make_mesh(n_data=1, n_model=2, devices=[0, 1, 2])
 
 
 def test_what_couples_every_pair_of_frames_is_refused():
