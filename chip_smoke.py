@@ -300,8 +300,10 @@ Neither kernel lies on phases 14-16: both launch counters must stay 0.
    valid frames and the greedy frame agreement at phase 5's tolerances,
    identical rows, both decodes' ms; 18 `sm_partial`, 18 `sm_finish`, 18
    halo cgMLP launches and no plain call per process and forward; the
-   collectives of one sharded decode counted, and each kind timed alone
-   (the flagship's gradient all-reduce, a cell's sums, a halo exchange).
+   collectives of one sharded decode counted (the all-reduces, at least
+   one per layer, and their bytes by `parallel.comm.COLLECTIVES`), and
+   each kind timed alone (the flagship's gradient all-reduce, a cell's
+   sums, a halo exchange).
    (c) `recipes.evaluate --seq-parallel 2` on (a)'s checkpoint against
    the single-process greedy run: the WER, the decode and the hypotheses
    row by row (at least P25_ROW_AGREE the same); beside it, as a witness
@@ -4339,33 +4341,34 @@ def p25_seq_decode(rank: int, ranks: int) -> dict:
 
 
 def p25_collectives(decode) -> dict:
-    """The collectives of one sharded decode (`decode()`), counted by
-    wrapping `parallel.comm`'s two, and each kind timed alone between the
-    two processes: the flagship's gradient all-reduce (float32, as many
-    values as its trainable parameters with the decoder), one cell's
-    `[8, 512]` sums and `[8]` counts, and one cgMLP halo exchange
-    (`[1, 8, 30, 512]` bf16 edges)."""
+    """The collectives of one sharded decode (`decode()`): the all-reduces
+    and their bytes as the rise of `parallel.comm.COLLECTIVES`, the
+    all-gathers counted by wrapping `comm.all_gather_rows`; and each kind
+    timed alone between the two processes: the flagship's gradient
+    all-reduce (float32, as many values as its trainable parameters with
+    the decoder), one cell's `[8, 512]` sums and `[8]` counts, and one
+    cgMLP halo exchange (`[1, 8, 30, 512]` bf16 edges)."""
     import torch
     import torch.distributed as dist
 
     from summarymixing_tpu_torch.parallel import comm
 
-    calls = {"all_reduce_": 0, "all_gather_rows": 0}
-    real = {name: getattr(comm, name) for name in calls}
+    gathers = [0]
+    real = comm.all_gather_rows
 
-    def counted(name):
-        def call(*args, **kwargs):
-            calls[name] += 1
-            return real[name](*args, **kwargs)
-        return call
+    def counted(*args, **kwargs):
+        gathers[0] += 1
+        return real(*args, **kwargs)
 
-    for name in calls:
-        setattr(comm, name, counted(name))
+    before = dict(comm.COLLECTIVES)
+    comm.all_gather_rows = counted
     try:
         decode()
     finally:
-        for name, fn in real.items():
-            setattr(comm, name, fn)
+        comm.all_gather_rows = real
+    calls = {"all_reduce_": comm.COLLECTIVES["calls"] - before["calls"],
+             "all_reduce_bytes": comm.COLLECTIVES["bytes"] - before["bytes"],
+             "all_gather_rows": gathers[0]}
 
     def timed(fn, n):
         fn()
@@ -4516,6 +4519,10 @@ def phase_distributed(kernel_rows, here: str, corpus: dict, root: str,
               f"{cs['plain_calls']} + {cc['plain_calls']} "
               f"{'ok' if ok else 'FAILED'}")
         print(f"p25 (b) rank {rk['rank']}: collectives {bb['collectives']}")
+        per = bb["collectives"]["per_decode"]
+        if per["all_reduce_"] < n_layers or per["all_reduce_bytes"] <= 0:
+            fail(f"phase 25 (b) rank {rk['rank']}: comm.COLLECTIVES rose by {per} in one "
+                 f"sharded decode, expected at least one all-reduce per layer ({n_layers})")
         if not ok:
             fail("phase 25 (b): the sharded decode disagrees with the whole-T decode")
         if (cs["launches"], cs["partial"], cs["finish"], cc["launches"], cc["halo"],

@@ -16,15 +16,23 @@ from typing import List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+# the collectives `all_reduce_` has run in this process (a group of more
+# than one process): `calls`, and `bytes` (elements times element size),
+# counted on the host
+COLLECTIVES = {"calls": 0, "bytes": 0}
+
 
 def group_size(group=None) -> int:
     return dist.get_world_size(group) if dist.is_initialized() else 1
 
 
 def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
-    """Reduce `t` in place over the group's processes; returns it."""
+    """Reduce `t` in place over the group's processes, counted in
+    `COLLECTIVES`; returns it."""
     if group_size(group) > 1:
         dist.all_reduce(t, op=op, group=group)
+        COLLECTIVES["calls"] += 1
+        COLLECTIVES["bytes"] += t.numel() * t.element_size()
     return t
 
 

@@ -31,11 +31,14 @@
   JAX transform advances it and discards its updates: nothing reads it);
 - `apply_safe_update`: on a non-finite loss or gradient norm the step is
   skipped, so parameters, moments, counts and the accumulator keep their
-  values; the norm it returns is the micro-batch gradient's;
+  values; the norm it returns is the micro-batch gradient's. Its phases
+  are the profiler spans `train.finite_check` (the norm and the host's
+  read of the verdict) and `train.optimizer`;
 - `synced_update`: the same under data parallelism (`parallel/comm.py`'s
   `GradientSync`): without accumulation the gradients and the loss are
-  averaged over the processes in one collective before the step, so every
-  process decides the skip and steps on the same values; with `MultiSteps`
+  averaged over the processes in one collective before the step (the
+  profiler span `train.sync`), so every process decides the skip and steps
+  on the same values; with `MultiSteps`
   each micro step averages only the loss and ORs a non-finite flag, and
   the accumulator is averaged once per optimizer step, before the inner
   step. Under a sharding rule (`shards`, `parallel/sharded.py`) every
@@ -49,6 +52,8 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+
+from summarymixing_tpu_torch.training.profiling import span
 
 
 def noam_schedule(lr_peak: float, warmup_steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -271,16 +276,18 @@ def apply_safe_update(optimizer, params: List[torch.Tensor], grads: List[torch.T
     `ShardedParameters`), `grads` are whole, the norm is theirs, and the
     optimizer steps `params`, the kept slices, on their slices of `grads`
     (`MultiSteps` clipping by the whole accumulator's norm)."""
-    norm = global_norm(grads)
-    finite = bool(torch.isfinite(loss) & torch.isfinite(norm))
+    with span("train.finite_check"):
+        norm = global_norm(grads)
+        finite = bool(torch.isfinite(loss) & torch.isfinite(norm))
     if finite:
-        if shards is None:
-            opt_state = optimizer.step(params, grads, opt_state, norm)
-        elif isinstance(optimizer, MultiSteps):
-            opt_state = optimizer.step(params, shards.slices(grads), opt_state, norm,
-                                       whole=shards.whole_tensors)
-        else:
-            opt_state = optimizer.step(params, shards.slices(grads), opt_state, norm)
+        with span("train.optimizer"):
+            if shards is None:
+                opt_state = optimizer.step(params, grads, opt_state, norm)
+            elif isinstance(optimizer, MultiSteps):
+                opt_state = optimizer.step(params, shards.slices(grads), opt_state, norm,
+                                           whole=shards.whole_tensors)
+            else:
+                opt_state = optimizer.step(params, shards.slices(grads), opt_state, norm)
     return opt_state, norm, finite
 
 
@@ -297,13 +304,16 @@ def synced_update(optimizer, params: List[torch.Tensor], grads: List[torch.Tenso
     if sync is None:
         return (*apply_safe_update(optimizer, params, grads, opt_state, loss, shards), loss)
     if shards is not None or not isinstance(optimizer, MultiSteps):
-        grads, loss = sync.mean_(grads, loss)
+        with span("train.sync"):
+            grads, loss = sync.mean_(grads, loss)
         return (*apply_safe_update(optimizer, params, grads, opt_state, loss, shards), loss)
-    norm = global_norm(grads)
-    loss, all_finite = sync.loss_and_flag(loss, torch.isfinite(norm))
-    finite = bool(torch.isfinite(loss) & all_finite)
+    with span("train.finite_check"):
+        norm = global_norm(grads)
+        loss, all_finite = sync.loss_and_flag(loss, torch.isfinite(norm))
+        finite = bool(torch.isfinite(loss) & all_finite)
     if finite:
-        opt_state = optimizer.step(params, grads, opt_state, norm, reduce=sync.mean_list_)
+        with span("train.optimizer"):
+            opt_state = optimizer.step(params, grads, opt_state, norm, reduce=sync.mean_list_)
     return opt_state, norm, finite, loss
 
 

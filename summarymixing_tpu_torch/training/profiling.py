@@ -11,7 +11,10 @@ on `torch.profiler` and `torch.cuda`:
 - `StepProfiler`: the train runner's `--profile DIR --profile-steps N`:
   skip 3 steps, trace N, synchronising the card at both edges so that the
   window holds exactly those steps' work;
-- `StepTimer`: rolling wall-time stats of a loop, with the JAX timer's keys;
+- `span(name)`: a `smt::<name>` range around a phase of an entry point
+  (`transcribe.greedy_ctc_decode`, `ASRTrainer.train_step`, the gradient
+  exchange), recorded on the profiler's clock while a profile records this
+  thread, so the card's kernels and idle time can be put down to it;
 - `device_memory_stats()`: `torch.cuda.memory_stats` per card.
 """
 
@@ -19,15 +22,32 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 TRACE_FILE = "trace.json"
 TABLE_FILE = "key_averages.txt"
+SPAN_PREFIX = "smt::"
+
+# whether a profiler records this thread's operators (a thread-local flag
+# of the autograd profiler, which `torch.profiler.profile` sets)
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`with span("decode.model"): ...`: while a `torch.profiler` profile
+    records this thread, a `record_function` range `smt::<name>` around the
+    block, in the Chrome trace beside the card's kernels and in
+    `key_table`. Otherwise one flag check and a shared no-op context: no
+    range, no allocation, no sync. Spans sit in entry points only, never
+    inside a module's `forward` or a registered op, so exported graphs do
+    not change."""
+    if _profiler_enabled():
+        return record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
 
 
 def _sync() -> None:
@@ -120,42 +140,6 @@ class StepProfiler:
             self.path = stop_trace(self._prof, self.log_dir)
             self._prof = None
             print(f"profiler trace written to {self.path}", flush=True)
-
-
-@dataclass
-class StepTimer:
-    """Wall time between successive `tick()` calls over the last `window`
-    steps. Call `tick()` after the step's outputs are on the host (or the
-    card is synchronised): the card runs behind the host otherwise."""
-
-    window: int = 100
-    _times: List[float] = field(default_factory=list)
-    _last: Optional[float] = None
-
-    def tick(self) -> Optional[float]:
-        """Returns the last step's seconds (None on the first call)."""
-        now = time.perf_counter()
-        dt = None
-        if self._last is not None:
-            dt = now - self._last
-            self._times.append(dt)
-            if len(self._times) > self.window:
-                self._times.pop(0)
-        self._last = now
-        return dt
-
-    def stats(self) -> Dict[str, float]:
-        if not self._times:
-            return {}
-        ts = sorted(self._times)
-        n = len(ts)
-        return {
-            "steps_per_sec": 1.0 / (sum(ts) / n),
-            "mean_s": sum(ts) / n,
-            "p50_s": ts[n // 2],
-            "p90_s": ts[min(n - 1, int(n * 0.9))],
-            "max_s": ts[-1],
-        }
 
 
 def device_memory_stats() -> Dict[str, Dict[str, int]]:

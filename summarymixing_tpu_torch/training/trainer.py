@@ -78,6 +78,7 @@ from summarymixing_tpu_torch.ops.layers import set_dropout_generator
 from summarymixing_tpu_torch.parallel import comm, launch
 from summarymixing_tpu_torch.parallel.mesh import axis_group
 from summarymixing_tpu_torch.training.optim import synced_update
+from summarymixing_tpu_torch.training.profiling import span
 from summarymixing_tpu_torch.utils.init import xavier_normal_overwrite
 
 
@@ -228,16 +229,22 @@ class ASRTrainer:
     def _forward_loss(self, norm_stats: Dict, batch: Dict, train: bool, epoch: int,
                       generator: Optional[torch.Generator] = None, step: int = 0
                       ) -> Tuple[torch.Tensor, Tuple[Dict, Dict, Dict]]:
-        """Features, normalization, augmentation (from step
-        `augment_warmup_steps` on; with `concat_original`, the original
-        batch followed by its augmented copy) and the model in train mode
-        (or eval mode), and the joint loss. Returns
-        `(loss, (losses, norm_stats, model_out))`."""
+        """Speed perturbation (in train mode, when configured), features,
+        normalization, augmentation (from step `augment_warmup_steps` on;
+        with `concat_original`, the original batch followed by its
+        augmented copy) and the model in train mode (or eval mode), and the
+        joint loss. Returns `(loss, (losses, norm_stats, model_out))`. The
+        profiler spans `train.input` (everything before the model) and
+        `train.forward` (the model and the losses) cover it."""
         cfg = self.config
         tokens, token_lens = batch["tokens"], batch["token_lens"]
-        with torch.no_grad():
-            feats = self.fbank(batch["wav"])
-            feat_len = self.fbank.frame_lengths(batch["wav_lens"])
+        wav, wav_lens = batch["wav"], batch["wav_lens"]
+        with span("train.input"), torch.no_grad():
+            if train and cfg.speed_perturb:
+                wav, wav_lens = speed_perturb_batch(wav, wav_lens, cfg.speeds,
+                                                    generator=generator)
+            feats = self.fbank(wav)
+            feat_len = self.fbank.frame_lengths(wav_lens)
             pad_mask = (torch.arange(feats.shape[1], device=feats.device)[None, :]
                         < feat_len[:, None]).to(feats.dtype)
             feats, norm_stats = self.normalize(feats, norm_stats, pad_mask, epoch=epoch,
@@ -255,49 +262,48 @@ class ASRTrainer:
                     token_lens = torch.cat([token_lens, token_lens])
                 else:
                     feats = aug
-        tokens_bos = self._add_bos(tokens) if self._has_decoder() else None
-        self.model.train(train)
-        out = self.model(feats, feat_len, tokens_bos, pad_idx=cfg.pad_id)
-        losses = {}
-        loss = torch.zeros((), dtype=torch.float32, device=feats.device)
-        if cfg.ctc_weight > 0.0:
-            losses["ctc"] = ctc_loss(out["ctc_log_probs"], out["enc_lengths"], tokens,
-                                     token_lens, blank_id=cfg.blank_id)
-            loss = loss + cfg.ctc_weight * losses["ctc"]
-        if self._has_decoder() and cfg.ctc_weight < 1.0:
-            losses["att"] = kldiv_loss(out["seq_log_probs"], self._add_eos(tokens, token_lens),
-                                       token_lens + 1, label_smoothing=cfg.label_smoothing)
-            loss = loss + (1.0 - cfg.ctc_weight) * losses["att"]
-        losses["loss"] = loss
+        with span("train.forward"):
+            tokens_bos = self._add_bos(tokens) if self._has_decoder() else None
+            self.model.train(train)
+            out = self.model(feats, feat_len, tokens_bos, pad_idx=cfg.pad_id)
+            losses = {}
+            loss = torch.zeros((), dtype=torch.float32, device=feats.device)
+            if cfg.ctc_weight > 0.0:
+                losses["ctc"] = ctc_loss(out["ctc_log_probs"], out["enc_lengths"], tokens,
+                                         token_lens, blank_id=cfg.blank_id)
+                loss = loss + cfg.ctc_weight * losses["ctc"]
+            if self._has_decoder() and cfg.ctc_weight < 1.0:
+                losses["att"] = kldiv_loss(out["seq_log_probs"],
+                                           self._add_eos(tokens, token_lens), token_lens + 1,
+                                           label_smoothing=cfg.label_smoothing)
+                loss = loss + (1.0 - cfg.ctc_weight) * losses["att"]
+            losses["loss"] = loss
         return loss, (losses, norm_stats, out)
 
     def train_step(self, state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         """One optimizer step on `batch` (`wav` `[B, N]`, `wav_lens`,
-        `tokens` `[B, U]`, `token_lens`, all on the model's device)."""
-        cfg = self.config
-        generator = state["generator"]
-        if cfg.speed_perturb:
-            with torch.no_grad():
-                wav, wav_lens = speed_perturb_batch(batch["wav"], batch["wav_lens"], cfg.speeds,
-                                                    generator=generator)
-            batch = dict(batch, wav=wav, wav_lens=wav_lens)
+        `tokens` `[B, U]`, `token_lens`, all on the model's device). Its
+        phases are the profiler spans `train.input` and `train.forward`
+        (`_forward_loss`), `train.backward` and `train.update`."""
         if self.shards is not None:
             self.shards.gather()
         for p in self.params:
             p.grad = None
         loss, (losses, norm_stats, _) = self._forward_loss(
-            state["norm_stats"], batch, True, state["epoch"], generator, state["step"])
-        loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        if self.shards is None:
-            opt_state, grad_norm, finite, loss = synced_update(
-                self.optimizer, self.params, grads, state["opt_state"], loss, self.sync)
-        else:
-            opt_state, grad_norm, finite, loss = synced_update(
-                self.optimizer, self.shards.local, grads, self._local(state["opt_state"]), loss,
-                self.sync, shards=self.shards)
-            opt_state = self._placed(opt_state)
-            self.shards.release()
+            state["norm_stats"], batch, True, state["epoch"], state["generator"], state["step"])
+        with span("train.backward"):
+            loss.backward()
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        with span("train.update"):
+            if self.shards is None:
+                opt_state, grad_norm, finite, loss = synced_update(
+                    self.optimizer, self.params, grads, state["opt_state"], loss, self.sync)
+            else:
+                opt_state, grad_norm, finite, loss = synced_update(
+                    self.optimizer, self.shards.local, grads, self._local(state["opt_state"]),
+                    loss, self.sync, shards=self.shards)
+                opt_state = self._placed(opt_state)
+                self.shards.release()
         new_state = dict(state, opt_state=opt_state, step=state["step"] + 1,
                          norm_stats=norm_stats if finite else state["norm_stats"])
         metrics = {k: v.detach() for k, v in losses.items()}

@@ -27,6 +27,7 @@ import torch
 from summarymixing_tpu_torch.decoding.ctc import collapse_ctc, ctc_greedy_decode
 from summarymixing_tpu_torch.decoding.transducer_search import transducer_greedy_decode
 from summarymixing_tpu_torch.frontend.features import InputNormalization
+from summarymixing_tpu_torch.training.profiling import span
 from summarymixing_tpu_torch.utils.device import resolve_device
 
 
@@ -55,13 +56,19 @@ def batch_waveforms(wavs: Sequence[np.ndarray], batch_size: int, pad_quantum: in
 def greedy_ctc_decode(model, fbank, norm_stats: dict, wav: torch.Tensor,
                       wav_lens: torch.Tensor) -> Tuple[List[List[int]], dict]:
     """Decode one batch (blank id 0): returns the token ids per row and the
-    model's output dict (`ctc_log_probs`, `enc_lengths`, ...)."""
-    feats = fbank(wav)
-    feat_len = fbank.frame_lengths(wav_lens)
-    feats, _ = InputNormalization()(feats, norm_stats)
-    out = model(feats, feat_len)
-    ids, keep = ctc_greedy_decode(out["ctc_log_probs"], out["enc_lengths"])
-    return collapse_ctc(ids, keep), out
+    model's output dict (`ctc_log_probs`, `enc_lengths`, ...). Its phases
+    are the profiler spans `decode.features`, `decode.model`,
+    `decode.search` and `decode.collapse` (the host read and lists)."""
+    with span("decode.features"):
+        feats = fbank(wav)
+        feat_len = fbank.frame_lengths(wav_lens)
+        feats, _ = InputNormalization()(feats, norm_stats)
+    with span("decode.model"):
+        out = model(feats, feat_len)
+    with span("decode.search"):
+        ids, keep = ctc_greedy_decode(out["ctc_log_probs"], out["enc_lengths"])
+    with span("decode.collapse"):
+        return collapse_ctc(ids, keep), out
 
 
 @torch.inference_mode()

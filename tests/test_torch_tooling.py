@@ -1,8 +1,10 @@
 """The port's run tooling on the CPU:
 
 - `training/profiling.py`: `trace` writes a Chrome trace and the table of
-  operators; `StepProfiler` traces the window after 3 steps; `StepTimer`
-  gives the JAX timer's stats on the same ticks; `device_memory_stats`;
+  operators; `StepProfiler` traces the window after 3 steps;
+  `device_memory_stats`; the `smt::` spans of `greedy_ctc_decode`,
+  `train_step` and the gradient exchange, in order and nested, under the
+  profiler, and none entered without it; `comm.all_reduce_`'s counts;
 - `data/native_loader.py` against the port's own Python decoders
   (`dataio.load_wav`, `flac.decode_flac`): mono, interleaved and FLAC
   files bit for bit, cut and zero-padded; a rejected 24-bit row decoded
@@ -24,14 +26,14 @@ import pytest
 import torch
 
 import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
-from summarymixing_tpu.training import profiling as jprofiling
-from summarymixing_tpu_torch.config import build_model, load_recipe
+from summarymixing_tpu_torch.config import build_model, build_trainer, load_recipe
 from summarymixing_tpu_torch.data import dataio, native_loader
 from summarymixing_tpu_torch.data.dataio import load_audio_bytes, load_wav, read_manifest_csv
 from summarymixing_tpu_torch.data.flac import decode_flac, encode_flac
 from summarymixing_tpu_torch.data.tokenizer import CharTokenizer
 from summarymixing_tpu_torch.frontend.features import InputNormalization
 from summarymixing_tpu_torch.ops import _build
+from summarymixing_tpu_torch.parallel import comm
 from summarymixing_tpu_torch.recipes import (
     common,
     evaluate,
@@ -43,9 +45,11 @@ from summarymixing_tpu_torch.recipes import (
 )
 from summarymixing_tpu_torch.serving import DynamicBatchingServer, ServingConfig
 from summarymixing_tpu_torch.training import profiling
+from summarymixing_tpu_torch.training.optim import make_optimizer, synced_update
+from summarymixing_tpu_torch.transcribe import greedy_ctc_decode
 from summarymixing_tpu_torch.utils import export
 from test_torch_data import make_corpus
-from test_torch_export import TINY_TD, TRANSDUCER, audio, norm_stats
+from test_torch_export import TINY, TINY_TD, TRANSDUCER, audio, norm_stats
 from test_torch_recipes import SMALL_BATCHES, SYNTH
 from test_torch_serving import _Http
 
@@ -108,21 +112,105 @@ def test_step_profiler_traces_the_window_after_three_steps(tmp_path, monkeypatch
     assert len(events) == 4 and off.path is None
 
 
-def test_step_timer_gives_the_jax_timer_s_stats(monkeypatch):
-    ticks = [10.0, 10.5, 11.5, 11.75, 13.75]
-    for module in (profiling, jprofiling):
-        clock = iter(ticks)
-        monkeypatch.setattr(module.time, "perf_counter", lambda clock=clock: next(clock))
-        timer = module.StepTimer(window=3)
-        dts = [timer.tick() for _ in ticks]
-        assert dts == [None, 0.5, 1.0, 0.25, 2.0]
-        if module is profiling:
-            ours = timer.stats()
-    assert ours == timer.stats() and ours["p50_s"] == 1.0 and ours["max_s"] == 2.0
-
-
 def test_device_memory_stats_is_per_card():
     assert profiling.device_memory_stats() == {}   # no card in this process
+
+
+# -- spans and counters ------------------------------------------------------------
+
+# the synthetic recipe cut to one d32 encoder layer and one decoder layer,
+# with speed perturbation
+TINY_SPANS = dict(TINY, **{"model.num_decoder_layers": 1, "augment.speed_perturb": True})
+
+
+@pytest.fixture(scope="module")
+def tiny_asr():
+    cfg = load_recipe(SYNTH, overrides=TINY_SPANS)
+    model, fbank = build_model(cfg, device="cpu")
+    stats = {k: torch.from_numpy(np.array(v)) for k, v in norm_stats(2).items()}
+    wav, lens = audio(3, 2, 320 * 41)
+    batch = {"wav": torch.from_numpy(wav), "wav_lens": torch.from_numpy(lens),
+             "tokens": torch.tensor([[3, 4, 5], [6, 7, 0]]), "token_lens": torch.tensor([3, 2])}
+    return cfg, model, fbank, stats, batch
+
+
+def _profiled(fn):
+    """`fn()` under `torch.profiler`, and the `smt::` ranges it recorded:
+    `(start, end, name)` in order of start."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return sorted((e.time_range.start, e.time_range.end, e.name[len(profiling.SPAN_PREFIX):])
+                  for e in prof.events() if e.name.startswith(profiling.SPAN_PREFIX))
+
+
+def test_greedy_ctc_decode_spans_its_four_phases_in_order(tiny_asr):
+    _, model, fbank, stats, batch = tiny_asr
+    hyps = []
+    spans = _profiled(lambda: hyps.extend(greedy_ctc_decode(model, fbank, stats, batch["wav"],
+                                                            batch["wav_lens"])[0]))
+    assert [n for _, _, n in spans] == ["decode.features", "decode.model", "decode.search",
+                                        "decode.collapse"]
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert len(hyps) == 2
+
+
+def test_train_step_spans_its_phases_with_the_update_s_nested(tiny_asr):
+    cfg, model, fbank, _, batch = tiny_asr
+    trainer = build_trainer(cfg, model, fbank)
+    state = trainer.init_state(seed=1)
+    out = []
+    spans = _profiled(lambda: out.append(trainer.train_step(state, batch)))
+    top = ["train.input", "train.forward", "train.backward", "train.update"]
+    outer = [s for s in spans if s[2] in top]
+    assert [n for _, _, n in outer] == top
+    assert all(a[1] <= b[0] for a, b in zip(outer, outer[1:]))
+    start, end, _ = outer[-1]
+    inner = [s for s in spans if s[2] not in top]
+    assert [n for _, _, n in inner] == ["train.finite_check", "train.optimizer"]
+    assert all(start <= a and b <= end for a, b, _ in inner)
+    assert out[0][1]["nonfinite_skipped"] == 0
+    # the evaluation path shares `_forward_loss`, and its two spans
+    spans = _profiled(lambda: trainer.eval_greedy(out[0][0], batch))
+    assert [n for _, _, n in spans] == ["train.input", "train.forward"]
+
+
+def test_spans_enter_no_record_function_without_a_profiler(tiny_asr, monkeypatch):
+    cfg, model, fbank, stats, batch = tiny_asr
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler on")
+
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    hyps, _ = greedy_ctc_decode(model, fbank, stats, batch["wav"], batch["wav_lens"])
+    trainer = build_trainer(cfg, model, fbank)
+    state, met = trainer.train_step(trainer.init_state(seed=1), batch)
+    assert len(hyps) == 2 and met["nonfinite_skipped"] == 0
+    assert profiling.span("a") is profiling.span("b")   # one shared no-op context
+
+
+def test_all_reduce_counts_the_collectives_it_runs(monkeypatch):
+    """Calls and bytes (elements times element size) of each collective
+    run; nothing in one process. Two processes are stood in for by the
+    group size and a recording `dist.all_reduce`; the data-parallel
+    update's exchange is the span `train.sync`."""
+    monkeypatch.setattr(comm, "COLLECTIVES", {"calls": 0, "bytes": 0})
+    comm.all_reduce_(torch.ones(5, 3))
+    comm.GradientSync().mean_([torch.ones(4)], torch.tensor(1.0))
+    assert comm.COLLECTIVES == {"calls": 0, "bytes": 0}
+    seen = []
+    monkeypatch.setattr(comm, "group_size", lambda group=None: 2)
+    monkeypatch.setattr(comm.dist, "all_reduce",
+                        lambda t, op=None, group=None: seen.append((t.numel(), t.dtype)))
+    comm.all_reduce_(torch.ones(5, 3, dtype=torch.float64))
+    params = [torch.ones(4), torch.ones(2, 3)]
+    grads = [torch.ones_like(p) for p in params]
+    opt = make_optimizer(lambda count: torch.tensor(1e-3))
+    spans = _profiled(lambda: synced_update(opt, params, grads, opt.init(params),
+                                            torch.tensor(2.0), comm.GradientSync()))
+    # the flat float32 vector: 4 + 6 gradient elements and the loss
+    assert seen == [(15, torch.float64), (11, torch.float32)]
+    assert comm.COLLECTIVES == {"calls": 2, "bytes": 15 * 8 + 11 * 4}
+    assert [n for _, _, n in spans] == ["train.sync", "train.finite_check", "train.optimizer"]
 
 
 # -- the native batch loader ------------------------------------------------------
