@@ -30,7 +30,11 @@ Phases (any failure exits non-zero):
    at the training shapes (B=16, T=751) against their plain versions, checks
    that their autograd Functions' gradients equal the plain versions'
    autograd gradients bit for bit, and times the masked passes, the cell's
-   pooled pass beside its bound.
+   pooled pass beside its bound. (c) RelPosMHAXL's attention kernel at the
+   long-form cell's shapes (B=4, 8 heads, T = 1,500 and 3,000 with every key
+   valid, and T = 3,000 at the cell's ragged lengths) against its plain
+   version: the error, its graph ms beside its bound and the plain
+   version's ms.
 5. The same first request with both kernels swapped for their plain
    versions, on the card: CTC log-probs and greedy tokens are compared.
 6. Device time by kernel over the first request under torch.profiler.
@@ -845,6 +849,74 @@ def phase_kernels():
             max_abs_err=abs_err, ms=csgu_ms, eager_ms=csgu_eager, plain_ms=csgu_plain,
             bound_ms=csgu_bound, bound_by=csgu_by, library_ms=None, passes=csgu_passes),
     }
+
+
+RELPOS_TOL = 2.0 ** -7     # tests/test_torch_card.py states its reason
+# (T, valid keys per row or None for every key): the long-form cell's 60 s
+# and 120 s segments, B = 4, and a batch of its ragged lengths
+RELPOS_SHAPES = ((1500, None), (3000, None), (3000, (3000, 2712, 2100, 1499)))
+
+
+def phase_relpos_kernel(kernel_rows):
+    """Phase 3 (c): RelPosMHAXL's attention kernel at the long-form shapes
+    (B=4, 8 heads, hd=64) against its plain version: the error, the
+    kernel's graph ms beside its bound and the plain version's ms. The
+    bound counts the operations the function needs: per utterance and head
+    three products of T queries by its valid keys (content, the rel_shift
+    band of the position scores, value); the kernel's own position product
+    is twice the content's, printed beside it. Adds the `relpos_attention`
+    row to `kernel_rows`."""
+    import torch
+
+    from summarymixing_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    b, h, hd = 4, 8, 64
+    fn = attention.fused_relpos_attention
+    launches0 = fn.launches
+    timings = []
+    for t, lengths in RELPOS_SHAPES:
+        q, k, v = (torch.randn(b, t, h, hd, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        p = torch.randn(1, 2 * t - 1, h, hd, generator=g, device=dev).to(torch.bfloat16)
+        u, vb = (0.3 * torch.randn(h, hd, generator=g, device=dev) for _ in range(2))
+        keys = lengths or (t,) * b
+        pad = None if lengths is None else (
+            torch.arange(t, device=dev)[None, :]
+            < torch.tensor(lengths, device=dev)[:, None]).float()
+        label = f"B={b}, T={t}" + ("" if lengths is None else f", lengths {list(lengths)}")
+        with torch.no_grad():
+            got = fn(q, k, v, p, u, vb, pad)
+            want = attention.relpos_attention_reference(q, k, v, p, u, vb, None, pad)
+            torch.cuda.synchronize()
+            abs_err, err = rel_err(got, want)
+            ok = err <= RELPOS_TOL
+            print(f"kernel relpos_attention ({label}): max_abs_err {abs_err:.3e} "
+                  f"max_rel_err {err:.3e} tol {RELPOS_TOL:.3e} {'ok' if ok else 'FAILED'}")
+            if not ok:
+                fail("relpos_attention disagrees with its plain version")
+            ms = graph_ms(lambda: fn(q, k, v, p, u, vb, pad))
+            plain_ms = cuda_ms(
+                lambda: attention.relpos_attention_reference(q, k, v, p, u, vb, None, pad),
+                iters=5, warmup=1)
+        flops = 2 * h * hd * 3 * t * sum(keys)
+        design_flops = 4 * flops // 3   # its position product: 128 columns a 64-key tile
+        nbytes = 2 * (4 * b * t * h * hd + (2 * t - 1) * h * hd)   # q, k, v, out; p
+        bound_ms, by = bound(nbytes, flops)
+        print(f"kernel relpos_attention ({label}): {ms:.4f} ms (graph), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB), {100 * bound_ms / ms:.1f}% of bound; the kernel "
+              f"computes {design_flops / 1e9:.1f} GFLOP")
+        timings.append(dict(b=b, t=t, lengths=keys, max_abs_err=abs_err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                            design_gflop=design_flops / 1e9))
+    kernel_rows["relpos_attention"] = dict(
+        name="relpos_attention", route="cuda",
+        source="summarymixing_tpu_torch/csrc/relpos_attention.cu", replaces=None,
+        shapes=timings, library_ms=None,
+        launches_by_path={"relpos_kernel": fn.launches - launches0}, plain_calls_by_path={})
 
 
 def phase_masked_kernels(kernel_rows):
@@ -2181,16 +2253,18 @@ def make_corpus(here: str, root: str) -> dict:
 
 
 def run_stage(label: str, fn, argv: list) -> tuple:
-    """Run one runner's `main(argv)` in this process with both wrappers'
+    """Run one runner's `main(argv)` in this process with the wrappers'
     counters at 0 and the peak-memory counter reset; returns its result,
-    the wrappers' (launches, plain calls, backwards) and the seconds and
-    peak GiB it took."""
+    the cell's and the cgMLP's (launches, plain calls, backwards) and the
+    seconds and peak GiB it took. The runner's report must equal what every
+    wrapper counted, RelPosMHAXL's too."""
     import torch
 
-    from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+    from summarymixing_tpu_torch.ops import attention, fused_csgu, fused_summary
 
     kernels = (fused_summary.fused_summary_mixing, fused_csgu.fused_convolution_branch)
-    for k in kernels:
+    relpos = attention.fused_relpos_attention
+    for k in kernels + (relpos,):
         k.launches, k.plain_calls, k.backwards = 0, 0, 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2200,11 +2274,13 @@ def run_stage(label: str, fn, argv: list) -> tuple:
     seconds = time.perf_counter() - t0
     counts = {name: (k.launches, k.plain_calls, k.backwards)
               for name, k in zip(("summary_mixing", "csgu"), kernels)}
+    counted = {name: c[:2] for name, c in counts.items()}
+    counted["relpos_attention"] = (relpos.launches, relpos.plain_calls)
     reported = {name: (c["launches"], c["plain_calls"])
                 for name, c in result.get("kernels", {}).items()}
-    if reported and reported != {name: c[:2] for name, c in counts.items()}:
+    if reported and reported != counted:
         fail(f"runner {label} reported (launches, plain calls) {reported}, the wrappers "
-             f"counted {counts}")
+             f"counted {counted}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"runner {label}: {seconds:.1f} s, peak memory {peak:.2f} GiB, "
           f"(launches, plain calls, backwards) {counts}")
@@ -5172,6 +5248,7 @@ def main() -> int:
         return main_processes(processes, smi, here)
     kernel_rows = phase_kernels()
     phase_masked_kernels(kernel_rows)
+    phase_relpos_kernel(kernel_rows)
     model, fbank, stats, batches, results, n_params = phase_main_path(kernel_rows)
     phase_plain_path(model, fbank, stats, batches, results)
     phase_profile(model, fbank, stats, batches)
@@ -5229,7 +5306,8 @@ def main() -> int:
         row["launches"] = sum(row["launches_by_path"].values())
         row["plain_calls"] = sum(row["plain_calls_by_path"].values())
     print(f"wall {time.perf_counter() - wall0:.1f} s; nvidia-smi: {smi}")
-    print(json.dumps({"kernels": [kernel_rows["summary_mixing"], kernel_rows["csgu"]]}))
+    print(json.dumps({"kernels": [kernel_rows["summary_mixing"], kernel_rows["csgu"],
+                                  kernel_rows["relpos_attention"]]}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("summary_mixing", "csgu")
+SOURCES = ("summary_mixing", "csgu", "relpos_attention")
 OP_NAMESPACE = "summarymixing_torch"   # the kernels' registered ops: summarymixing_torch::<name>
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -41,19 +41,21 @@ from summarymixing_tpu_torch.evaluate import (
     restore_lm,
     static_decode_length,
 )
-from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+from summarymixing_tpu_torch.ops import attention, fused_csgu, fused_summary
 from summarymixing_tpu_torch.parallel import launch
 from summarymixing_tpu_torch.training.metrics import ErrorRateStats
 from summarymixing_tpu_torch.utils.device import resolve_device
 
 KERNELS = (("summary_mixing", fused_summary.fused_summary_mixing),
-           ("csgu", fused_csgu.fused_convolution_branch))
+           ("csgu", fused_csgu.fused_convolution_branch),
+           ("relpos_attention", attention.fused_relpos_attention))
 
 
 def kernel_counts(since: Optional[Dict] = None) -> Dict[str, Dict[str, int]]:
-    """Each kernel wrapper's `launches`, and its `plain_calls`: the cells
-    or cgMLP branches on the card whose configuration the kernel does not
-    take (a float32 recipe, a sum mask, ...), run on the plain path. With
+    """Each kernel wrapper's `launches`, and its `plain_calls`: the cells,
+    cgMLP branches or RelPosMHAXL calls on the card that the kernel does not
+    take (a float32 recipe, a sum mask, an attn_mask, ...), run on the plain
+    path. With
     `since`, an earlier reading, their rise since then. Both stay 0 on the
     CPU. The cgMLP's entry also has `int8_calls`: the branches of an
     `act_int8` model, which run the W8A8 route on any device and are

@@ -1,4 +1,4 @@
-"""The port's two CUDA kernels against their plain PyTorch versions, and the
+"""The port's three CUDA kernels against their plain PyTorch versions, and the
 W8A8 int8 product against its CPU route, on the card. This file imports neither JAX nor the JAX package, so it also runs on
 a machine that has only PyTorch and the CUDA toolkit:
 
@@ -9,17 +9,21 @@ tests skip; the CPU tests hold the plain versions against the JAX package.
 
 Tolerance: max |kernel - plain| / (1 + |plain|) of 2^-5 (cell) and 2^-4
 (cgMLP), the bf16 rounding budget chip_smoke.py states, with or without a
-dropout keep-mask. The autograd Functions' gradients must equal the plain
-versions' autograd gradients bit for bit: their backward is that VJP.
+dropout keep-mask; 2^-7 (RelPosMHAXL's attention): its scores and softmax
+are float32 on both sides, so the two differ by the bf16 rounding of the
+probabilities (normalised in the plain version, not yet in the kernel's
+online softmax) and one bf16 ulp of the output, under 2^-7 of 1 + |plain|.
+The autograd Functions' gradients must equal the plain versions' autograd
+gradients bit for bit: their backward is that VJP.
 """
 
 import pytest
 import torch
 
 import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
-from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+from summarymixing_tpu_torch.ops import attention, fused_csgu, fused_summary
 
-CELL_TOL, CSGU_TOL = 2.0 ** -5, 2.0 ** -4
+CELL_TOL, CSGU_TOL, RELPOS_TOL = 2.0 ** -5, 2.0 ** -4, 2.0 ** -7
 
 # (T, valid lengths[, D, 2C]), at flagship widths (D 512, 2C 3072, K 31)
 # unless the case names others:
@@ -306,3 +310,193 @@ def test_int8_product_equals_the_cpu_route_on_card(rows, k, n):
     card = quant.int8_accumulate(qa.cuda(), qw.cuda())
     assert card.shape == (rows, n) and card.dtype == torch.int32
     assert torch.equal(card.cpu(), quant.int8_accumulate(qa, qw))
+
+
+# RelPosMHAXL's attention at d512, 8 heads: (B, T, each row's valid keys or
+# None); a row is a valid length n (keys [0, n)), one run (start, end) or a
+# list of runs:
+# - ragged: one row of a single valid key;
+# - untiled: T = 261 is a multiple of neither the 128-query nor the 64-key
+#   tile, and one row has no valid key (the plain version's uniform softmax);
+# - unpadded: no pad mask;
+# - long: the long-form cell's longest batch, B = 4 at T = 3,000;
+# - left_buffer: a streaming Conformer's [left buffer | chunk] keys while the
+#   buffer fills (its valid keys at the end: causal rows before them have
+#   none), starts inside and at the edge of a 64-key tile;
+# - gaps: valid keys in several runs, one of them a single key.
+RELPOS_CASES = {
+    "ragged": (3, 150, [150, 97, 1]),
+    "untiled": (3, 261, [261, 133, 0]),
+    "unpadded": (2, 200, None),
+    "long": (4, 3000, [3000, 2712, 2100, 1499]),
+    "left_buffer": (3, 200, [(136, 200), (70, 200), (64, 200)]),
+    "gaps": (2, 190, [[(0, 30), (70, 190)], [(5, 6), (100, 101), (150, 170)]]),
+}
+
+
+def _key_mask(t, rows):
+    mask = torch.zeros(len(rows), t)
+    for i, row in enumerate(rows):
+        runs = [(0, row)] if isinstance(row, int) else [row] if isinstance(row, tuple) else row
+        for start, end in runs:
+            mask[i, start:end] = 1.0
+    return mask
+
+
+def _relpos_inputs(b, t, rows, h=8, hd=64, seed=0):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CPU tests hold the plain versions instead")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+    q, k, v = n(b, t, h, hd), n(b, t, h, hd), n(b, t, h, hd)
+    p = n(1, 2 * t - 1, h, hd)
+    u, vb = n(h, hd, dtype=torch.float32, scale=0.3), n(h, hd, dtype=torch.float32, scale=0.3)
+    pad = None if rows is None else _key_mask(t, rows).cuda()
+    return q, k, v, p, u, vb, pad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", sorted(RELPOS_CASES))
+def test_relpos_kernel_matches_plain_version_on_card(case, causal):
+    """The kernel against the plain version in bf16, with and without
+    `mask_pos_future`, one launch a call."""
+    q, k, v, p, u, vb, pad = _relpos_inputs(*RELPOS_CASES[case])
+    fn = attention.fused_relpos_attention
+    with torch.no_grad():
+        n0 = fn.launches
+        got = fn(q, k, v, p, u, vb, pad, causal)
+        want = attention.relpos_attention_reference(q, k, v, p, u, vb, None, pad, causal)
+    assert fn.launches == n0 + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert _max_rel_err(got, want) <= RELPOS_TOL
+
+
+@pytest.mark.gpu
+def test_relpos_kernel_repeats_bit_for_bit_on_card():
+    """No atomics: the same inputs give the same bits on a second call."""
+    q, k, v, p, u, vb, pad = _relpos_inputs(*RELPOS_CASES["untiled"])
+    with torch.no_grad():
+        first = attention.fused_relpos_attention(q, k, v, p, u, vb, pad, True)
+        assert torch.equal(first, attention.fused_relpos_attention(q, k, v, p, u, vb, pad, True))
+
+
+@pytest.mark.gpu
+def test_relpos_function_gradients_equal_plain_autograd_on_card():
+    """Through the wrapper under autograd, over ragged lengths: the gradients
+    of q, k, v, p and both biases equal, bit for bit, those of the plain
+    version run under autograd on the same inputs."""
+    q, k, v, p, u, vb, pad = _relpos_inputs(*RELPOS_CASES["ragged"])
+    g = torch.Generator(device="cuda").manual_seed(5)
+    g_out = torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    def grads(fn):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v, p, u, vb)]
+        out = fn(*leaves)
+        return out, torch.autograd.grad(out, leaves, g_out)
+
+    fn = attention.fused_relpos_attention
+    n0, b0 = fn.launches, fn.backwards
+    out_k, grads_k = grads(lambda *xs: fn(*xs, pad, False))
+    assert (fn.launches, fn.backwards) == (n0 + 1, b0 + 1)
+    out_p, grads_p = grads(lambda *xs: attention.relpos_attention_reference(*xs, None, pad))
+    assert _max_rel_err(out_k, out_p) <= RELPOS_TOL
+    for gk, gp in zip(grads_k, grads_p):
+        assert gk.dtype == gp.dtype and torch.equal(gk, gp)
+
+
+@pytest.mark.gpu
+def test_relpos_module_routes_on_card():
+    """A bf16 RelPosMHAXL at d512, 8 heads, in eval: a call with a pad mask
+    (and with `mask_pos_future`) launches the kernel; a call with an
+    attn_mask, a float32 call and a training call with dropout run the
+    plain version, counted in `plain_calls`. The launched call agrees with
+    the same module's plain version."""
+    from summarymixing_tpu_torch.ops.layers import set_compute_dtype
+    from summarymixing_tpu_torch.ops.positional import relpos_xl_table
+
+    _relpos_inputs(1, 8, None)   # skips without a card; TF32 off
+    torch.manual_seed(0)
+    mod = attention.RelPosMHAXL(512, 8, dropout_rate=0.1).cuda().eval()
+    mod.reset_parameters()
+    x = torch.randn(2, 150, 512, device="cuda")
+    pos = relpos_xl_table(150, 512).cuda()
+    pad = (torch.arange(150, device="cuda")[None, :]
+           < torch.tensor([150, 61], device="cuda")[:, None]).float()
+    fn = attention.fused_relpos_attention
+
+    def route(m, *args, **kw):
+        n0, p0 = fn.launches, fn.plain_calls
+        with torch.no_grad():
+            out = m(x, x, x, *args, pos_embs=pos, **kw)
+        return out, (fn.launches - n0, fn.plain_calls - p0)
+
+    assert route(mod, pad_mask=pad)[1] == (0, 1)   # float32 parameters, no compute dtype
+    set_compute_dtype(mod, torch.bfloat16)
+    got, counts = route(mod, pad_mask=pad)
+    assert counts == (1, 0)
+    mod.mask_pos_future = True
+    assert route(mod, pad_mask=pad)[1] == (1, 0)
+    mod.mask_pos_future = False
+    chunk = torch.ones(150, 150, device="cuda")
+    want, counts = route(mod, attn_mask=chunk, pad_mask=pad)
+    assert counts == (0, 1)
+    assert _max_rel_err(got, want) <= CELL_TOL
+    mod.train()
+    assert route(mod, pad_mask=pad)[1] == (0, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_relpos_conformer_streams_as_its_plain_version_on_card(causal):
+    """`encode_streaming` of a bf16 RelPosMHAXL Conformer at d512, 8 heads:
+    each call attends over [left buffer | chunk], whose valid keys lie at the
+    end while the buffer fills. With the kernel (two launches a chunk, no
+    plain call) the chunks' outputs lie as close to the same model's float32
+    run as those of the bf16 run under `plain_kernels()`: two layers carry
+    bf16 rounding a few hundredths far on both routes (max |bf16 - f32| /
+    (1 + |f32|) 0.026-0.032, mean 0.0034), where attending to the wrong keys
+    moves the outputs by order 1."""
+    from summarymixing_tpu_torch.models.asr import DynChunkTrainConfig, TransformerASR
+    from summarymixing_tpu_torch.ops.layers import set_compute_dtype
+    from summarymixing_tpu_torch.ops.plain import plain_kernels
+    from summarymixing_tpu_torch.utils.init import init_parameters
+
+    _relpos_inputs(1, 8, None)   # skips without a card; TF32 off
+    chunk, left, b, n_chunks = 16, 3, 2, 6
+    model = TransformerASR(tgt_vocab=11, input_size=80, d_model=512, nhead=8,
+                           num_encoder_layers=2, num_decoder_layers=0, d_ffn=1024,
+                           kernel_size=15, encoder_module="conformer",
+                           attention_type="RelPosMHAXL", causal=causal)
+    init_parameters(model, torch.Generator().manual_seed(3))
+    model = model.cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    src = torch.randn(b, n_chunks * chunk, 80, generator=g, device="cuda")
+    fn = attention.fused_relpos_attention
+
+    def stream():
+        state = model.init_streaming_state(b, DynChunkTrainConfig(chunk, left))
+        outs = []
+        with torch.no_grad():
+            for c in range(n_chunks):
+                out, state = model.encode_streaming(src[:, c * chunk:(c + 1) * chunk], state)
+                outs.append(out)
+        return torch.cat(outs, dim=1).float()
+
+    def errs(got, want):
+        rel = (got - want).abs() / (1 + want.abs())
+        return float(rel.max()), float(rel.mean())
+
+    exact = stream()                        # float32: the plain route
+    set_compute_dtype(model, torch.bfloat16)
+    n0, p0 = fn.launches, fn.plain_calls
+    got = stream()
+    assert (fn.launches - n0, fn.plain_calls - p0) == (2 * n_chunks, 0)
+    with plain_kernels():
+        plain = stream()
+    (got_max, got_mean), (plain_max, plain_mean) = errs(got, exact), errs(plain, exact)
+    assert got_max <= 1.25 * plain_max and got_mean <= 1.1 * plain_mean

@@ -17,11 +17,12 @@
 - What the loaders refuse: the JAX package's artifact, an artifact for
   another device, a streaming artifact as an offline one; the offline
   transducer graph without a fixed shape.
-- Both kernels' registered ops: `torch.library.opcheck` at the smallest
+- The kernels' registered ops: `torch.library.opcheck` at the smallest
   widths the kernels take (cell: D, hidden and out 256; cgMLP: D 128,
-  C 128, K 15) in bf16, with and without a dropout keep-mask, and an
-  export under a symbolic batch and a `320 · n` length, saved and loaded
-  again."""
+  C 128, K 15; RelPosMHAXL: 2 heads of 64, ragged lengths with an empty
+  row) in bf16, with and without a dropout keep-mask (RelPosMHAXL: with
+  and without `causal`), and an export of the first two under a symbolic
+  batch and a `320 · n` length, saved and loaded again."""
 
 import io
 import json
@@ -41,7 +42,7 @@ from summarymixing_tpu.utils import export as jexport
 from summarymixing_tpu_torch.config import build_model, load_recipe
 from summarymixing_tpu_torch.data.tokenizer import CharTokenizer
 from summarymixing_tpu_torch.frontend.features import InputNormalization
-from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
+from summarymixing_tpu_torch.ops import attention, fused_csgu, fused_summary
 from summarymixing_tpu_torch.recipes import common, export_model
 from summarymixing_tpu_torch.streaming import make_streaming_infer_fns, run_stream
 from summarymixing_tpu_torch.training.checkpoint import CheckpointManager
@@ -270,15 +271,38 @@ def _branch_args(keep: bool):
             0.9 if keep else 1.0)
 
 
+def _relpos_args(causal: bool):
+    """RelPosMHAXL's op at hd 64: a prefix mask, valid keys at the end (a
+    streaming left buffer not yet full) and an empty row."""
+    g = torch.Generator().manual_seed(2)
+    b, t, h, hd = 3, 7, 2, 64
+    q, k, v = (torch.randn(b, t, h, hd, generator=g).to(torch.bfloat16) for _ in range(3))
+    p = torch.randn(1, 2 * t - 1, h, hd, generator=g).to(torch.bfloat16)
+    u, vb = (0.3 * torch.randn(h, hd, generator=g) for _ in range(2))
+    pad = torch.tensor([[1.0] * 7, [0.0] * 3 + [1.0] * 4, [0.0] * 7])
+    return (q, k, v, p, u, vb, pad, causal)
+
+
 @pytest.mark.parametrize("keep", [False, True], ids=["no_keep", "keep"])
-@pytest.mark.parametrize("op", ["summary_mixing", "convolution_branch"])
+@pytest.mark.parametrize("op", ["summary_mixing", "convolution_branch", "relpos_attention"])
 def test_registered_ops_pass_opcheck(op, keep):
-    fn, args = ((fused_summary.summary_mixing_op, _cell_args(keep)) if op == "summary_mixing"
-                else (fused_csgu.convolution_branch_op, _branch_args(keep)))
+    """Each op on the CPU against `torch.library.opcheck` and its plain
+    version; for RelPosMHAXL's op `keep` stands for `causal`."""
+    if op == "relpos_attention":
+        fn, args = attention.relpos_attention_op, _relpos_args(keep)
+    else:
+        fn, args = ((fused_summary.summary_mixing_op, _cell_args(keep))
+                    if op == "summary_mixing"
+                    else (fused_csgu.convolution_branch_op, _branch_args(keep)))
     assert fn._qualname == f"summarymixing_torch::{op}"
     torch.library.opcheck(fn, args)
-    want = (fused_summary.summary_mixing_reference if op == "summary_mixing"
-            else fused_csgu.convolution_branch_reference)(*args[:2], tuple(args[2]), *args[3:])
+    if op == "relpos_attention":
+        q, k, v, p, u, vb, pad, causal = args
+        want = attention.relpos_attention_reference(q, k, v, p, u, vb, None, pad, causal)
+    else:
+        want = (fused_summary.summary_mixing_reference if op == "summary_mixing"
+                else fused_csgu.convolution_branch_reference)(*args[:2], tuple(args[2]),
+                                                              *args[3:])
     assert torch.equal(fn(*args), want)
 
 
@@ -315,4 +339,5 @@ def test_ops_export_with_symbolic_batch_and_length():
 def test_kernel_counts_untouched_on_the_cpu():
     """The CPU route never counts a launch or a plain call."""
     assert common.kernel_counts() == {"summary_mixing": {"launches": 0, "plain_calls": 0},
-                                      "csgu": {"launches": 0, "plain_calls": 0, "int8_calls": 0}}
+                                      "csgu": {"launches": 0, "plain_calls": 0, "int8_calls": 0},
+                                      "relpos_attention": {"launches": 0, "plain_calls": 0}}

@@ -1,11 +1,13 @@
-"""The port's two kernel modules against the JAX package on the CPU.
+"""The port's kernel modules against the JAX package on the CPU.
 
 Each kernel's plain PyTorch version is held against the Pallas kernel in
 interpret mode and against its jnp twin, and the port's modules against
 the flax modules, float32, tolerance 2e-5 (as tests/test_pallas_*.py).
 On the CPU the wrappers take the plain version. The kernels themselves
 run only on a card (tests/test_torch_card.py); the checks their wrappers
-make before a launch are plain Python and are tested here.
+make before a launch are plain Python and are tested here, as is the
+route that sends a RelPosMHAXL call to its kernel or to the plain version
+(whose parity with the JAX module tests/test_torch_mixers.py holds).
 """
 
 import functools
@@ -21,8 +23,9 @@ from summarymixing_tpu.ops import pallas_csgu as jcsgu
 from summarymixing_tpu.ops import pallas_summary as jps
 from summarymixing_tpu.ops.convolution import ConvolutionBranch as JConvolutionBranch
 from summarymixing_tpu.ops.summary_mixing import SummaryMixing as JSummaryMixing
-from summarymixing_tpu_torch.ops import _build, fused_csgu, fused_summary
+from summarymixing_tpu_torch.ops import _build, attention, fused_csgu, fused_summary
 from summarymixing_tpu_torch.ops.convolution import ConvolutionBranch
+from summarymixing_tpu_torch.ops.positional import relpos_xl_table
 from summarymixing_tpu_torch.ops.summary_mixing import SummaryMixing
 from summarymixing_tpu_torch.utils.convert import load_jax_params
 
@@ -300,3 +303,154 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case):
     check(*good)
     with pytest.raises(error):
         check(*bad)
+
+
+# -- RelPosMHAXL's attention kernel: the route and the launch's checks --------------------
+
+def _relpos_module(d=128, nhead=2, dtype=torch.bfloat16, rate=0.0):
+    from summarymixing_tpu_torch.ops.layers import set_compute_dtype
+
+    torch.manual_seed(0)
+    mod = attention.RelPosMHAXL(d, nhead, dropout_rate=rate).eval()
+    mod.reset_parameters()
+    return set_compute_dtype(mod, None if dtype == torch.float32 else dtype)
+
+
+# (module keywords, call keywords, whether the kernel takes it)
+RELPOS_ROUTES = {
+    "padded": ({}, {"pad": True}, True),
+    "left_buffer": ({}, {"pad": "suffix"}, True),
+    "unpadded": ({}, {}, True),
+    "causal": ({"causal": True}, {"pad": True}, True),
+    "eval_with_a_dropout_rate": ({"rate": 0.1}, {"pad": True}, True),
+    "training_at_rate_0": ({"train": True}, {"pad": True}, True),
+    "training_with_dropout": ({"rate": 0.1, "train": True}, {"pad": True}, False),
+    "attn_mask": ({}, {"pad": True, "attn_mask": True}, False),
+    "float32": ({"dtype": torch.float32}, {"pad": True}, False),
+    "head_128": ({"nhead": 1}, {"pad": True}, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RELPOS_ROUTES))
+def test_relpos_route_launches_what_the_kernel_takes(case, monkeypatch):
+    """With the card's route taken on the CPU (`uses_kernel` patched) and the
+    launch stubbed by the plain version: which RelPosMHAXL calls go to the
+    kernel and which run the plain version, counted in `plain_calls`; both
+    routes give the plain version's output."""
+    mod_kw, call_kw, takes = RELPOS_ROUTES[case]
+    mod = _relpos_module(nhead=mod_kw.get("nhead", 2), dtype=mod_kw.get("dtype", torch.bfloat16),
+                         rate=mod_kw.get("rate", 0.0))
+    mod.mask_pos_future = mod_kw.get("causal", False)
+    mod.train(mod_kw.get("train", False))
+    t = 10
+    x = torch.randn(2, t, 128, generator=torch.Generator().manual_seed(1))
+    pos = relpos_xl_table(t, 128)
+    # a streaming left buffer that is not full yet leaves its valid keys at the end
+    second = ([0.0] * 4 + [1.0] * (t - 4) if call_kw.get("pad") == "suffix"
+              else [1.0] * 6 + [0.0] * (t - 6))
+    pad = torch.tensor([[1.0] * t, second]) if call_kw.get("pad") else None
+    amask = torch.ones(t, t) if call_kw.get("attn_mask") else None
+    launched = []
+
+    def stub(q, k, v, p, u, vb, pad_mask=None, causal=False):
+        launched.append((q.dtype, tuple(q.shape), pad_mask is pad, causal))
+        return attention.relpos_attention_reference(q, k, v, p, u, vb, None, pad_mask, causal)
+
+    wrapper = attention.fused_relpos_attention
+    monkeypatch.setattr(wrapper, "plain_calls", wrapper.plain_calls)
+    monkeypatch.setattr(attention, "uses_kernel", lambda x: True)
+    monkeypatch.setattr(attention, "fused_relpos_attention", stub)
+    p0 = wrapper.plain_calls
+    with torch.no_grad():
+        got = mod(x, x, x, attn_mask=amask, pad_mask=pad, pos_embs=pos)
+    plain_calls = wrapper.plain_calls - p0
+    monkeypatch.undo()
+    with torch.no_grad():
+        want = mod(x, x, x, attn_mask=amask, pad_mask=pad, pos_embs=pos)
+    if takes:
+        assert launched == [(torch.bfloat16, (2, t, 2, 64), True, mod.mask_pos_future)]
+        assert plain_calls == 0
+    else:
+        assert launched == [] and plain_calls == 1
+    if not mod.training:   # a training call draws a new dropout mask each time
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_relpos_route_counts_non_square_attention_then_refuses_it(monkeypatch):
+    """Cross-attention with other query and key lengths is not the kernel's:
+    it is counted as a plain call, and the plain version refuses it as the
+    JAX module does (`rel_shift`)."""
+    mod = _relpos_module()
+    wrapper = attention.fused_relpos_attention
+    monkeypatch.setattr(wrapper, "plain_calls", wrapper.plain_calls)
+    monkeypatch.setattr(attention, "uses_kernel", lambda x: True)
+    p0 = wrapper.plain_calls
+    q, kv = torch.randn(2, 6, 128), torch.randn(2, 10, 128)
+    with pytest.raises(ValueError, match="square attention"):
+        mod(q, kv, kv, pos_embs=relpos_xl_table(10, 128))
+    assert wrapper.plain_calls == p0 + 1
+
+
+def _relpos_launch_args(b=2, t=5, h=2, hd=64):
+    bf = torch.bfloat16
+    return (torch.zeros(b, t, h, hd, dtype=bf), torch.zeros(b, t, h, hd, dtype=bf),
+            torch.zeros(b, t, h, hd, dtype=bf), torch.zeros(1, 2 * t - 1, h, hd, dtype=bf),
+            torch.zeros(h, hd, dtype=bf), torch.zeros(h, hd, dtype=bf),
+            (torch.arange(t)[None, :] < torch.tensor([t, 3] + [1] * (b - 2))[:, None]).float())
+
+
+@pytest.mark.parametrize("case", ["float32", "head_128", "non_square", "k_transposed",
+                                  "v_misaligned", "p_short", "bias_shape", "bias_float32",
+                                  "mask_int64", "mask_transposed"])
+def test_relpos_launch_refuses_what_the_kernel_does_not_take(case):
+    """The checks the launch makes, run on CPU tensors (the wrapper reaches
+    them only for CUDA tensors)."""
+    good = _relpos_launch_args()
+    attention._relpos_check(*good)
+    attention._relpos_check(*good[:-1], None)
+    q, k, v, p, u, vb, pad = good
+    bad = {"float32": lambda: (q.float(), k, v, p, u, vb, pad),
+           "head_128": lambda: _relpos_launch_args(hd=128),
+           "non_square": lambda: (q[:, :4], k, v, p, u, vb, pad),
+           "k_transposed": lambda: (q, k.transpose(0, 1).contiguous().transpose(0, 1), v, p, u,
+                                    vb, pad),
+           "v_misaligned": lambda: (q, k, torch.zeros(v.numel() + 1, dtype=v.dtype)[1:].view(
+               v.shape), p, u, vb, pad),
+           "p_short": lambda: (q, k, v, p[:, 1:], u, vb, pad),
+           "bias_shape": lambda: (q, k, v, p, u[:1], vb, pad),
+           # the launch casts the biases to q's dtype before its check
+           "bias_float32": lambda: (q, k, v, p, u, vb.float(), pad),
+           # the wrapper casts the mask to float32 and makes it contiguous first
+           "mask_int64": lambda: (q, k, v, p, u, vb, pad.long()),
+           "mask_transposed": lambda: (q, k, v, p, u, vb,
+                                       pad.t().contiguous().t())}[case]()
+    with pytest.raises(ValueError):
+        attention._relpos_check(*bad)
+
+
+def test_relpos_key_lengths_and_cpu_wrapper():
+    """Key padding reaches the op as the pad mask itself, whatever its
+    pattern (the kernel finds each row's allowed keys): on the CPU the
+    wrapper is the plain version under a bf16 mask whose valid keys lie at
+    the end (a streaming left buffer not yet full), with a row with none and
+    a row with a gap, and launches nothing; another device raises; the op's
+    fake gives the context's shape and dtype."""
+    q, k, v, p, u, vb, _ = _relpos_launch_args(b=3)
+    q = torch.randn(q.shape).to(q.dtype)
+    pad = torch.tensor([[0.0, 0, 1, 1, 1], [0.0, 0, 0, 0, 0], [1.0, 0, 1, 1, 0]])
+    n0 = attention.fused_relpos_attention.launches
+    for causal in (False, True):
+        got = attention.fused_relpos_attention(q, q, q, p, u, vb, pad.to(torch.bfloat16), causal)
+        want = attention.relpos_attention_reference(q, q, q, p, u, vb, None, pad, causal)
+        assert torch.equal(got, want)
+    got = attention.fused_relpos_attention(q, q, q, p, u, vb, None, True)
+    want = attention.relpos_attention_reference(q, q, q, p, u, vb, None, None, True)
+    assert torch.equal(got, want) and attention.fused_relpos_attention.launches == n0
+    with pytest.raises(ValueError, match="no kernel"):
+        attention.fused_relpos_attention(*(x.to("meta") for x in (q, k, v, p, u, vb)))
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        args = [mode.from_tensor(x) for x in _relpos_launch_args(b=3, t=9)]
+        out = attention.relpos_attention_op(*args, False)
+    assert tuple(out.shape) == (3, 9, 2, 64) and out.dtype == torch.bfloat16

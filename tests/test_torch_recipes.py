@@ -260,7 +260,8 @@ def test_runners_end_to_end_with_resume(corpus, tmp_path):
     assert [r["meta"].get("epoch", r["meta"].get("stage")) for r in log] == [1, "test", 2]
     # the kernels' counters rise only on the card
     zero = {"summary_mixing": {"launches": 0, "plain_calls": 0},
-            "csgu": {"launches": 0, "plain_calls": 0, "int8_calls": 0}}
+            "csgu": {"launches": 0, "plain_calls": 0, "int8_calls": 0},
+            "relpos_attention": {"launches": 0, "plain_calls": 0}}
     assert first["kernels"] == second["kernels"] == log[0]["meta"]["kernels"] == zero
     assert CheckpointManager(os.path.join(run, "save")).all_steps() == [2, 4]
 
@@ -387,7 +388,8 @@ def test_evaluate_runner_reports_plain_calls(corpus, tmp_path, monkeypatch):
         1 for _ in common.batches(test_set, tok, cfg, False, 0, "cpu"))
     assert n > 0 and routed["kernels"] == {
         "summary_mixing": {"launches": 0, "plain_calls": n},
-        "csgu": {"launches": 0, "plain_calls": n, "int8_calls": 0}}
+        "csgu": {"launches": 0, "plain_calls": n, "int8_calls": 0},
+        "relpos_attention": {"launches": 0, "plain_calls": 0}}
     assert routed["hyps"] == plain["hyps"]
 
 

@@ -318,11 +318,12 @@ def test_polymorphic_transducer_artifact_matches_the_live_model(tmp_path):
 
 def test_warmup_cache_builds_the_loader_and_the_kernels(monkeypatch):
     """The native loader is built here; `_build.build` needs nvcc, so it is
-    stubbed: the runner calls it for both kernels and reports each."""
+    stubbed: the runner calls it for every kernel and reports each."""
     monkeypatch.setattr(_build, "build", lambda: {name: {"seconds": 1.5, "ptxas": ""}
                                                   for name in _build.SOURCES})
     summary = warmup_cache.main([])
-    assert set(summary) == {"native_loader", "kernel summary_mixing", "kernel csgu"}
+    assert set(summary) == {"native_loader", "kernel summary_mixing", "kernel csgu",
+                            "kernel relpos_attention"}
     assert summary["native_loader"]["path"] == str(native_loader.library_path())
     assert os.path.exists(summary["native_loader"]["path"])
 

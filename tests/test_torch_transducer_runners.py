@@ -102,7 +102,8 @@ def test_transducer_runners_train_resume_and_evaluate(corpus, tmp_path):
 
     n_test = len(read_manifest_csv(corpus["test"]))
     zero = {"summary_mixing": {"launches": 0, "plain_calls": 0},
-            "csgu": {"launches": 0, "plain_calls": 0, "int8_calls": 0}}
+            "csgu": {"launches": 0, "plain_calls": 0, "int8_calls": 0},
+            "relpos_attention": {"launches": 0, "plain_calls": 0}}
     for extra, decode in (([], "transducer_greedy"), (["--beam"], "transducer_beam"),
                           (["--beam", "--lm-ckpt", lm_run], "transducer_beam+lm"),
                           (["--streaming", "--chunk-size", "8"], "transducer_streaming_greedy"),
