@@ -67,9 +67,11 @@ class Draws:
 
 # -- parameter layout ----------------------------------------------------------
 
-def param_shapes(m: Dict) -> List[Tuple[str, Tuple[int, ...]]]:
-    """(name, shape) of every parameter of the recognizer that the model
-    section `m` describes, in the system's naming."""
+def param_shapes(cfg: Dict) -> List[Tuple[str, Tuple[int, ...]]]:
+    """(name, shape) of every parameter of the recognizer that the
+    configuration `cfg` describes (its `model` section), in the system's
+    naming."""
+    m = cfg["model"]
     d, v = m["d_model"], m["output_neurons"]
     out: List[Tuple[str, Tuple[int, ...]]] = []
 
@@ -513,7 +515,7 @@ class Trainer:
     def __init__(self, w: Dict[str, torch.Tensor], cfg: Dict, prec: Precision = Precision(),
                  count: int = 0):
         self.cfg, self.prec = cfg, prec
-        self.names = [n for n, _ in param_shapes(cfg["model"])]
+        self.names = [n for n, _ in param_shapes(cfg)]
         self.w = {n: w[n].detach().clone().float().requires_grad_(True) for n in self.names}
         self.mu = {n: torch.zeros_like(t) for n, t in self.w.items()}
         self.nu = {n: torch.zeros_like(t) for n, t in self.w.items()}

@@ -33,12 +33,12 @@ from typing import Dict, List, Sequence
 
 import torch
 
-from asrbench.reference import asr
-
 
 def decode_numbers(rows: Sequence[Dict]) -> Dict[str, float]:
     """`rows`: per sampled batch `hyps`, `lp` (system `[B, T', V]`), `lens`
     (system `[B]`), `ref_lp`, `ref_lens`."""
+    from asrbench.reference import asr
+
     wrong, kl, frames, row_max = 0, 0.0, 0, 0.0
     for r in rows:
         if not torch.equal(r["lens"].cpu().long(), r["ref_lens"].cpu().long()):

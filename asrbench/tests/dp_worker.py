@@ -8,7 +8,7 @@ import time
 
 import torch
 
-from asrbench import control, harness
+from asrbench import harness
 from asrbench.tests.tiny import tiny_spec
 
 
@@ -18,7 +18,7 @@ def main() -> None:
 
     launch.initialize(device="cpu")
     if len(sys.argv) > 1:
-        control.FAULTS[sys.argv[1]]()
+        harness.load_module("entries", "train").FAULTS[sys.argv[1]]()
     spec = tiny_spec("bf_sm.train_dp4", "train")
     res = harness.CellRun("bf_sm.train_dp4", 77, 0.3, False, "cpu", time.perf_counter(),
                           spec).run()

@@ -15,7 +15,7 @@ from pathlib import Path
 
 import pytest
 
-from asrbench import control, harness
+from asrbench import harness
 from asrbench.tests.tiny import tiny_config, tiny_spec
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -30,7 +30,7 @@ ROOT = Path(__file__).resolve().parents[2]
 def test_fault_makes_correct_false(cell, entry, fault, moved):
     config = tiny_config("branchformer_mha", nhead=4) if "mha" in cell else None
     spec = tiny_spec(cell, entry, config=config)
-    undo = control.FAULTS[fault]()
+    undo = harness.load_module("entries", entry).FAULTS[fault]()
     try:
         res = harness.CellRun(cell, 2**31 + 9, 0.3, False, "cpu", time.perf_counter(),
                               spec).run()

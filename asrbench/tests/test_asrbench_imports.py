@@ -31,7 +31,7 @@ from asrbench.reference import asr, compare
 from asrbench.tests import tiny
 from asrbench.yardstick import traffic, weights
 cfg = {k: v for k, v in tiny.tiny_config().items()}
-w = weights.make_weights(asr.param_shapes(cfg["model"]), 1, "cpu")
+w = weights.make_weights(asr.param_shapes(cfg), 1, "cpu")
 stats = weights.make_norm_stats(80, 2, "cpu")
 pool = traffic.make_pool(dict(tiny.MIXES["train"]), 3, "cpu", vocab=50)
 asr.ctc_log_probs(w, cfg, stats, pool[0].wav, pool[0].wav_lens)

@@ -5,8 +5,6 @@ the optimizer takes it, and the update past the schedule's warm-up), with the
 same weights, inputs and draws; and the decode numbers on a fault confined
 to one row."""
 
-import time
-
 import pytest
 import torch
 
@@ -16,6 +14,8 @@ from asrbench.reference import compare
 from asrbench.tests.tiny import tiny_config, tiny_spec
 from asrbench.yardstick import traffic
 from asrbench.yardstick.weights import make_norm_stats, make_weights
+
+TRAIN = harness.load_module("entries", "train")
 
 
 def fp32(cfg):
@@ -31,9 +31,10 @@ def test_decode_forward_matches_system(config, extra):
 
     cfg = fp32(tiny_config(config, **extra))
     spec = tiny_spec("bf_sm.decode", "decode", config=cfg)
-    _, model, fbank = harness.build_system(cfg, "cpu")
-    w = make_weights(ref.param_shapes(cfg["model"]), 11, "cpu")
-    harness.load_weights(model, w)
+    system = harness.build_system(cfg, "cpu")
+    model, fbank = system.model, system.fbank
+    w = make_weights(ref.param_shapes(cfg), 11, "cpu")
+    harness.load_weights(system, w)
     stats = make_norm_stats(cfg["features"]["n_mels"], 12, "cpu")
     for b in traffic.make_pool(spec["mix"], 13, "cpu"):
         hyps, out = greedy_ctc_decode(model.eval(), fbank, stats, b.wav, b.wav_lens)
@@ -48,19 +49,19 @@ def test_decode_forward_matches_system(config, extra):
 def test_training_step_matches_system():
     cfg = fp32(tiny_config())
     spec = tiny_spec("bf_sm.train", "train", config=cfg)
-    run = harness.CellRun("bf_sm.train", 5, 0.1, False, "cpu", time.perf_counter(), spec)
-    run.recipe, model, fbank = harness.build_system(cfg, "cpu")
-    shapes = ref.param_shapes(cfg["model"])
+    system = harness.build_system(cfg, "cpu")
+    model = system.model
+    shapes = ref.param_shapes(cfg)
     w = make_weights(shapes, 21, "cpu")
-    harness.load_weights(model, w)
+    harness.load_weights(system, w)
     pool = traffic.make_pool(spec["mix"], 22, "cpu", vocab=cfg["model"]["output_neurons"])
-    trainer = run._trainer(model, fbank)
+    trainer = TRAIN.trainer(system.recipe, model, system.fbank)
     state = trainer.init_state(seed=23)
-    state, met = trainer.train_step(state, harness.feed(pool[0]))
+    state, met = trainer.train_step(state, TRAIN.feed(pool[0]))
     g = torch.Generator()
     g.manual_seed(23)
     tr = ref.Trainer(w, cfg)
-    loss, grads = tr.step([harness.feed(pool[0])], [g])
+    loss, grads = tr.step([TRAIN.feed(pool[0])], [g])
     assert abs(float(met["loss"]) - loss) <= 1e-5 * abs(loss)
     b1 = cfg["training"]["adam_betas"][0]
     names = [n for n, p in model.named_parameters()]
@@ -75,23 +76,23 @@ def test_update_past_warmup_matches_system():
     cfg = fp32(tiny_config())
     spec = tiny_spec("bf_sm.train", "train", config=cfg)
     assert spec["start_step"] == cfg["training"]["n_warmup_steps"]
-    run = harness.CellRun("bf_sm.train", 5, 0.1, False, "cpu", time.perf_counter(), spec)
-    run.recipe, model, fbank = harness.build_system(cfg, "cpu")
-    shapes = ref.param_shapes(cfg["model"])
+    system = harness.build_system(cfg, "cpu")
+    model = system.model
+    shapes = ref.param_shapes(cfg)
     w = make_weights(shapes, 31, "cpu")
-    harness.load_weights(model, w)
+    harness.load_weights(system, w)
     pool = traffic.make_pool(spec["mix"], 32, "cpu", vocab=cfg["model"]["output_neurons"])
-    trainer = run._trainer(model, fbank)
+    trainer = TRAIN.trainer(system.recipe, model, system.fbank)
     state = trainer.init_state(seed=33)
     count = state["opt_state"]["count"]
     state = dict(state, step=spec["start_step"],
                  opt_state=dict(state["opt_state"], count=torch.full_like(count, spec["start_step"])))
     theta0 = {n: p.detach().clone() for n, p in model.named_parameters()}
-    trainer.train_step(state, harness.feed(pool[0]))
+    trainer.train_step(state, TRAIN.feed(pool[0]))
     g = torch.Generator()
     g.manual_seed(33)
     tr = ref.Trainer(w, cfg, count=spec["start_step"])
-    _, grads = tr.step([harness.feed(pool[0])], [g])
+    _, grads = tr.step([TRAIN.feed(pool[0])], [g])
     names = [n for n, _ in shapes]
     named = dict(model.named_parameters())
     prog = {"losses": [1.0], "grad_norms": compare.leaf_norms([grads[n] for n in names]),

@@ -1,14 +1,13 @@
-"""The reduction of the program's `smt::` spans (`yardstick/spans.py`) and
-the exchange's numbers, against hand counts."""
+"""The reduction of the program's `smt::` spans (`yardstick/spans.py`, in
+`trace.summarize_events`' one pass) and the exchange's numbers, against hand
+counts."""
+
+from types import SimpleNamespace
 
 import pytest
 
-from asrbench.yardstick.spans import (
-    allreduce_busbw_gbs,
-    allreduce_wait_ms,
-    readings,
-    summarize_span_events,
-)
+from asrbench.yardstick.spans import allreduce_busbw_gbs, allreduce_wait_ms, reading, readings
+from asrbench.yardstick.trace import summarize_events
 
 
 def _x(cat, name, ts, dur, corr=None, tid=1):
@@ -59,7 +58,7 @@ EVENTS = [
 
 
 def test_span_reduction_by_hand():
-    s = summarize_span_events(EVENTS)
+    s = summarize_events(EVENTS)
     us = pytest.approx
     assert s.span_device_s == {"train.forward": us(15e-6), "train.backward": us(18e-6),
                                "train.update": us(2e-6), "train.sync": us(9e-6),
@@ -79,14 +78,14 @@ def test_span_reduction_by_hand():
 
 def test_a_trace_without_spans_puts_all_idle_time_outside():
     plain = [e for e in EVENTS if not e["name"].startswith("smt::")]
-    s = summarize_span_events(plain)
+    s = summarize_events(plain)
     assert s.span_device_s == {} and s.span_steps == {}
     assert s.span_idle_s == {"outside": pytest.approx(68e-6)}
     assert readings(s, 2) == {}
 
 
 def test_readings_per_step_by_phase():
-    r = readings(summarize_span_events(EVENTS), 2)
+    r = readings(summarize_events(EVENTS), 2)
     assert r == {"idle_input_ms.train": 0.0,
                  "idle_forward_ms.train": pytest.approx(0.0075),
                  "idle_backward_ms.train": pytest.approx(0.006),
@@ -103,7 +102,7 @@ def test_decode_readings_by_hand():
           _launch(11, 2), _x("kernel", "enc", 12, 20, 2),
           _launch(31, 3), _x("kernel", "argmax", 33, 2, 3),
           _launch(36, 4), _x("gpu_memcpy", "Memcpy DtoH", 36, 1, 4)]
-    s = summarize_span_events(ev)
+    s = summarize_events(ev)
     # idle: features [0, 2] [8, 10]; model [10, 12]; search [32, 33];
     # collapse [35, 36] [37, 47]; outside [47, 50]
     r = readings(s, 1)
@@ -120,7 +119,7 @@ def test_allreduce_wait_by_hand():
     # step 1: least 3 ms, waits 7, 0, 2, 0.5; step 2: least 4 ms, waits 0, 2, 0.5, 0
     assert allreduce_wait_ms(PEERS) == pytest.approx(12.0 / 8)
     assert allreduce_wait_ms(PEERS[:1]) is None
-    r = readings(summarize_span_events([]), 2, {"calls": 4, "bytes": 954e6}, PEERS)
+    r = readings(summarize_events([]), 2, {"calls": 4, "bytes": 954e6}, PEERS)
     assert r["allreduce_wait_ms.train"] == pytest.approx(1.5)
 
 
@@ -128,6 +127,26 @@ def test_allreduce_busbw_by_hand():
     # 477 MB a step, a ring of 4 moves 1.5x that per card: over 3 ms and 4 ms
     want = (477e6 * 1.5 / 0.003 + 477e6 * 1.5 / 0.004) / 2 / 1e9
     assert allreduce_busbw_gbs(PEERS, 477e6) == pytest.approx(want)
-    r = readings(summarize_span_events([]), 2, {"calls": 4, "bytes": 954e6}, PEERS)
+    r = readings(summarize_events([]), 2, {"calls": 4, "bytes": 954e6}, PEERS)
     assert r["allreduce_busbw.train"] == pytest.approx(want)
     assert allreduce_busbw_gbs(PEERS, 0) is None
+
+
+def test_reading_from_a_traced_context():
+    """A reader's view: the exchange's counters and every process's
+    `train.sync` times from the context; nothing where no card was traced."""
+    s = summarize_events(EVENTS)
+    peers = [dict(s.span_steps, **{"train.sync": p}) for p in PEERS]
+    ctx = SimpleNamespace(trace=s, spans=s, stretch_units=2, peers=peers,
+                          counters={"csgu": {"launches": 0}, "collectives":
+                                    {"calls": 4, "bytes": 954e6}})
+    assert reading(ctx, "idle_backward_ms.train") == pytest.approx(0.006)
+    assert reading(ctx, "allreduce_wait_ms.train") == pytest.approx(1.5)
+    assert reading(ctx, "allreduce_busbw.train") == pytest.approx(
+        allreduce_busbw_gbs(PEERS, 477e6))
+    assert reading(ctx, "frontend_ms.decode") is None
+    cpu = summarize_events([e for e in EVENTS if e["cat"] != "kernel"
+                            and e["cat"] != "gpu_memcpy"])
+    assert cpu.busy_s == 0 and cpu.span_idle_s
+    assert reading(SimpleNamespace(**dict(vars(ctx), trace=cpu, spans=cpu)),
+                   "idle_backward_ms.train") is None

@@ -1,5 +1,6 @@
-"""The traffic generator, the lookup of every cell's files by name, and the
-runner's refusal without a card."""
+"""The traffic generator, the lookup of every cell's files by name (its
+configuration, mix, limits, entry module, reference module and readers), and
+the runner's refusal without a card."""
 
 import json
 import os
@@ -60,7 +61,12 @@ def test_every_cell_loads_by_name():
     bench = harness.load_benchmark()
     for w in bench["workloads"]:
         spec = harness.cell_spec(bench, w["name"])
-        assert spec["mix"]["entry"] in ("decode", "train")
+        entry = harness.load_module("entries", spec["mix"]["entry"])
+        assert entry.TRACE_UNITS > 0 and callable(entry.run)
+        assert (harness.HERE / "entries" / f"{spec['mix']['entry']}.py").is_file()
+        ref = harness.load_reference(spec["config"])
+        assert ref.__file__ == str(harness.HERE / "reference" / f"{spec['config']['reference']}.py")
+        assert callable(ref.param_shapes)
         assert spec["config"]["name"] == w["config"]
         assert spec["limits"]
         assert any(m["name"] == "setup_s" for m in spec["end_to_end"])
@@ -74,10 +80,11 @@ def test_every_cell_loads_by_name():
 
 def test_every_recipe_matches_its_configuration_file():
     for c in harness.load_benchmark()["configs"]:
-        recipe, model, _ = harness.build_system(harness.load_config(c["name"]), "meta")
-        from asrbench.reference import asr as ref
-        shapes = dict(ref.param_shapes(harness.load_config(c["name"])["model"]))
-        assert {n: tuple(p.shape) for n, p in model.named_parameters()} == shapes
+        cfg = harness.load_config(c["name"])
+        system = harness.build_system(cfg, "meta")
+        shapes = dict(harness.load_reference(cfg).param_shapes(cfg))
+        assert {n: tuple(p.shape) for n, p in system.named_parameters().items()} == shapes
+        assert system.transducer is None
 
 
 def test_run_without_a_card_exits_nonzero():
@@ -102,8 +109,8 @@ def test_run_outside_a_checkout_of_the_system_exits_nonzero(tmp_path):
 
 def test_param_count_of_the_flagship():
     from asrbench.reference import asr as ref
-    m = harness.load_config("branchformer_summarymixing")["model"]
-    total = sum(int(np.prod(s)) for _, s in ref.param_shapes(m))
-    enc = sum(int(np.prod(s)) for n, s in ref.param_shapes(m)
+    cfg = harness.load_config("branchformer_summarymixing")
+    total = sum(int(np.prod(s)) for _, s in ref.param_shapes(cfg))
+    enc = sum(int(np.prod(s)) for n, s in ref.param_shapes(cfg)
               if not n.startswith(("asr.decoder", "asr.tgt_emb", "seq_lin")))
     assert (enc, total) == (88_954_088, 119_304_304)

@@ -3,7 +3,9 @@ port opens around the phases of its entry points
 (`summarymixing_tpu_torch/training/profiling.py::span`), on the profiler's
 clock, beside the card's kernels.
 
-From the Chrome trace's events, as `trace.py` reads them:
+`trace.summarize_events` reads the Chrome trace's events once and hands
+`attribute` the device intervals, the launches, the spans and the
+`asrbench::step` ranges, which gives:
 
 - `span_device_s`: by span name, the device time of the kernels, copies and
   sets whose launch (the runtime or driver call of the same correlation)
@@ -18,31 +20,32 @@ From the Chrome trace's events, as `trace.py` reads them:
 
 A program without spans gives `span_device_s` and `span_steps` empty and
 all idle time `"outside"`. `readings` turns these, with the all-reduce
-counters and every process's `train.sync` times, into per-layer numbers.
+counters and every process's `train.sync` times, into per-layer numbers;
+`reading` is the form a metric's reader calls.
 """
 
 from __future__ import annotations
 
 import bisect
 from collections import defaultdict
-from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
-
-from asrbench.yardstick.trace import DEVICE_CATS, _union
 
 SPAN = "smt::"
 STEP = "asrbench::step"
 OUTSIDE = "outside"
-LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 Interval = Tuple[float, float]
 
 
-@dataclass
-class SpanSummary:
-    span_device_s: Dict[str, float] = field(default_factory=dict)
-    span_idle_s: Dict[str, float] = field(default_factory=dict)
-    span_steps: Dict[str, List[float]] = field(default_factory=dict)
+def union(intervals: Sequence[Interval]) -> List[Interval]:
+    """The intervals merged where they touch or overlap, in order."""
+    merged: List[List[float]] = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return [(a, b) for a, b in merged]
 
 
 def _innermost(spans: List[Tuple[float, float, str]]) -> List[Tuple[float, float, int]]:
@@ -61,7 +64,7 @@ def _innermost(spans: List[Tuple[float, float, str]]) -> List[Tuple[float, float
 def _idle(steps: List[Interval], busy: List[Interval]) -> List[Interval]:
     """The parts of the step ranges in which the card ran nothing."""
     out = []
-    for s, e in _union(steps):
+    for s, e in union(steps):
         at = s
         for a, b in busy:
             if b <= at or a >= e:
@@ -74,25 +77,13 @@ def _idle(steps: List[Interval], busy: List[Interval]) -> List[Interval]:
     return out
 
 
-def summarize_span_events(events: List[Dict]) -> SpanSummary:
-    dev, launches, spans, steps = [], {}, [], []
-    for e in events:
-        if e.get("ph") != "X":
-            continue
-        cat, name = e.get("cat", ""), e.get("name", "")
-        ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
-        if cat in DEVICE_CATS:
-            dev.append((ts, ts + dur, e.get("args", {}).get("correlation")))
-        elif cat in LAUNCH_CATS:
-            corr = e.get("args", {}).get("correlation")
-            if corr is not None:
-                launches[corr] = ts
-        elif cat == "user_annotation":
-            if name.startswith(SPAN):
-                spans.append((ts, ts + dur, name[len(SPAN):]))
-            elif name == STEP:
-                steps.append((ts, ts + dur))
-    spans.sort()
+def attribute(dev: Sequence[Tuple[float, float, Optional[int]]], launches: Dict[int, float],
+              spans: List[Tuple[float, float, str]], steps: List[Interval]
+              ) -> Tuple[Dict[str, float], Dict[str, float], Dict[str, List[float]]]:
+    """`(span_device_s, span_idle_s, span_steps)` from the device intervals
+    `(start, end, correlation)`, each correlation's launch time, the spans
+    `(start, end, name)` and the step ranges, all in microseconds."""
+    spans = sorted(spans)
     pieces = _innermost(spans)
     starts = [a for a, _, _ in pieces]
 
@@ -106,13 +97,13 @@ def summarize_span_events(events: List[Dict]) -> SpanSummary:
         i = None if at is None else owner(at)
         if i is not None:
             per[i] += (b - a) * 1e-6
-    out = SpanSummary()
+    device_s: Dict[str, float] = {}
+    by_step: Dict[str, List[float]] = {}
     for (_, _, name), sec in zip(spans, per):
-        out.span_steps.setdefault(name, []).append(sec)
-        out.span_device_s[name] = out.span_device_s.get(name, 0.0) + sec
+        by_step.setdefault(name, []).append(sec)
+        device_s[name] = device_s.get(name, 0.0) + sec
     idle: Dict[str, float] = defaultdict(float)
-    busy = _union([(a, b) for a, b, _ in dev])
-    for a, b in _idle(steps, busy):
+    for a, b in _idle(steps, union([(a, b) for a, b, _ in dev])):
         covered = 0.0
         for pa, pb, i in pieces:
             lo, hi = max(a, pa), min(b, pb)
@@ -121,8 +112,7 @@ def summarize_span_events(events: List[Dict]) -> SpanSummary:
                 covered += hi - lo
         if b - a > covered:
             idle[OUTSIDE] += (b - a - covered) * 1e-6
-    out.span_idle_s = dict(idle)
-    return out
+    return device_s, dict(idle), by_step
 
 
 def allreduce_wait_ms(peers: Sequence[Sequence[float]]) -> Optional[float]:
@@ -153,10 +143,11 @@ def allreduce_busbw_gbs(peers: Sequence[Sequence[float]], bytes_per_step: float
     return sum(bus / t for t in least) / steps / 1e9
 
 
-def readings(spans: SpanSummary, units: int, counters: Optional[Dict[str, int]] = None,
+def readings(spans, units: int, counters: Optional[Dict[str, int]] = None,
              peers: Optional[Sequence[Sequence[float]]] = None) -> Dict[str, float]:
     """The per-layer numbers of a traced stretch of `units` batches or steps
-    (per process): ms per unit by phase, and for a run of several processes
+    (per process), from `spans` (a `trace.TraceSummary`'s span fields): ms
+    per unit by phase, and for a run of several processes
     the exchange's wait and bus bandwidth from `counters` (the rise of
     `comm.COLLECTIVES`' `calls` and `bytes` over the stretch) and `peers`.
     A number with nothing to read is left out."""
@@ -184,3 +175,16 @@ def readings(spans: SpanSummary, units: int, counters: Optional[Dict[str, int]] 
             if bw is not None:
                 out["allreduce_busbw.train"] = bw
     return out
+
+
+def reading(ctx, name: str) -> Optional[float]:
+    """The per-layer number `name` of `readings` from a traced stretch's
+    context (`harness.CellRun._traced`): its spans, the rise of the
+    exchange's counters, every process's `train.sync` times. None where the
+    trace holds no device time (no card was traced) or the number has
+    nothing to read."""
+    if ctx.trace.busy_s <= 0:
+        return None
+    peers = [p.get("train.sync", []) for p in ctx.peers]
+    return readings(ctx.spans, ctx.stretch_units, ctx.counters.get("collectives"),
+                    peers).get(name)

@@ -1,7 +1,7 @@
 """Reduction of a `torch.profiler` trace of a short steady stretch.
 
 The trace is exported as Chrome JSON to a temporary file (under TMPDIR),
-read once and deleted. From it:
+read once and deleted. From it, in one pass over its events:
 
 - device intervals: every kernel, copy and set on the card, and their union
   (the busy time);
@@ -11,7 +11,9 @@ read once and deleted. From it:
 - collectives: the device time of kernels named like NCCL's;
 - the breakdown: the device operations that took the most time, and the
   longest gaps between device work, each named by the innermost host range
-  open at its middle.
+  open at its middle;
+- the program's `smt::` spans: device time, idle time and each occurrence's
+  device time by span (`spans.attribute`).
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
+from asrbench.yardstick.spans import SPAN, STEP, attribute, union
+
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver", "python_function")
 PREFIX = "asrbench::"
 NAME_CHARS = 160   # a kernel's name is cut to this many characters in the breakdown
@@ -37,16 +42,9 @@ class TraceSummary:
     nccl_s: float = 0.0
     device_ops: List[Tuple[str, float]] = field(default_factory=list)
     idle_gaps: List[Tuple[str, float]] = field(default_factory=list)
-
-
-def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
-    merged: List[List[float]] = []
-    for a, b in sorted(intervals):
-        if merged and a <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], b)
-        else:
-            merged.append([a, b])
-    return [(a, b) for a, b in merged]
+    span_device_s: Dict[str, float] = field(default_factory=dict)
+    span_idle_s: Dict[str, float] = field(default_factory=dict)
+    span_steps: Dict[str, List[float]] = field(default_factory=dict)
 
 
 def summarize(prof) -> TraceSummary:
@@ -62,26 +60,34 @@ def summarize(prof) -> TraceSummary:
 
 
 def summarize_events(events: List[Dict]) -> TraceSummary:
-    dev, launches, ranges, host = [], {}, defaultdict(list), []
+    dev, launches, ranges, host, program_spans, steps = [], {}, defaultdict(list), [], [], []
     for e in events:
         cat, ph = e.get("cat", ""), e.get("ph")
         if ph != "X":
             continue
+        name = e.get("name", "")
         ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
         if cat in DEVICE_CATS:
-            dev.append((ts, ts + dur, e.get("name", ""), e.get("args", {}).get("correlation")))
-        elif cat in ("cuda_runtime", "cuda_driver"):
+            dev.append((ts, ts + dur, name, e.get("args", {}).get("correlation")))
+        elif cat in LAUNCH_CATS:
             corr = e.get("args", {}).get("correlation")
             if corr is not None:
                 launches[corr] = ts
-        if cat == "user_annotation" and e.get("name", "").startswith(PREFIX):
-            ranges[e["name"][len(PREFIX):]].append((ts, ts + dur))
+        if cat == "user_annotation":
+            if name.startswith(PREFIX):
+                ranges[name[len(PREFIX):]].append((ts, ts + dur))
+            if name.startswith(SPAN):
+                program_spans.append((ts, ts + dur, name[len(SPAN):]))
+            elif name == STEP:
+                steps.append((ts, ts + dur))
         if cat in HOST_CATS:
-            host.append((ts, ts + dur, e.get("name", "")))
+            host.append((ts, ts + dur, name))
     out = TraceSummary()
+    out.span_device_s, out.span_idle_s, out.span_steps = attribute(
+        [(a, b, corr) for a, b, _, corr in dev], launches, program_spans, steps)
     if not dev:
         return out
-    busy = _union([(a, b) for a, b, _, _ in dev])
+    busy = union([(a, b) for a, b, _, _ in dev])
     out.busy_s = sum(b - a for a, b in busy) * 1e-6
     by_name: Dict[str, float] = defaultdict(float)
     for a, b, name, _ in dev:

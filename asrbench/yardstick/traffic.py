@@ -3,7 +3,7 @@ and makes the run's pool of batches on the device from the seed.
 
 A mix file gives:
 
-- `entry`: "decode" (greedy CTC, closed loop) or "train" (training steps);
+- `entry`: the module under `entries/` that drives the cell;
 - `utterances`: how many utterances the pool holds;
 - `lengths`: `{"kind": "gamma", "mean_s", "shape", "min_s", "max_s"}` or
   `{"kind": "uniform", "min_s", "max_s"}`, drawn from `length_seed` (fixed in
@@ -12,8 +12,9 @@ A mix file gives:
   cut into consecutive batches whose padded audio (rows x longest) stays
   within `max_batch_s` and whose rows stay within `max_rows`;
 - `pad_quantum_s`: each batch's sample count rounded up to this;
-- `tokens_per_s` (train): target tokens per second of audio, drawn uniformly
-  from the vocabulary without the blank/pad, BOS and EOS ids.
+- `tokens_per_s` (a mix of training batches): target tokens per second of
+  audio, drawn uniformly from the vocabulary without the blank/pad, BOS and
+  EOS ids; a mix without it makes no targets.
 
 The run seed draws the audio, the targets and the order in which the window
 cycles through the pool. Audio is a voiced signal (a few harmonics of a
@@ -35,8 +36,9 @@ HERE = Path(__file__).resolve().parent.parent
 SAMPLE_RATE = 16000
 
 
-def load_mix(name: str) -> Dict:
-    return json.loads((HERE / "traffic" / f"{name}.json").read_text())
+def load_mix(name: str, root: Path = HERE) -> Dict:
+    """`<root>/traffic/<name>.json`; `root` is the benchmark's folder."""
+    return json.loads((root / "traffic" / f"{name}.json").read_text())
 
 
 def utterance_lengths(mix: Dict, stream: int = 0) -> np.ndarray:
@@ -105,7 +107,7 @@ def make_pool(mix: Dict, seed: int, device, vocab: int = 0, stream: int = 0) -> 
         n = -(-max(samples) // quantum) * quantum
         lens = torch.tensor(samples, dtype=torch.int32, device=device)
         batch = Batch(synth_audio(len(g), n, lens, gen), lens, sum(samples) / SAMPLE_RATE)
-        if mix["entry"] == "train":
+        if "tokens_per_s" in mix:
             tl = [max(1, int(round(lengths[i] * mix["tokens_per_s"]))) for i in g]
             toks = torch.randint(3, vocab, (len(g), max(tl)), generator=gen, device=device)
             tl_t = torch.tensor(tl, dtype=torch.int64, device=device)
