@@ -42,6 +42,7 @@ def _fault_token():
 
 
 FAULTS = {"token": _fault_token}
+FAULT_NUMBERS = {"token": "hyp_rows_wrong"}
 
 
 def run(cell, system, readers) -> Dict:

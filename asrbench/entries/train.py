@@ -58,6 +58,8 @@ def _fault_no_exchange():
 
 FAULTS = {"unchanged": _fault_unchanged, "half_batch": _fault_half_batch,
           "no_exchange": _fault_no_exchange}
+FAULT_NUMBERS = {"unchanged": "update_gap", "half_batch": "grad_gap", "no_exchange": "grad_gap"}
+MULTI_PROCESS_FAULTS = ("no_exchange",)
 
 
 def feed(b) -> Dict:

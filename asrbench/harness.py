@@ -3,10 +3,12 @@ comparison with the reference, and the result line.
 
 Everything a cell needs is found by name: its entry in `BENCHMARK.json`
 (configuration, traffic mix, chips), `configs/<config>.json` (the recipe and
-its overrides, the configuration's sizes, and `reference`: the name of its
-plain reference, `reference/<reference>.py`), `traffic/<mix>.json` (read by
-`yardstick/traffic.py`; its `entry` names `entries/<entry>.py`, the module
-that drives the cell), `limits/<cell>.json` (`limits`: the limit of each
+its overrides, the configuration's sizes, `reference`: the name of its
+plain reference, `reference/<reference>.py`, and `tiny`: the dotted
+overrides of its small form for the CPU tests), `traffic/<mix>.json` (read
+by `yardstick/traffic.py`; its `entry` names `entries/<entry>.py`, the
+module that drives the cell; its `tiny`, the keys of its small form),
+`limits/<cell>.json` (`limits`: the limit of each
 number that decides `correct`; `start_step`, for a training cell: the
 optimizer steps its state counts as taken before the three checked steps, 0
 when absent) and, for each per-layer metric that `BENCHMARK.json` gives the
@@ -18,7 +20,11 @@ end-to-end metric named `<quantity>.<suffix>` is the cell's own copy of
 An entry module has `TRACE_UNITS` (the batches or steps of the traced
 stretch) and `run(cell, system, readers)`, which warms up, measures, traces
 through `cell._traced` when `readers` is not empty, compares with the
-reference (`cell.ref`) and returns `cell._result(...)`. The reference
+reference (`cell.ref`) and returns `cell._result(...)`; and, for the
+benchmark's tests, its faults (`FAULTS`: name -> a function that plants the
+fault and returns its undo), the number of the limits that each fault must
+push over its limit (`FAULT_NUMBERS`) and the faults that only a cell of
+several processes can have (`MULTI_PROCESS_FAULTS`). The reference
 module has `param_shapes(cfg)`: the name and shape of every parameter of
 the system that the configuration describes, from which the seed's weights
 are drawn.

@@ -19,7 +19,7 @@ def main() -> None:
     launch.initialize(device="cpu")
     if len(sys.argv) > 1:
         harness.load_module("entries", "train").FAULTS[sys.argv[1]]()
-    spec = tiny_spec("bf_sm.train_dp4", "train")
+    spec = tiny_spec("bf_sm.train_dp4")
     res = harness.CellRun("bf_sm.train_dp4", 77, 0.3, False, "cpu", time.perf_counter(),
                           spec).run()
     if launch.process_index() == 0:

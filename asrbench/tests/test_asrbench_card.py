@@ -1,6 +1,7 @@
 """On the card, at each one-chip cell's own size: a sound run of the system
-reads `correct`; a decode cell's control (the system with its own W8A8 path)
-does not; the training cell's control (the reference with float8 products in
+reads `correct`; the control of every cell whose entry makes it the system
+with its own lower-precision path (decode: W8A8, `model.act_int8`) does
+not; the training cell's control (the reference with float8 products in
 the system's place) reads above the sound run, and half of each batch left
 out is not correct. Without a card these tests skip.
 
@@ -14,6 +15,7 @@ import torch
 
 from asrbench import harness
 from asrbench.reference import compare
+from asrbench.tests import checks
 
 
 def _card():
@@ -28,13 +30,18 @@ def _run(cell, spec, device, overrides=None):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", ["bf_sm.decode", "bf_mha.decode_long"])
+@pytest.mark.parametrize("cell", [w["name"] for w in harness.load_benchmark()["workloads"]
+                                  if w["chips"] == 1
+                                  and hasattr(checks.entry_of(w), "CONTROL_OVERRIDES")])
 def test_sound_run_is_correct_and_control_is_not(cell):
+    """Every one-chip cell whose entry's control is the system with its
+    own lower-precision path (`CONTROL_OVERRIDES`)."""
     device = _card()
     spec = harness.cell_spec(harness.load_benchmark(), cell)
     res = _run(cell, spec, device)
     assert res["correct"], res["numbers"]
-    numbers = _run(cell, spec, device, {"model.act_int8": True})["numbers"]
+    overrides = checks.entry_of(spec["workload"]).CONTROL_OVERRIDES
+    numbers = _run(cell, spec, device, overrides)["numbers"]
     assert not all(c["ok"] for c in compare.judge(numbers, spec["limits"])), numbers
 
 

@@ -10,34 +10,30 @@ import os
 import socket
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import pytest
 
 from asrbench import harness
-from asrbench.tests.tiny import tiny_config, tiny_spec
+from asrbench.tests import checks
 
 ROOT = Path(__file__).resolve().parents[2]
 
 
-@pytest.mark.parametrize("cell, entry, fault, moved", [
-    ("bf_sm.decode", "decode", "token", "hyp_rows_wrong"),
-    ("bf_mha.decode_long", "decode", "token", "hyp_rows_wrong"),
-    ("bf_sm.train", "train", "unchanged", "update_gap"),
-    ("bf_sm.train", "train", "half_batch", "grad_gap"),
-])
-def test_fault_makes_correct_false(cell, entry, fault, moved):
-    config = tiny_config("branchformer_mha", nhead=4) if "mha" in cell else None
-    spec = tiny_spec(cell, entry, config=config)
-    undo = harness.load_module("entries", entry).FAULTS[fault]()
-    try:
-        res = harness.CellRun(cell, 2**31 + 9, 0.3, False, "cpu", time.perf_counter(),
-                              spec).run()
-    finally:
-        undo()
-    assert res["correct"] is False
-    assert res["checks"][moved]["value"] > res["checks"][moved]["limit"], res["checks"]
+@pytest.mark.parametrize("cell, fault, number", [
+    pytest.param(*case, id=f"{case[0]}-{case[1]}")
+    for case in checks.fault_cases(harness.load_benchmark())])
+def test_fault_makes_correct_false(cell, fault, number):
+    """Every one-chip cell and every fault of its entry that one process can
+    have, found by name: the fault pushes the number its entry names over
+    its limit."""
+    checks.fault_makes_correct_false(harness.load_benchmark(), cell, fault, number)
+
+
+def test_the_four_faults_of_the_one_chip_cells_are_found():
+    assert {(c, f) for c, f, _ in checks.fault_cases(harness.load_benchmark())} >= {
+        ("bf_sm.decode", "token"), ("bf_mha.decode_long", "token"),
+        ("bf_sm.train", "unchanged"), ("bf_sm.train", "half_batch")}
 
 
 def _four_processes(*args):
@@ -57,5 +53,6 @@ def _four_processes(*args):
 
 def test_exchange_left_out_makes_correct_false():
     res = _four_processes("no_exchange")
+    number = harness.load_module("entries", "train").FAULT_NUMBERS["no_exchange"]
     assert res["correct"] is False
-    assert res["checks"]["grad_gap"]["value"] > res["checks"]["grad_gap"]["limit"]
+    assert res["checks"][number]["value"] > res["checks"][number]["limit"]

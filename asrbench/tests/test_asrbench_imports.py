@@ -16,9 +16,9 @@ HARNESS_RUN = """
 import json, sys, time
 from asrbench import control, harness, run
 from asrbench.tests.tiny import tiny_spec
-for cell, entry, metrics in (("bf_sm.decode", "decode", ("mfu.decode", "idle_share.decode")),
-                             ("bf_sm.train", "train", ("mfu.train",))):
-    spec = tiny_spec(cell, entry, per_layer=metrics)
+for cell, metrics in (("bf_sm.decode", ("mfu.decode", "idle_share.decode")),
+                      ("bf_sm.train", ("mfu.train",))):
+    spec = tiny_spec(cell, per_layer=metrics)
     harness.CellRun(cell, 1, 0.2, True, "cpu", time.perf_counter(), spec).run()
 for m in harness.load_benchmark()["per_layer"]:
     harness.load_reader(m["name"])
@@ -30,10 +30,10 @@ import json, sys, torch
 from asrbench.reference import asr, compare
 from asrbench.tests import tiny
 from asrbench.yardstick import traffic, weights
-cfg = {k: v for k, v in tiny.tiny_config().items()}
+cfg = tiny.tiny_config("branchformer_summarymixing")
 w = weights.make_weights(asr.param_shapes(cfg), 1, "cpu")
 stats = weights.make_norm_stats(80, 2, "cpu")
-pool = traffic.make_pool(dict(tiny.MIXES["train"]), 3, "cpu", vocab=50)
+pool = traffic.make_pool(tiny.tiny_mix("librispeech_train"), 3, "cpu", vocab=50)
 asr.ctc_log_probs(w, cfg, stats, pool[0].wav, pool[0].wav_lens)
 g = torch.Generator(); g.manual_seed(4)
 b = pool[0]

@@ -1,6 +1,8 @@
 """The harness finds a cell's entry module, reference module and readers by
 name: a cell made only of new files (configuration, mix, limits, entry,
-reference, reader) runs through `CellRun.run`; the system as built carries
+reference, reader) runs through `CellRun.run`, and a streaming
+Conformer-transducer cell of new files passes the checks the benchmark's own
+cells pass (`checks.py`); the system as built carries
 the transducer where the recipe has one; the recipe is checked against every
 section the configuration file states; and a reader's traced context holds
 the program's spans, the counters' rise and every process's span times, by
@@ -14,14 +16,10 @@ import pytest
 import torch
 
 from asrbench import harness
+from asrbench.tests import checks, transducer_cell
 from asrbench.tests.tiny import tiny_config, tiny_spec
-
-TRANSDUCER_RECIPE = "recipes/LibriSpeech/conformer_summarymixing_transducer.yaml"
-TINY_CONFORMER = {"model.d_model": 32, "model.num_encoder_layers": 1, "model.d_ffn": 64,
-                  "model.nhead": 2, "model.local_proj_hid_dim": [32],
-                  "model.local_proj_out_dim": 32, "model.summary_hid_dim": [32],
-                  "model.output_neurons": 20, "transducer.joint_dim": 24,
-                  "transducer.dec_dim": 16}
+from asrbench.tests.transducer_cell import TINY_CONFORMER, TRANSDUCER_RECIPE
+from asrbench.yardstick import traffic
 
 ENTRY = '''
 import time
@@ -83,7 +81,7 @@ def _new_cell(root):
     """A cell of new files under `root`, laid out as the benchmark's folder."""
     for d in ("configs", "traffic", "limits", "entries", "reference", "metrics"):
         (root / d).mkdir()
-    cfg = tiny_config()
+    cfg = tiny_config("branchformer_summarymixing")
     cfg["training"]["precision"] = "fp32"
     cfg["overrides"]["training.precision"] = "fp32"
     cfg.update(name="tiny_cfg", reference="tiny_ref")
@@ -126,6 +124,47 @@ def test_a_cell_of_new_files_only_runs(tmp_path, monkeypatch):
     assert not (package / "entries" / "forward_gap.py").exists()
 
 
+def _tree(root):
+    return {p.relative_to(root): p.read_bytes() for p in sorted(root.rglob("*"))
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_transducer_cell_of_new_files_only_passes_the_benchmark_checks(tmp_path,
+                                                                          monkeypatch):
+    """A streaming Conformer-transducer cell laid out under a temporary
+    folder passes the checks that the benchmark's own cells pass (found by
+    name, recipe against configuration, every fault of its entry), and runs
+    traced and plain, with no file of the benchmark's folder touched."""
+    package = harness.HERE
+    before = _tree(package)
+    here = tmp_path / "asrbench"
+    bench = transducer_cell.write(here)
+    monkeypatch.setattr(harness, "HERE", here)
+    checks.cells_load_by_name(bench)
+    checks.recipes_match(bench)
+    cases = checks.fault_cases(bench)
+    assert cases == [(transducer_cell.CELL, "unchanged", "samples_lost")]
+    for case in cases:
+        res = checks.fault_makes_correct_false(bench, *case)
+        assert res["checks"]["samples_lost"]["value"] > 0
+    cell = transducer_cell.CELL
+    spec = tiny_spec(cell, bench, per_layer=("stream_chunks",))
+    traced = harness.CellRun(cell, 2**31 + 23, 0.2, True, "cpu", time.perf_counter(),
+                             spec).run()
+    assert traced["correct"] is True, traced["checks"]
+    # one `stream.chunk` span a chunk of each traced stream; no kernel on the CPU
+    size = spec["mix"]["chunk_frames"] * 4 * 160   # 4 Fbank hops of 160 samples a frame
+    pool = traffic.make_pool(spec["mix"], 1, "cpu")
+    chunks = sum(-(-pool[j % len(pool)].wav.shape[1] // size) for j in range(2))
+    assert traced["metrics"] == {"stream_chunks": {"value": chunks, "unit": "1"}}
+    plain = harness.CellRun(cell, 2**31 + 23, 0.2, False, "cpu", time.perf_counter(),
+                            spec).run()
+    assert plain["correct"] is True and plain["checks"]["samples_lost"]["value"] == 0
+    assert set(plain["metrics"]) == {"streams_per_s", "setup_s"}
+    assert plain["metrics"]["streams_per_s"]["value"] > 0
+    assert _tree(package) == before
+
+
 def test_the_system_as_built_carries_the_transducer():
     cfg = {"name": "tiny_transducer", "recipe": TRANSDUCER_RECIPE, "overrides": TINY_CONFORMER,
            "transducer": {"joint_dim": 24, "dec_dim": 16}}
@@ -146,11 +185,11 @@ def test_the_system_as_built_carries_the_transducer():
 
 
 def test_a_section_the_recipe_lacks_is_refused():
+    """(That each configuration's system carries a transducer exactly where
+    its recipe has the section is `checks.recipes_match`'s.)"""
     cfg = dict(harness.load_config("branchformer_summarymixing"), transducer={"joint_dim": 640})
     with pytest.raises(SystemExit, match="transducer section"):
         harness.build_system(cfg, "meta")
-    assert harness.build_system(harness.load_config("branchformer_summarymixing"),
-                                "meta").transducer is None
 
 
 def test_traced_context_by_hand(monkeypatch):
@@ -179,7 +218,7 @@ def test_traced_context_by_hand(monkeypatch):
         fused_summary.fused_summary_mixing.launches += 2
 
     run = harness.CellRun("bf_sm.train", 3, 0.1, True, "cpu", time.perf_counter(),
-                          tiny_spec("bf_sm.train", "train"))
+                          tiny_spec("bf_sm.train"))
     values, (summary, stretch_s) = run._traced(
         torch.nn.Linear(2, 2), {"probe": SimpleNamespace(read=lambda c: seen.append(c) or 1.0)},
         1.0, 0.0, 3, step)
@@ -189,7 +228,7 @@ def test_traced_context_by_hand(monkeypatch):
     assert ctx.counters["collectives"] == {"calls": 3, "bytes": 192}
     assert ctx.counters["summary_mixing"]["launches"] == 6
     assert ctx.counters["csgu"] == {"launches": 0, "plain_calls": 0, "int8_calls": 0}
-    assert set(ctx.counters) == {"summary_mixing", "csgu", "relpos_attention", "collectives"}
+    assert set(ctx.counters) >= {"summary_mixing", "csgu", "relpos_attention", "collectives"}
     assert ctx.spans is summary and summary.busy_s == 0
     assert ctx.spans.span_steps == {"probe.outer": [0.0] * 3, "probe.inner": [0.0] * 3}
     assert ctx.peers == [ctx.spans.span_steps]

@@ -24,13 +24,12 @@ def fp32(cfg):
     return cfg
 
 
-@pytest.mark.parametrize("config, extra", [("branchformer_summarymixing", {}),
-                                           ("branchformer_mha", {"nhead": 4})])
-def test_decode_forward_matches_system(config, extra):
+@pytest.mark.parametrize("config", ["branchformer_summarymixing", "branchformer_mha"])
+def test_decode_forward_matches_system(config):
     from summarymixing_tpu_torch.transcribe import greedy_ctc_decode
 
-    cfg = fp32(tiny_config(config, **extra))
-    spec = tiny_spec("bf_sm.decode", "decode", config=cfg)
+    cfg = fp32(tiny_config(config))
+    spec = tiny_spec("bf_sm.decode", config=cfg)
     system = harness.build_system(cfg, "cpu")
     model, fbank = system.model, system.fbank
     w = make_weights(ref.param_shapes(cfg), 11, "cpu")
@@ -47,8 +46,8 @@ def test_decode_forward_matches_system(config, extra):
 
 
 def test_training_step_matches_system():
-    cfg = fp32(tiny_config())
-    spec = tiny_spec("bf_sm.train", "train", config=cfg)
+    cfg = fp32(tiny_config("branchformer_summarymixing"))
+    spec = tiny_spec("bf_sm.train", config=cfg)
     system = harness.build_system(cfg, "cpu")
     model = system.model
     shapes = ref.param_shapes(cfg)
@@ -73,8 +72,8 @@ def test_training_step_matches_system():
 def test_update_past_warmup_matches_system():
     """At the cell's `start_step` (the schedule's peak) both sides take the
     same real step: the change of every leaf the rule keeps agrees by norm."""
-    cfg = fp32(tiny_config())
-    spec = tiny_spec("bf_sm.train", "train", config=cfg)
+    cfg = fp32(tiny_config("branchformer_summarymixing"))
+    spec = tiny_spec("bf_sm.train", config=cfg)
     assert spec["start_step"] == cfg["training"]["n_warmup_steps"]
     system = harness.build_system(cfg, "cpu")
     model = system.model

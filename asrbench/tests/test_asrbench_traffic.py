@@ -13,23 +13,29 @@ import pytest
 import torch
 
 from asrbench import harness
+from asrbench.tests import checks
+from asrbench.tests.tiny import tiny_mix
 from asrbench.yardstick import traffic
 
 ROOT = Path(__file__).resolve().parents[2]
 
 
-@pytest.mark.parametrize("mix", ["librispeech_offline", "longform", "librispeech_train",
-                                 "librispeech_train_dp4"])
+BATCHED_MIXES = sorted(p.stem for p in (harness.HERE / "traffic").glob("*.json")
+                       if "batching" in json.loads(p.read_text()))
+
+
+@pytest.mark.parametrize("mix", BATCHED_MIXES)
 def test_batches_respect_the_mix(mix):
-    m = traffic.load_mix(mix)
-    lengths = traffic.utterance_lengths(m)
-    assert lengths.min() >= m["lengths"]["min_s"] and lengths.max() <= m["lengths"]["max_s"]
-    batches = traffic.dynamic_batches(lengths, m["batching"]["max_batch_s"],
-                                      m["batching"]["max_rows"])
-    assert sorted(i for b in batches for i in b) == list(range(len(lengths)))
-    for b in batches:
-        assert len(b) <= m["batching"]["max_rows"]
-        assert len(b) * lengths[b].max() <= m["batching"]["max_batch_s"] + 1e-9
+    """Every mix with `batching`, and its small form."""
+    for m in (traffic.load_mix(mix), tiny_mix(mix)):
+        lengths = traffic.utterance_lengths(m)
+        assert lengths.min() >= m["lengths"]["min_s"] and lengths.max() <= m["lengths"]["max_s"]
+        batches = traffic.dynamic_batches(lengths, m["batching"]["max_batch_s"],
+                                          m["batching"]["max_rows"])
+        assert sorted(i for b in batches for i in b) == list(range(len(lengths)))
+        for b in batches:
+            assert len(b) <= m["batching"]["max_rows"]
+            assert len(b) * lengths[b].max() <= m["batching"]["max_batch_s"] + 1e-9
 
 
 def test_train_mix_limits_and_mean_length():
@@ -58,33 +64,11 @@ def test_pool_is_deterministic_per_seed():
 
 
 def test_every_cell_loads_by_name():
-    bench = harness.load_benchmark()
-    for w in bench["workloads"]:
-        spec = harness.cell_spec(bench, w["name"])
-        entry = harness.load_module("entries", spec["mix"]["entry"])
-        assert entry.TRACE_UNITS > 0 and callable(entry.run)
-        assert (harness.HERE / "entries" / f"{spec['mix']['entry']}.py").is_file()
-        ref = harness.load_reference(spec["config"])
-        assert ref.__file__ == str(harness.HERE / "reference" / f"{spec['config']['reference']}.py")
-        assert callable(ref.param_shapes)
-        assert spec["config"]["name"] == w["config"]
-        assert spec["limits"]
-        assert any(m["name"] == "setup_s" for m in spec["end_to_end"])
-        assert len(spec["end_to_end"]) >= 2 and spec["per_layer"]
-        for m in spec["per_layer"]:
-            assert callable(harness.load_reader(m["name"]).read)
-    for c in bench["configs"]:
-        cfg = json.loads((ROOT / c["file"]).read_text())
-        assert cfg["source"] == c["source"] and cfg["reduced"] == c["reduced"]
+    checks.cells_load_by_name(harness.load_benchmark())
 
 
 def test_every_recipe_matches_its_configuration_file():
-    for c in harness.load_benchmark()["configs"]:
-        cfg = harness.load_config(c["name"])
-        system = harness.build_system(cfg, "meta")
-        shapes = dict(harness.load_reference(cfg).param_shapes(cfg))
-        assert {n: tuple(p.shape) for n, p in system.named_parameters().items()} == shapes
-        assert system.transducer is None
+    checks.recipes_match(harness.load_benchmark())
 
 
 def test_run_without_a_card_exits_nonzero():

@@ -1,40 +1,44 @@
-"""A tiny cell for CPU tests: the flagship's layer structure at small widths
-and depth, with small traffic mixes."""
+"""A cell's small form for CPU tests, from its own files: each configuration
+file's `tiny` (dotted overrides that shrink it, in the recipe's override
+form) and each mix file's `tiny` (the keys its small form replaces). Holds
+no size, configuration or entry of its own, so a cell added as new files
+brings its small form with it."""
 
 from __future__ import annotations
 
 import copy
+from typing import Dict, Iterable, Optional
 
 from asrbench import harness
-
-TINY_MODEL = {"d_model": 64, "num_encoder_layers": 2, "num_decoder_layers": 1, "d_ffn": 128,
-              "csgu_linear_units": 128, "local_proj_hid_dim": [64], "local_proj_out_dim": 64,
-              "summary_hid_dim": [64], "summary_out_dim": 64, "output_neurons": 50}
-MIXES = {
-    "decode": {"entry": "decode", "utterances": 6, "length_seed": 3,
-               "lengths": {"kind": "uniform", "min_s": 0.8, "max_s": 2.5},
-               "batching": {"max_batch_s": 6.0, "max_rows": 3}, "pad_quantum_s": 0.25,
-               "check_batches": 2, "check_rows": 2},
-    "train": {"entry": "train", "utterances": 12, "length_seed": 4,
-              "lengths": {"kind": "uniform", "min_s": 0.8, "max_s": 2.5},
-              "batching": {"max_batch_s": 6.0, "max_rows": 3}, "pad_quantum_s": 0.25,
-              "tokens_per_s": 3.5},
-}
+from asrbench.yardstick import traffic
 
 
-def tiny_config(name: str = "branchformer_summarymixing", **model) -> dict:
+def tiny_config(name: str) -> Dict:
+    """Configuration `name` with its `tiny` overrides applied both to the
+    sections the file states and to the recipe's overrides."""
     cfg = copy.deepcopy(harness.load_config(name))
-    cfg["model"].update(TINY_MODEL, **model)
-    cfg["overrides"] = dict(cfg["overrides"], **{f"model.{k}": v for k, v in cfg["model"].items()
-                                                 if k in TINY_MODEL or k in model})
+    tiny = cfg.pop("tiny")
+    for key, value in tiny.items():
+        section, field = key.split(".", 1)
+        cfg.setdefault(section, {})[field] = copy.deepcopy(value)
+    cfg["overrides"] = dict(cfg.get("overrides", {}), **tiny)
     return cfg
 
 
-def tiny_spec(cell: str, entry: str, config: dict = None, per_layer=()) -> dict:
-    bench = harness.load_benchmark()
-    spec = harness.cell_spec(bench, cell)
-    spec = dict(spec, config=config or tiny_config(spec["workload"]["config"]),
-                mix=copy.deepcopy(MIXES[entry]))
+def tiny_mix(name: str) -> Dict:
+    """Mix `name` (under the benchmark's folder, `harness.HERE`) with the
+    keys of its `tiny` form in place of its own."""
+    mix = traffic.load_mix(name, harness.HERE)
+    return dict(mix, **mix.pop("tiny"))
+
+
+def tiny_spec(cell: str, bench: Optional[Dict] = None, config: Optional[Dict] = None,
+              per_layer: Iterable[str] = ()) -> Dict:
+    """`harness.cell_spec` of `cell` in `bench` (`BENCHMARK.json` when None)
+    with its configuration (or `config`) and mix in their small forms, and
+    only the per-layer metrics named in `per_layer`."""
+    spec = harness.cell_spec(bench or harness.load_benchmark(), cell)
+    w = spec["workload"]
+    spec = dict(spec, config=config or tiny_config(w["config"]), mix=tiny_mix(w["traffic"]))
     spec["per_layer"] = [m for m in spec["per_layer"] if m["name"] in per_layer]
     return spec
-

@@ -14,7 +14,9 @@ A mix file gives:
 - `pad_quantum_s`: each batch's sample count rounded up to this;
 - `tokens_per_s` (a mix of training batches): target tokens per second of
   audio, drawn uniformly from the vocabulary without the blank/pad, BOS and
-  EOS ids; a mix without it makes no targets.
+  EOS ids; a mix without it makes no targets;
+- `tiny`: the keys that the mix's small form replaces, for the benchmark's
+  CPU tests (`asrbench/tests/tiny.py`); no run of the benchmark reads it.
 
 The run seed draws the audio, the targets and the order in which the window
 cycles through the pool. Audio is a voiced signal (a few harmonics of a

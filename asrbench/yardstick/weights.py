@@ -1,11 +1,16 @@
 """Weights and frozen normalisation statistics made from the seed on the
 device: one normal draw for every parameter at once, scaled per leaf.
 
-- matrices and convolution kernels: std 1/sqrt(fan in) (a depthwise kernel
-  `[K, C]` has fan in K; a `[out, in, ...]` weight the product of the rest);
-- the token embedding: std 1/sqrt(d), so that sqrt(d)-scaled rows are unit;
-- LayerNorm scales: 1 + 0.1·N; the cgMLP gate's conv bias: 1 + 0.1·N;
-- every other bias and the relative-position biases: 0.05·N.
+- every parameter of 2 or more dimensions (matrices, convolution and LSTM
+  kernels), whatever its name: std 1/sqrt(fan in), the product of all its
+  dimensions after the first (`[out, in, ...]`);
+- named exceptions: the token embedding, std 1/sqrt(d), so that
+  sqrt(d)-scaled rows are unit; the cgMLP's depthwise kernel `[K, C]`, fan in
+  K; RelPosMHAXL's relative-position biases `pos_bias_u`, `pos_bias_v`
+  `[H, d/H]`, 0.05·N, as a bias;
+- LayerNorm scales (1-D `.weight`): 1 + 0.1·N; the cgMLP gate's conv bias:
+  1 + 0.1·N;
+- every other bias: 0.05·N.
 """
 
 from __future__ import annotations
@@ -24,9 +29,11 @@ def _scale_shift(name: str, shape: Tuple[int, ...]) -> Tuple[float, float]:
         return 1.0 / math.sqrt(shape[0]), 0.0
     if name.endswith("csgu.conv_bias"):
         return 0.1, 1.0
-    if len(shape) >= 2 and name.endswith(".weight"):
+    if name.endswith(("pos_bias_u", "pos_bias_v")):
+        return 0.05, 0.0
+    if len(shape) >= 2:
         return 1.0 / math.sqrt(int(np.prod(shape[1:]))), 0.0
-    if len(shape) == 1 and name.endswith(".weight"):
+    if name.endswith(".weight"):
         return 0.1, 1.0
     return 0.05, 0.0
 
