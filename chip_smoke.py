@@ -28,8 +28,9 @@ Phases (any failure exits non-zero):
    each kernel's launch counter must rise by 18 per forward.
    Phase 3 also checks both kernels with a dropout keep-mask (rate 0.1)
    at the training shapes (B=16, T=751) against their plain versions, checks
-   that their autograd Functions' gradients equal the plain versions'
-   autograd gradients bit for bit, and times the masked passes, the cell's
+   that the cell's autograd Function's gradients equal its plain version's
+   autograd gradients bit for bit and the cgMLP's backward kernel's those
+   of its plain backward within CSGU_BWD_TOL, and times the masked passes, the cell's
    pooled pass beside its bound. (c) RelPosMHAXL's attention kernel at the
    long-form cell's shapes (B=4, 8 heads, T = 1,500 and 3,000 with every key
    valid, and T = 3,000 at the cell's ragged lengths) against its plain
@@ -408,6 +409,26 @@ CELL_TOL = 2.0 ** -5
 # output to bf16 where the plain version keeps fp32: two more rounding steps
 # that feed a LayerNorm and a 1536-deep product.
 CSGU_TOL = 2.0 ** -4
+# The cgMLP's backward kernels against their plain version, on max |kernel -
+# plain| / max |plain| per gradient: the same bf16 roundings (h, g, dh, dz)
+# with sums in another order (tests/test_torch_card.py holds the same bound).
+CSGU_BWD_TOL = 2.0 ** -6
+
+
+def function_grads_ok(name, got, plain, backward):
+    """Whether an autograd Function's gradients `got` pass: the cell's equal
+    `plain` (its plain version's autograd gradients) bit for bit; the
+    cgMLP's, whose backward is a kernel, lie within CSGU_BWD_TOL of
+    `backward()` (its plain backward), max |got - want| / max |want| per
+    gradient. Returns (ok, a note for the report)."""
+    import torch
+
+    if name == "summary_mixing":
+        equal = all(torch.equal(a, b) for a, b in zip(got, plain))
+        return equal, f"equal the plain version's bit for bit: {equal}"
+    worst = max(float((a.float() - w.float()).abs().max() / w.float().abs().max())
+                for a, w in zip(got, backward()))
+    return worst <= CSGU_BWD_TOL, f"against the plain backward {worst:.3e} (tol {CSGU_BWD_TOL:.3e})"
 # One training step with the kernels against the same step with their plain
 # versions, both in bf16 compute with the same dropout masks: the kernels
 # round their intermediates where the plain versions keep fp32 (see above),
@@ -921,16 +942,15 @@ def phase_relpos_kernel(kernel_rows):
 
 def phase_masked_kernels(kernel_rows):
     """Both kernels with a dropout keep-mask at the training shapes: forward
-    against the plain version, the autograd Function's gradients against
-    the plain version's autograd gradients (bit for bit), and the masked
-    forward's time, the cell's pooled pass beside its bound."""
+    against the plain version, the autograd Functions' gradients against
+    the cell's plain autograd gradients (bit for bit) and the cgMLP's plain
+    backward (within CSGU_BWD_TOL), and the masked forward's time, the
+    cell's pooled pass beside its bound."""
     import torch
 
     from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
 
     dev = torch.device("cuda")
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True   # the depthwise conv's backward, bit for bit
     g = torch.Generator(device=dev)
     g.manual_seed(4321)
     b, t, d, c2, k = TRAIN_BATCH, max(TRAIN_LENGTHS), 512, 3072, 31
@@ -976,14 +996,16 @@ def phase_masked_kernels(kernel_rows):
             grads.append((out.detach(), torch.autograd.grad(out, [xx] + ws, g_out)))
         torch.cuda.synchronize()
         abs_err, err = rel_err(grads[0][0], grads[1][0])
-        bit_equal = all(torch.equal(a, b_) for a, b_ in zip(grads[0][1], grads[1][1]))
-        ok = err <= tol and bit_equal
+        grad_ok, grad_note = function_grads_ok(
+            name, grads[0][1], grads[1][1],
+            lambda: fused_csgu.convolution_branch_backward_reference(
+                g_out, x, mask, fused_csgu.kernel_weights(weights), 1e-5, keep_branch, keep_prob))
+        ok = err <= tol and grad_ok
         print(f"masked kernel {name} (B={b}, T={t}, dropout {DROPOUT}): max_abs_err {abs_err:.3e} "
-              f"max_rel_err {err:.3e} tol {tol:.3e}; Function gradients equal the plain "
-              f"version's bit for bit: {bit_equal} {'ok' if ok else 'FAILED'}")
+              f"max_rel_err {err:.3e} tol {tol:.3e}; Function gradients {grad_note} "
+              f"{'ok' if ok else 'FAILED'}")
         if not ok:
             fail(f"masked {name} disagrees with its plain version")
-        torch.backends.cudnn.deterministic = deterministic
         launch = mod.kernel_weights(weights)
         call = lambda: kern(x, launch)  # noqa: E731
         ms, eager = graph_ms(call), cuda_ms(call)
@@ -1002,7 +1024,7 @@ def phase_masked_kernels(kernel_rows):
             flops, fp32 = 2 * m * d * c2 + 2 * m * c * d, 2 * m * c * k
         bound_ms, bound_by = bound(nbytes, flops, fp32)
         kernel_rows[name]["masked"] = dict(batch=b, frames=t, max_abs_err=abs_err,
-                                           grad_bit_equal=bit_equal, ms=ms, eager_ms=eager,
+                                           grad_ok=grad_ok, ms=ms, eager_ms=eager,
                                            plain_ms=plain_ms, bound_ms=bound_ms,
                                            bound_by=bound_by)
         print(f"masked kernel {name}: {ms:.4f} ms (graph), eager {eager:.4f} ms, "
@@ -4955,8 +4977,8 @@ def phase_sharded_kernel_shapes(kernel_rows) -> None:
     each pipeline microbatch [B/M, T, 512] of request 0's lengths, and each
     sharded process's rows at the training T (8 rows for FSDP 2x1 and
     composite 2x2, 16 for TP 1x2, at dropout 0). The forward within phase
-    3's tolerances; the autograd Function's gradients equal the plain
-    version's bit for bit, as phase 5 holds them with a mask."""
+    3's tolerances; the autograd Functions' gradients as phase 3 holds them
+    with a mask (`function_grads_ok`)."""
     import torch
 
     from summarymixing_tpu_torch.ops import fused_csgu, fused_summary
@@ -5013,17 +5035,19 @@ def phase_sharded_kernel_shapes(kernel_rows) -> None:
                 outs.append((out.detach(), torch.autograd.grad(out, [xx] + ws, g_out)))
             torch.cuda.synchronize()
             abs_err, err = rel_err(outs[0][0], outs[1][0])
-            bit_equal = all(torch.equal(p_, q_) for p_, q_ in zip(outs[0][1], outs[1][1]))
-            ok = err <= tol and bit_equal
+            grad_ok, grad_note = function_grads_ok(
+                name, outs[0][1], outs[1][1],
+                lambda: fused_csgu.convolution_branch_backward_reference(
+                    g_out, x, mask, fused_csgu.kernel_weights(branch)))
+            ok = err <= tol and grad_ok
             print(f"p26 kernel shapes: {name} {label} [{b}, {t}, {d}], no keep-mask: "
                   f"max_abs_err {abs_err:.3e} max_rel_err {err:.3e} tol {tol:.3e}; Function "
-                  f"gradients equal the plain version's bit for bit: {bit_equal} "
-                  f"{'ok' if ok else 'FAILED'}")
+                  f"gradients {grad_note} {'ok' if ok else 'FAILED'}")
             if not ok:
                 fail(f"phase 26: {name} disagrees with its plain version at {label} "
                      f"[{b}, {t}, {d}]")
             results.append((name, dict(shape=label, batch=b, frames=t, max_abs_err=abs_err,
-                                       max_rel_err=err, grad_bit_equal=bit_equal)))
+                                       max_rel_err=err, grad_ok=grad_ok)))
     torch.backends.cudnn.deterministic = deterministic
     for name, row in results:
         kernel_rows[name].setdefault("p26_shapes", []).append(row)

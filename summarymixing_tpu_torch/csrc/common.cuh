@@ -28,6 +28,14 @@ __device__ __forceinline__ float activate(float x) {
   }
 }
 
+// d/dx of activate<ACT_GELU_TANH>, with the same tanh.approx.f32.
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  const float k = 0.79788456080286536f, a = 0.044715f;
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(k * (x + a * x * x * x)));
+  return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * k * (1.0f + 3.0f * a * x * x);
+}
+
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 
 // Round a float through bf16, as a cast to bf16 and back does.

@@ -13,7 +13,11 @@
 // descriptor for such a tile is `smem_desc(addr)`; a step of 16 along K
 // inside the tile adds 32 bytes to the address. An epilogue that writes a
 // tile the next product reads as its A operand stores through
-// `swizzled_offset`, the same layout TMA writes.
+// `swizzled_offset`, the same layout TMA writes. An operand stored with its
+// M or N index contiguous (a token-major activation read transposed, for a
+// weight gradient) is read MN-major instead: each 128-byte line holds 64
+// consecutive M or N values of one K row, `smem_desc_mn(addr, group)`
+// describes it, and a step of 16 along K is 16 lines down.
 //
 // Weights are in torch.nn.Linear's layout, W[n][k], which is the K-major B
 // operand of wgmma with no transpose. The host side encodes tensor maps with
@@ -160,6 +164,24 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          ((uint64_t)1 << 62);
 }
 
+// wgmma descriptor of a 128-byte-swizzled tile read MN-major: each 128-byte
+// line holds 64 consecutive M or N values of one K row, 8 K rows make a
+// 1024-byte group (the stride between K groups), and the next 64 M or N
+// values start `mn_group_bytes` further on.
+__device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr, uint32_t mn_group_bytes) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(mn_group_bytes >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Descriptor of the 16-deep K step `kk` of a stage's operand tile at `addr`:
+// K-major, 32 bytes along the lines; MN-major (`MN`), 16 lines down, its
+// 64-wide M or N groups 64 lines (8 KB) apart, as a stage's two TMA boxes lie.
+template <bool MN>
+__device__ __forceinline__ uint64_t operand_desc(uint32_t addr, int kk) {
+  if constexpr (MN) return smem_desc_mn(addr + kk * 16 * kLineBytes, 64 * kLineBytes);
+  return smem_desc(addr + kk * 32);
+}
+
 // Byte offset of element (r, c) in a [rows x 64*kb] K-major operand held as
 // k-blocks of `rows` swizzled lines each (block stride rows * 128 bytes).
 __device__ __forceinline__ uint32_t swizzled_offset(int r, int c, int rows) {
@@ -167,6 +189,8 @@ __device__ __forceinline__ uint32_t swizzled_offset(int r, int c, int rows) {
                     ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2);
 }
 
+// d (+)= A * B for a 64 x 128 tile; TA, TB: the operand is read MN-major.
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -175,7 +199,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint6
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -184,7 +208,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // The accumulator of one m64n128 product, as wgmma leaves it: register i of
@@ -212,10 +236,11 @@ struct RingPos {
 // acc[h] = sum_kb A_kb[64h : 64h + 64] * B_kb^T for MH row blocks of 64 and
 // 128 output columns. `a_addr(kb, stage)` and `b_addr(stage)` give the
 // shared addresses of this warpgroup's A tile (MH * 64 lines) and 128-line
-// B tile. Each stage is
+// B tile; with TA or TB that operand is read MN-major, as two 64-line boxes
+// 8 KB apart. Each stage is
 // released (one arrive per warp) once the products that read it are
 // complete; the next stage's products are in flight meanwhile.
-template <int MH, class AAddr, class BAddr>
+template <int MH, bool TA = false, bool TB = false, class AAddr, class BAddr>
 __device__ __forceinline__ void consume(float (&acc)[MH][64], int kblocks, uint64_t* full,
                                         uint64_t* empty, int stages, RingPos& pos, AAddr a_addr,
                                         BAddr b_addr) {
@@ -231,8 +256,8 @@ __device__ __forceinline__ void consume(float (&acc)[MH][64], int kblocks, uint6
     for (int kk = 0; kk < kBK / 16; ++kk)
 #pragma unroll
       for (int h = 0; h < MH; ++h)
-        wgmma_m64n128(acc[h], smem_desc(a + h * 64 * kLineBytes + kk * 32),
-                      smem_desc(b + kk * 32), (kb | kk) != 0);
+        wgmma_m64n128<TA, TB>(acc[h], operand_desc<TA>(a + h * 64 * kLineBytes, kk),
+                              operand_desc<TB>(b, kk), (kb | kk) != 0);
     wgmma_commit();
     wgmma_wait<1>();
 #pragma unroll

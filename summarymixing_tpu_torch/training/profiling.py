@@ -13,8 +13,10 @@ on `torch.profiler` and `torch.cuda`:
   window holds exactly those steps' work;
 - `span(name)`: a `smt::<name>` range around a phase of an entry point
   (`transcribe.greedy_ctc_decode`, `ASRTrainer.train_step`, the gradient
-  exchange), recorded on the profiler's clock while a profile records this
-  thread, so the card's kernels and idle time can be put down to it;
+  exchange) or around the cgMLP branch's backward kernels
+  (`ops.fused_csgu`, in autograd's thread), recorded on the profiler's
+  clock while a profile records this thread, so the card's kernels and
+  idle time can be put down to it;
 - `device_memory_stats()`: `torch.cuda.memory_stats` per card.
 """
 
@@ -42,9 +44,9 @@ def span(name: str):
     records this thread, a `record_function` range `smt::<name>` around the
     block, in the Chrome trace beside the card's kernels and in
     `key_table`. Otherwise one flag check and a shared no-op context: no
-    range, no allocation, no sync. Spans sit in entry points only, never
-    inside a module's `forward` or a registered op, so exported graphs do
-    not change."""
+    range, no allocation, no sync. Spans sit in entry points and in an
+    autograd Function's backward, never inside a module's `forward` or a
+    registered op, so exported graphs do not change."""
     if _profiler_enabled():
         return record_function(SPAN_PREFIX + name)
     return _NO_SPAN

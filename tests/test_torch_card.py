@@ -13,8 +13,13 @@ dropout keep-mask; 2^-7 (RelPosMHAXL's attention): its scores and softmax
 are float32 on both sides, so the two differ by the bf16 rounding of the
 probabilities (normalised in the plain version, not yet in the kernel's
 online softmax) and one bf16 ulp of the output, under 2^-7 of 1 + |plain|.
-The autograd Functions' gradients must equal the plain versions' autograd
-gradients bit for bit: their backward is that VJP.
+The cell's and RelPosMHAXL's autograd Functions' gradients must equal the
+plain versions' autograd gradients bit for bit: their backward is that VJP.
+The cgMLP's backward is a kernel too: its gradients are held against its
+plain version (`convolution_branch_backward_reference`, the same rounding
+points) within CSGU_BWD_TOL and against the float32 VJP of the forward's
+plain version within CSGU_VJP_TOL, both as max |kernel - plain| over
+max |plain| per gradient (the reasons beside the constants).
 """
 
 import pytest
@@ -24,6 +29,15 @@ import worker_cpus  # noqa: F401  (pins each xdist worker to its own cores)
 from summarymixing_tpu_torch.ops import attention, fused_csgu, fused_summary
 
 CELL_TOL, CSGU_TOL, RELPOS_TOL = 2.0 ** -5, 2.0 ** -4, 2.0 ** -7
+# The cgMLP backward against its plain version: the same bf16 roundings (h,
+# g, dh, dz), but sums in another order and tanh.approx in GELU', so a value
+# near a bf16 rounding boundary lands a step (2^-8 relative) away; dx, one
+# bf16 rounding from dz, shows it most (3.8e-3 at most over the cases).
+CSGU_BWD_TOL = 2.0 ** -6
+# ... and against the float32 VJP (fp32 h, dh, dz): three bf16 roundings of
+# 2^-9 relative, which LayerNorm's backward (a difference of row means) and
+# the transposed conv lift to 6.9e-3 of the largest gradient at most.
+CSGU_VJP_TOL = 2.0 ** -5
 
 # (T, valid lengths[, D, 2C]), at flagship widths (D 512, 2C 3072, K 31)
 # unless the case names others:
@@ -54,7 +68,6 @@ def _setup(t, lengths, d=512, c2=3072, k=31):
         pytest.skip("needs a CUDA card; the CPU tests hold the plain versions instead")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True   # the depthwise conv's backward
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def w(*shape, dtype=torch.bfloat16):
@@ -227,7 +240,141 @@ def test_function_gradients_equal_plain_autograd_on_card(kernel):
     assert grads_k[0].dtype == torch.bfloat16
     assert all(gw.dtype == torch.float32 for gw in grads_k[1:])
     for gk, gp in zip(grads_k, grads_p):
-        assert torch.equal(gk, gp)
+        if kernel == "cell":
+            assert torch.equal(gk, gp)
+        else:   # the cgMLP's backward is a kernel of its own (below)
+            assert gk.dtype == gp.dtype and _grad_err(gk, gp) <= CSGU_VJP_TOL
+
+
+def _grad_err(got, want):
+    got, want = got.detach().float(), want.detach().float()
+    assert torch.isfinite(got).all()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+# (T, valid lengths, D, 2C, K) of the cgMLP backward's cases: the flagship
+# decode shape (B = 8, T = 751); a training batch's (40 utterances of 240-340
+# frames, 13,600 rows as a 500 s batch gives); narrow widths with K = 15
+BWD_CASES = {
+    "flagship": (751, [751, 700, 512, 751, 300, 751, 1, 640], 512, 3072, 31),
+    "train_batch": (340, [340 - (i * 37) % 101 for i in range(40)], 512, 3072, 31),
+    "narrow_k15": (150, [150, 97, 1], 256, 512, 15),
+}
+
+
+def _bwd_inputs(case):
+    t, lengths, d, c2, k = BWD_CASES[case]
+    x, mask, _, branch = _setup(t, lengths, d, c2, k)
+    keep = _keep(lengths, t, c2 // 2, seed=3)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    g_out = torch.randn(len(lengths), t, d, generator=g, device="cuda").to(torch.bfloat16)
+    return x, mask, keep, [w.float() for w in branch], g_out
+
+
+def _kernel_grads(x, mask, keep, weights, g_out, need_x=True, need_w=True):
+    xx = x.detach().requires_grad_(need_x)
+    ws = [w.detach().requires_grad_(need_w) for w in weights]
+    out = fused_csgu.fused_convolution_branch(xx, mask, tuple(ws), keep=keep, keep_prob=0.9)
+    leaves = [v for v in [xx] + ws if v.requires_grad]
+    return torch.autograd.grad(out, leaves, g_out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_cgmlp_backward_matches_plain_versions_on_card(case):
+    """The cgMLP backward's kernels, through the wrapper on float32 weights
+    with a keep-mask (rate 0.1) over ragged lengths: every gradient against
+    the plain backward (`convolution_branch_backward_reference`, called
+    here on the card's tensors) within CSGU_BWD_TOL and against the float32 VJP of the forward's
+    plain version (the backward before the kernel) within CSGU_VJP_TOL, in
+    the parameters' own dtype. One forward launch, one backward launch,
+    one backward; the backward launches no forward."""
+    x, mask, keep, weights, g_out = _bwd_inputs(case)
+    fn = fused_csgu.fused_convolution_branch
+    n0, b0, bl0 = fn.launches, fn.backwards, fn.backward_launches
+    got = _kernel_grads(x, mask, keep, weights, g_out)
+    torch.cuda.synchronize()
+    assert (fn.launches - n0, fn.backwards - b0, fn.backward_launches - bl0) == (1, 1, 1)
+    launch = fused_csgu.kernel_weights(weights)
+    plain = fused_csgu.convolution_branch_backward_reference(g_out, x, mask, launch, 1e-5, keep,
+                                                             0.9)
+    xx = x.detach().requires_grad_()
+    ws = [w.detach().requires_grad_() for w in weights]
+    out = fused_csgu.convolution_branch_reference(xx, mask, fused_csgu.kernel_weights(ws),
+                                                  keep=keep, keep_prob=0.9)
+    vjp = torch.autograd.grad(out, [xx] + ws, g_out)
+    assert [v.dtype for v in got] == [torch.bfloat16] + [torch.float32] * 8
+    for i, (k, p, v) in enumerate(zip(got, plain, vjp)):
+        assert k.shape == v.shape, i
+        assert _grad_err(k, p) <= CSGU_BWD_TOL, (i, _grad_err(k, p))
+        assert _grad_err(k, v) <= CSGU_VJP_TOL, (i, _grad_err(k, v))
+
+
+@pytest.mark.gpu
+def test_cgmlp_backward_repeats_bit_for_bit_on_card():
+    """No atomics: two backward passes on the same inputs give the same
+    bits, and one that needs only x, or only the weights, gives the same
+    bits as the one that needs all."""
+    x, mask, keep, weights, g_out = _bwd_inputs("train_batch")
+    first = _kernel_grads(x, mask, keep, weights, g_out)
+    again = _kernel_grads(x, mask, keep, weights, g_out)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    (x_only,) = _kernel_grads(x, mask, keep, weights, g_out, need_w=False)
+    assert torch.equal(x_only, first[0])
+    w_only = _kernel_grads(x, mask, keep, weights, g_out, need_x=False)
+    assert all(torch.equal(a, b) for a, b in zip(w_only, first[1:]))
+
+
+def _span_device_us(trace_path, name):
+    """Occurrences of the program span `smt::<name>` in a Chrome trace and
+    the device microseconds of the kernels launched inside them (matched by
+    correlation, launched on any thread)."""
+    import json
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == f"smt::{name}"]
+    inside = {e["args"]["correlation"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {}) and any(a <= e["ts"] <= b for a, b in spans)}
+    device = sum(e["dur"] for e in events
+                 if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in inside)
+    return len(spans), device
+
+
+@pytest.mark.gpu
+def test_train_step_traces_cgmlp_backward_span_on_card(tmp_path):
+    """A profiled training step of the flagship cut to 2 encoder layers:
+    the span `train.cgmlp_backward` opens once a layer, in autograd's
+    thread, and the kernels launched inside it ran on the card; every
+    backward of the branch ran the kernel."""
+    from summarymixing_tpu_torch.config import build_model, build_trainer
+    from summarymixing_tpu_torch.config.schema import ModelConfig, RecipeConfig, TrainingConfig
+    from summarymixing_tpu_torch.training import profiling
+
+    _setup(8, [8])   # skips without a card
+    cfg = RecipeConfig(model=ModelConfig(num_encoder_layers=2, num_decoder_layers=1),
+                       training=TrainingConfig(grad_accumulation_factor=1))
+    model, fbank = build_model(cfg)
+    trainer = build_trainer(cfg, model, fbank)
+    state = trainer.init_state(0)
+    g = torch.Generator().manual_seed(0)
+    batch = {"wav": 0.1 * torch.randn(2, 32000, generator=g),
+             "wav_lens": torch.tensor([32000, 20000]),
+             "tokens": torch.randint(3, 5000, (2, 6), generator=g),
+             "token_lens": torch.tensor([6, 4])}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    state, _ = trainer.train_step(state, batch)   # warm-up: builds the kernels
+    fn = fused_csgu.fused_convolution_branch
+    b0, bl0 = fn.backwards, fn.backward_launches
+    prof = profiling.start_trace()
+    state, metrics = trainer.train_step(state, batch)
+    path = profiling.stop_trace(prof, str(tmp_path))
+    assert torch.isfinite(metrics["loss"])
+    assert (fn.backwards - b0, fn.backward_launches - bl0) == (2, 2)
+    count, device_us = _span_device_us(path, "train.cgmlp_backward")
+    assert count == 2 and device_us > 0
 
 
 @pytest.mark.gpu

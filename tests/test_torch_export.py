@@ -284,16 +284,20 @@ def _relpos_args(causal: bool):
 
 
 @pytest.mark.parametrize("keep", [False, True], ids=["no_keep", "keep"])
-@pytest.mark.parametrize("op", ["summary_mixing", "convolution_branch", "relpos_attention"])
+@pytest.mark.parametrize("op", ["summary_mixing", "convolution_branch", "relpos_attention",
+                                "convolution_branch_train"])
 def test_registered_ops_pass_opcheck(op, keep):
     """Each op on the CPU against `torch.library.opcheck` and its plain
-    version; for RelPosMHAXL's op `keep` stands for `causal`."""
+    version; for RelPosMHAXL's op `keep` stands for `causal`. The cgMLP's
+    training op gives the inference op's output and, beside it, the bf16
+    `h`, the gate rows' (mean, rstd) and the bf16 `g` its backward reads."""
     if op == "relpos_attention":
         fn, args = attention.relpos_attention_op, _relpos_args(keep)
+    elif op == "summary_mixing":
+        fn, args = fused_summary.summary_mixing_op, _cell_args(keep)
     else:
-        fn, args = ((fused_summary.summary_mixing_op, _cell_args(keep))
-                    if op == "summary_mixing"
-                    else (fused_csgu.convolution_branch_op, _branch_args(keep)))
+        fn = getattr(fused_csgu, f"{op}_op")
+        args = _branch_args(keep)
     assert fn._qualname == f"summarymixing_torch::{op}"
     torch.library.opcheck(fn, args)
     if op == "relpos_attention":
@@ -303,7 +307,17 @@ def test_registered_ops_pass_opcheck(op, keep):
         want = (fused_summary.summary_mixing_reference if op == "summary_mixing"
                 else fused_csgu.convolution_branch_reference)(*args[:2], tuple(args[2]),
                                                               *args[3:])
-    assert torch.equal(fn(*args), want)
+    if op == "convolution_branch_train":
+        out, h, stats, g = fn(*args)
+        b, t, d = args[0].shape
+        c2 = args[2][0].shape[0]
+        assert torch.equal(out, want)
+        assert (h.shape, h.dtype, stats.shape, stats.dtype, g.shape, g.dtype) == (
+            (b, t, c2), torch.bfloat16, (b * t, 2), torch.float32, (b, t, c2 // 2), torch.bfloat16)
+        gate = h[..., c2 // 2:].float().reshape(b * t, -1)
+        torch.testing.assert_close(stats[:, 0], gate.mean(-1))
+    else:
+        assert torch.equal(fn(*args), want)
 
 
 def test_ops_export_with_symbolic_batch_and_length():

@@ -190,6 +190,113 @@ def test_convolution_branch_options_match_flax(rng, linear_after_conv, gate):
     _close(port(_t(x), pad_mask=_t(mask)), want)
 
 
+# The cgMLP backward's plain version against autograd of the forward's plain
+# version. In float32 its rounding points (casts to x's dtype) round nothing,
+# so the two differ by the order of fp32 sums: 1e-5 of the largest gradient.
+# In bf16 it rounds h, dh and dz where the forward's plain version keeps fp32
+# (the kernel's rounding points): three roundings of 2^-9 relative, which
+# LayerNorm's backward (a difference of row means) and the sums over tokens
+# lift to under 2^-5 of the largest gradient (about 2^-7 measured).
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -5}
+BWD_NEEDS = {"all": (True,) * 9, "x": (True,) + (False,) * 8, "weights": (False,) + (True,) * 8}
+
+
+def _grad_err(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("needs", sorted(BWD_NEEDS))
+@pytest.mark.parametrize("k", [15, 31])
+@pytest.mark.parametrize("keep_rate", [0.0, 0.1], ids=["no_keep", "keep"])
+@pytest.mark.parametrize("pad", ["none", "ragged"])
+def test_convolution_branch_backward_reference_matches_autograd(pad, keep_rate, k, needs, dtype):
+    """`convolution_branch_backward_reference` (the kernel's backward in
+    plain PyTorch) against `torch.autograd.grad` of
+    `convolution_branch_reference` on the launch weights, over pad masks,
+    keep-masks, both conv widths and which gradients are needed: each
+    needed gradient within BWD_TOL of the largest, x's in x's dtype, the
+    weights' in float32, and None for the others."""
+    g = torch.Generator().manual_seed(k + 7 * len(needs))
+    b, t, d, c2 = 3, 40, 16, 32
+    x = torch.randn(b, t, d, generator=g).to(dtype)
+    f32 = torch.float32
+    def r(*shape, scale=0.3, shift=0.0):
+        return shift + scale * torch.randn(*shape, generator=g)
+    c = c2 // 2
+    weights = (r(c2, d), r(c2, scale=0.1), r(c, shift=1.0), r(c), r(k, c),
+               r(c, scale=0.1, shift=1.0), r(d, c), r(d, scale=0.1))
+    launch = fused_csgu.kernel_weights(weights) if dtype == torch.bfloat16 else weights
+    mask = None if pad == "none" else _t(_pad([40, 23, 1], t))
+    keep = (torch.rand(b, t, c2 // 2, generator=g) >= keep_rate) if keep_rate else None
+    keep_prob = 1.0 - keep_rate
+    want_grads = BWD_NEEDS[needs]
+    xr = x.clone().requires_grad_(want_grads[0])
+    wr = [w.clone().requires_grad_(need) for w, need in zip(launch, want_grads[1:])]
+    out = fused_csgu.convolution_branch_reference(xr, mask, tuple(wr), 1e-5, keep, keep_prob)
+    g_out = torch.randn(out.shape, generator=g).to(dtype)
+    leaves = [v for v in [xr] + wr if v.requires_grad]
+    want = iter(torch.autograd.grad(out, leaves, g_out))
+    got = fused_csgu.convolution_branch_backward_reference(g_out, x, mask, launch, 1e-5, keep,
+                                                           keep_prob, want_grads)
+    assert len(got) == 9
+    for i, (v, need) in enumerate(zip(got, want_grads)):
+        if not need:
+            assert v is None, i
+            continue
+        w = next(want)
+        assert v.shape == w.shape and v.dtype == (dtype if i == 0 else f32), i
+        assert _grad_err(v, w) <= BWD_TOL[dtype], (i, _grad_err(v, w))
+
+
+def test_cgmlp_routes_without_a_card_keep_nothing_for_the_backward(monkeypatch):
+    """What each route keeps for a backward, on CPU tensors: the CPU route
+    is autograd of the plain version (no Function, the training op never
+    called); the kernel route under no_grad is one bare call of the
+    inference op and records nothing; the Function on CPU tensors keeps its
+    inputs and the launch weights only (no `h`, statistics or `g`), and its
+    backward is the plain backward, counted in `backwards` and not in
+    `backward_launches`."""
+    g = torch.Generator().manual_seed(3)
+    b, t, d, c2, k = 2, 12, 16, 32, 5
+    weights = tuple(0.3 * torch.randn(*shape, generator=g) for shape in
+                    ((c2, d), (c2,), (c2 // 2,), (c2 // 2,), (k, c2 // 2), (c2 // 2,),
+                     (d, c2 // 2), (d,)))
+    weights = tuple(w.requires_grad_() for w in weights)
+    x = torch.randn(b, t, d, generator=g).requires_grad_()
+
+    def refuse(*args):
+        raise AssertionError("the training op runs only where a backward will read it")
+    monkeypatch.setattr(fused_csgu, "convolution_branch_train_op", refuse)
+    out = fused_csgu.fused_convolution_branch(x, None, weights)
+    seen, stack = set(), [out.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is not None and fn not in seen:
+            seen.add(fn)
+            stack.extend(f for f, _ in fn.next_functions)
+    assert not any("FusedConvolutionBranch" in type(fn).__name__ for fn in seen)
+    calls = []
+
+    def op(*args):
+        calls.append(args)
+        return fused_csgu.convolution_branch_reference(args[0], args[1], tuple(args[2]),
+                                                       *args[3:])
+    monkeypatch.setattr(fused_csgu, "convolution_branch_op", op)
+    with torch.no_grad():
+        bare = fused_csgu.kernel_call(x, None, weights, 1e-5, None, 1.0)
+    assert len(calls) == 1 and bare.grad_fn is None
+    fn = fused_csgu.fused_convolution_branch
+    b0, bl0 = fn.backwards, fn.backward_launches
+    out = fused_csgu.kernel_call(x, None, weights, 1e-5, None, 1.0)
+    assert len(calls) == 2 and "FusedConvolutionBranch" in type(out.grad_fn).__name__
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 3 + 8 and saved[0] is not None and saved[1] is None
+    out.sum().backward()
+    assert (fn.backwards - b0, fn.backward_launches - bl0) == (1, 0)
+    assert x.grad is not None and all(w.grad is not None for w in weights)
+
+
 def test_wrappers_take_plain_version_on_cpu_only(rng):
     x = _t(rng.standard_normal((2, 6, 32)))
     pad = torch.ones(2, 6, 1)
